@@ -1,0 +1,432 @@
+"""Keyframe-window joint mapping (src/Mapper.py), strict schedule, as in
+the JAX package:
+
+- the staged middle -> fine -> colour schedule with static iteration
+  counts from the iter-ratio thresholds (Mapper.py:403-419);
+- one Adam over the whole tree (decoders, grids, window cameras) with a
+  per-stage learning-rate tree; its moments are fresh per call and kept
+  across the call's stages;
+- frustum feature selection (Mapper.py:93-164) is a voxel mask multiplied
+  into the grid gradients: invisible features get exactly zero update;
+- local BA optimises the window cameras with a per-slot LR mask (the
+  oldest keyframe and invalid slots frozen; Mapper.py:346-363).
+
+Leaves whose learning rate is structurally zero are frozen: they get no
+gradient and no update.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from nice_slam_torch.camera import Camera
+from nice_slam_torch.keyframes import (
+    KeyframeStore,
+    add_keyframe,
+    build_window,
+    project_points,
+    select_keyframes_global,
+    select_keyframes_overlap,
+)
+from nice_slam_torch.models.decoders import ModelSpec
+from nice_slam_torch.ops.optim import adam_init, adam_update
+from nice_slam_torch.ops.rays import ray_aabb_far
+from nice_slam_torch.ops.se3 import (
+    cam_from_tensor,
+    tensor_from_cam,
+    to_homogeneous,
+)
+from nice_slam_torch.ops.tree import tree_leaves, tree_map
+from nice_slam_torch.render import RenderSpec, render_rays
+
+
+@dataclass(frozen=True)
+class StageLR:
+    decoders: float = 0.0
+    coarse: float = 0.0
+    middle: float = 0.0
+    fine: float = 0.0
+    color: float = 0.0
+
+
+DEFAULT_STAGE_LR = {
+    "coarse": StageLR(coarse=0.001),
+    "middle": StageLR(middle=0.1),
+    "fine": StageLR(middle=0.005, fine=0.005),
+    "color": StageLR(decoders=0.005, middle=0.005, fine=0.005, color=0.005),
+}
+
+
+@dataclass(frozen=True)
+class MapSpec:
+    pixels: int = 1000
+    window_size: int = 5
+    w_color_loss: float = 0.2
+    middle_iter_ratio: float = 0.4
+    fine_iter_ratio: float = 0.6
+    fix_fine: bool = True
+    fix_color: bool = False
+    train_middle: bool = False
+    frustum_selection: bool = True
+    keyframe_selection: str = "overlap"
+    keyframe_every: int = 50
+    ba: bool = True
+    ba_cam_lr: float = 0.001
+    nice: bool = True
+    coarse_mapper: bool = False
+    grad_clip: float = 0.0
+    stage_lr: Tuple[Tuple[str, StageLR], ...] = tuple(
+        sorted(DEFAULT_STAGE_LR.items()))
+
+    def stage_lr_table(self):
+        return dict(self.stage_lr)
+
+    def stage_iters(self, num_joint_iters: int) -> Dict[str, int]:
+        """Per-stage iteration counts from the reference's iter-ratio
+        thresholds (Mapper.py:403-410)."""
+        if self.coarse_mapper:
+            return {"coarse": num_joint_iters, "middle": 0, "fine": 0,
+                    "color": 0}
+        n = num_joint_iters
+        n_mid = min(int(n * self.middle_iter_ratio) + 1, n)
+        n_fine = max(min(int(n * self.fine_iter_ratio) + 1, n) - n_mid, 0)
+        return {"coarse": 0, "middle": n_mid, "fine": n_fine,
+                "color": n - n_mid - n_fine}
+
+
+def stage_iters_of(mapspec: MapSpec, num_joint_iters: int):
+    """((stage, iters), ...) in schedule order, zero-iteration stages
+    dropped."""
+    it = mapspec.stage_iters(num_joint_iters)
+    return tuple((st, it[st]) for st in ("coarse", "middle", "fine", "color")
+                 if it[st] > 0)
+
+
+# ---------------------------------------------------------------------------
+# Frustum feature selection
+
+def bilinear_sample_2d(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Bilinear lookup of img (H, W) at x=u, y=v (callers mask
+    out-of-image points)."""
+    H, W = img.shape
+    u = torch.clamp(u, 0.0, W - 1.0)
+    v = torch.clamp(v, 0.0, H - 1.0)
+    x0 = torch.clamp(torch.floor(u).long(), 0, max(W - 2, 0))
+    y0 = torch.clamp(torch.floor(v).long(), 0, max(H - 2, 0))
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    fx = u - x0
+    fy = v - y0
+    return (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x1] * fx * (1 - fy)
+            + img[y1, x0] * (1 - fx) * fy + img[y1, x1] * fx * fy)
+
+
+def grid_node_points(bound: torch.Tensor, shape) -> torch.Tensor:
+    """World positions of a grid's nodes (align-corners linspace over the
+    AABB, the convention trilinear_interp reads).  (Nx*Ny*Nz, 3)."""
+    axes = [torch.linspace(float(bound[a, 0]), float(bound[a, 1]), n,
+                           device=bound.device)
+            for a, n in enumerate(shape)]
+    X, Y, Z = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([X, Y, Z], dim=-1).reshape(-1, 3)
+
+
+@torch.no_grad()
+def frustum_mask(bound, shape, c2w, depth, camera: Camera) -> torch.Tensor:
+    """Voxel visibility for one grid (Mapper.py:93-164): nodes projected into
+    the current depth image, kept when in the frustum with -z <= depth + 0.5,
+    plus every node within 0.5 m of the camera centre.  (Nx, Ny, Nz) bool."""
+    pts = grid_node_points(bound, shape)
+    u, v, z = project_points(pts, c2w, camera)
+    d_at = bilinear_sample_2d(depth, u, v)
+    d_at = torch.where(d_at == 0, torch.max(d_at), d_at)
+    mask = ((u < camera.W) & (u > 0) & (v < camera.H) & (v > 0)
+            & (0 <= -z) & (-z <= d_at + 0.5))
+    dist2 = torch.sum((pts - c2w[:3, 3]) ** 2, dim=-1)
+    return (mask | (dist2 < 0.25)).reshape(shape)
+
+
+def grid_masks(grids, bound, c2w, depth, camera: Camera, enabled: bool,
+               names=None):
+    """Frustum masks (Nx, Ny, Nz, 1) for the grids in `names` (default all);
+    coarse is always fully optimisable (Mapper.py:113-115)."""
+    masks = {}
+    for name, g in grids.items():
+        if names is not None and name not in names:
+            continue
+        if not enabled or name == "coarse":
+            masks[name] = torch.ones(g.shape[:3] + (1,), dtype=g.dtype,
+                                     device=g.device)
+        else:
+            m = frustum_mask(bound, tuple(g.shape[:3]), c2w, depth, camera)
+            masks[name] = m[..., None].to(g.dtype)
+    return masks
+
+
+def _trained_grids(mapspec: MapSpec, stage_iters) -> set:
+    table = mapspec.stage_lr_table()
+    names = set()
+    for stage, _ in stage_iters:
+        t = table[stage]
+        names |= {n for n, lr in (("coarse", t.coarse), ("middle", t.middle),
+                                  ("fine", t.fine), ("color", t.color))
+                  if lr != 0.0}
+    return names
+
+
+@torch.no_grad()
+def prepare_mapping(store: KeyframeStore, color, depth, cur_c2w, grids,
+                    bound, camera: Camera, mapspec: MapSpec, ba: bool,
+                    gen: Optional[torch.Generator] = None,
+                    mask_names=None, sel_draws=None):
+    """Keyframe selection, window assembly, frustum masks, window camera
+    tensors and the BA learning-rate mask (the oldest valid keyframe and
+    invalid slots frozen; Mapper.py:267-272, 346-363).  `sel_draws`
+    optionally gives the selection's draws as a dict of keyword arguments
+    (pix, scores_u)."""
+    k = mapspec.window_size - 2
+    draws = sel_draws or {}
+    if mapspec.keyframe_selection == "overlap":
+        slots, valid = select_keyframes_overlap(store, depth, cur_c2w,
+                                                camera, k, gen=gen, **draws)
+    else:
+        slots, valid = select_keyframes_global(store, k, gen=gen, **draws)
+    window = build_window(store, slots, valid, color, depth, cur_c2w)
+    masks = grid_masks(grids, bound, cur_c2w, depth, camera,
+                       mapspec.frustum_selection and mapspec.nice,
+                       names=mask_names)
+    cams0 = tensor_from_cam(window["c2ws"][:, :3, :])
+    wn = window["valid"].shape[0]
+    if ba:
+        sl = window["slots"][:-1]
+        va = window["valid"][:-1]
+        big = torch.iinfo(sl.dtype).max
+        oldest = torch.argmin(torch.where(va, sl, torch.full_like(sl, big)))
+        cam_lr_mask = window["valid"].to(torch.float32)
+        cam_lr_mask[oldest] = 0.0
+    else:
+        cam_lr_mask = torch.zeros(wn, device=depth.device)
+    return window, masks, cams0, cam_lr_mask
+
+
+# ---------------------------------------------------------------------------
+# Loss
+
+def _window_rays(window, cams, camera: Camera, pix_per_frame: int,
+                 gen: Optional[torch.Generator] = None, pix=None):
+    """Sample pix_per_frame pixels from every window frame and build rays
+    from the (optimisable) camera tensors.  `pix` = (i, j), each
+    (Wn, pix_per_frame), unless drawn from `gen`.  Returns flat batches."""
+    wn = window["colors"].shape[0]
+    dev = cams.device
+    if pix is None:
+        i = torch.randint(0, camera.W, (wn, pix_per_frame), generator=gen,
+                          device=dev).to(torch.float32)
+        j = torch.randint(0, camera.H, (wn, pix_per_frame), generator=gen,
+                          device=dev).to(torch.float32)
+    else:
+        i, j = pix
+    c2ws = cam_from_tensor(cams)                               # (Wn, 3, 4)
+    dirs = torch.stack([(i - camera.cx) / camera.fx,
+                        -(j - camera.cy) / camera.fy,
+                        -torch.ones_like(i)], dim=-1)          # (Wn, P, 3)
+    rays_d = torch.sum(dirs[..., None, :] * c2ws[:, None, :3, :3], dim=-1)
+    rays_o = c2ws[:, None, :3, 3].expand(rays_d.shape)
+    f = torch.arange(wn, device=dev)[:, None]
+    jl, il = j.long(), i.long()
+    gd = window["depths"][f, jl, il]
+    gc = window["colors"][f, jl, il]
+    valid = window["valid"][:, None].expand(wn, pix_per_frame)
+    return (rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), gd.reshape(-1),
+            gc.reshape(-1, 3), valid.reshape(-1))
+
+
+def mapping_loss(tree, window, bound, camera: Camera, stage: str,
+                 mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
+                 gen: Optional[torch.Generator] = None, pix=None):
+    """One mapping loss (Mapper.py:430-501): masked L1 depth + (colour
+    stage) L1 colour."""
+    params, grids, cams = tree["params"], tree["grids"], tree["cams"]
+    n_pix = mapspec.pixels // window["colors"].shape[0]
+    rays_o, rays_d, gt_d, gt_c, valid = _window_rays(window, cams, camera,
+                                                     n_pix, gen, pix)
+    t_exit = ray_aabb_far(rays_o.detach(), rays_d.detach(), bound)
+    m = valid & (t_exit >= gt_d)
+    depth, _, color, _ = render_rays(
+        params, mspec, grids, bound, rays_o, rays_d, rspec, stage,
+        gt_depth=None if mapspec.coarse_mapper else gt_d, gen=gen)
+    dm = (gt_d > 0) & m
+    loss = torch.sum(torch.abs(gt_d - depth) * dm)
+    if stage == "color":
+        loss = loss + mapspec.w_color_loss * torch.sum(
+            torch.abs(gt_c - color) * m[:, None])
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# Learning-rate trees
+
+def _decoder_lr_tree(params, mapspec: MapSpec, dec_lr: float,
+                     dec_lr_static: float):
+    """Per-leaf LR for the decoders and the frozen tree (Python bools):
+    in NICE mode only the fine (unless fixed) and colour (unless fixed)
+    decoders train (Mapper.py:335-344)."""
+    def lr_for(name):
+        if name == "fine":
+            return 0.0 if mapspec.fix_fine else dec_lr
+        if name == "color":
+            return 0.0 if mapspec.fix_color else dec_lr
+        if name == "middle":
+            return dec_lr if mapspec.train_middle else 0.0
+        return 0.0
+
+    def frozen_for(name):
+        if name == "fine":
+            return mapspec.fix_fine or dec_lr_static == 0.0
+        if name == "color":
+            return mapspec.fix_color or dec_lr_static == 0.0
+        if name == "middle":
+            return (not mapspec.train_middle) or dec_lr_static == 0.0
+        return True
+
+    lr = {n: tree_map(lambda _, n=n: lr_for(n), sub)
+          for n, sub in params.items()}
+    frozen = {n: tree_map(lambda _, n=n: frozen_for(n), sub)
+              for n, sub in params.items()}
+    return lr, frozen
+
+
+def _lr_tree(tree, stage: str, mapspec: MapSpec, lr_factor: float,
+             cam_lr_mask):
+    """(lr tree, frozen tree) of one stage.  Frozen-ness comes from the
+    static stage table, so zero-lr leaves get no gradient at all."""
+    table = mapspec.stage_lr_table()[stage]
+    grid_lrs = {"coarse": table.coarse, "middle": table.middle,
+                "fine": table.fine, "color": table.color}
+    grids_lr = {n: grid_lrs.get(n, 0.0) * lr_factor for n in tree["grids"]}
+    grids_frozen = {n: grid_lrs.get(n, 0.0) == 0.0 for n in tree["grids"]}
+    dec_lr, dec_frozen = _decoder_lr_tree(
+        tree["params"], mapspec, table.decoders * lr_factor, table.decoders)
+    cams_active = mapspec.ba and stage == "color"
+    cam_lr = (mapspec.ba_cam_lr * cam_lr_mask if cams_active
+              else torch.zeros_like(cam_lr_mask))
+    lr = {"params": dec_lr, "grids": grids_lr,
+          "cams": cam_lr[:, None].expand(-1, 7)}
+    frozen = {"params": dec_frozen, "grids": grids_frozen,
+              "cams": not cams_active}
+    return lr, frozen
+
+
+# ---------------------------------------------------------------------------
+# The mapping optimisation
+
+def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
+                 lr_factor: float, camera: Camera, stage_iters,
+                 mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
+                 ba: bool = True, gen: Optional[torch.Generator] = None,
+                 pixels=None):
+    """Run the staged mapping optimisation.  Adam is fresh per call and its
+    moments persist across the stages.  `pixels` optionally gives every
+    iteration's window draws, in order.
+
+    Returns (params, grids, cams, losses (n_iters,))."""
+    tree = {"params": params, "grids": grids, "cams": cams0.detach()}
+    opt = adam_init(tree)
+    if not ba:
+        mapspec = dataclasses.replace(mapspec, ba=False)
+    losses = []
+    it_all = 0
+    for stage, n_iters in stage_iters:
+        lr_tree, frozen = _lr_tree(tree, stage, mapspec, lr_factor,
+                                   cam_lr_mask)
+        # decoders only train in the colour stage
+        rspec_stage = dataclasses.replace(rspec,
+                                          train_decoders=(stage == "color"))
+        for _ in range(n_iters):
+            tr = tree_map(lambda x, f: x if f else
+                          x.detach().requires_grad_(True), tree, frozen)
+            live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
+                    if not f]
+            loss = mapping_loss(
+                tr, window, bound, camera, stage, mapspec, rspec_stage,
+                mspec, gen=gen,
+                pix=None if pixels is None else pixels[it_all])
+            gl = iter(torch.autograd.grad(loss, live, allow_unused=True))
+            g = tree_map(lambda x, f: None if f else next(gl), tr, frozen)
+            for n in g["grids"]:
+                if g["grids"][n] is not None:
+                    g["grids"][n] = g["grids"][n] * masks[n]
+            g = tree_map(lambda x, gg: torch.zeros_like(x)
+                         if gg is None and x.requires_grad else gg, tr, g)
+            if mapspec.grad_clip > 0.0:
+                gn = torch.sqrt(sum(torch.sum(x * x)
+                                    for x in tree_leaves(g) if x is not None))
+                scale = torch.clamp(mapspec.grad_clip / (gn + 1e-12), max=1.0)
+                g = tree_map(lambda x: None if x is None else x * scale, g)
+            tree, opt = adam_update(tree, g, opt, lr_tree, frozen=frozen)
+            losses.append(loss.detach())
+            it_all += 1
+    out = torch.stack(losses) if losses else torch.zeros(0)
+    return tree["params"], tree["grids"], tree["cams"], out
+
+
+def _one_map_optimize(params, grids, bound, store: KeyframeStore,
+                      est_c2w: torch.Tensor, idx: int, color, depth,
+                      lr_factor: float, camera: Camera, stage_iters,
+                      mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
+                      ba: bool, gen: Optional[torch.Generator] = None):
+    """One keyframe-window optimisation: selection + frustum masks + staged
+    Adam + BA write-back (store and est_c2w updated in place).  Returns
+    (params, grids, losses, sel_frames): sel_frames is the window's frame
+    ids (the current frame included, -2 = empty slot; Mapper.py:274-287)."""
+    cur_c2w = est_c2w[idx]
+    window, masks, cams0, cam_lr_mask = prepare_mapping(
+        store, color, depth, cur_c2w, grids, bound, camera, mapspec, ba,
+        gen=gen, mask_names=_trained_grids(mapspec, stage_iters))
+    slots = window["slots"]
+    sel_frames = torch.where(
+        window["valid"],
+        torch.where(slots >= 0, store.frame_idx[torch.clamp(slots, min=0)],
+                    torch.full_like(slots, idx)),
+        torch.full_like(slots, -2))
+    params, grids, cams, losses = map_optimize(
+        params, grids, bound, window, cams0, masks, cam_lr_mask, lr_factor,
+        camera, stage_iters, mapspec, rspec, mspec, ba=ba, gen=gen)
+    if ba:
+        with torch.no_grad():
+            new_c2w = to_homogeneous(cam_from_tensor(cams))
+            kf = window["valid"] & (slots >= 0) & (cam_lr_mask > 0)
+            store.est_c2w[slots[kf]] = new_c2w[kf]
+            est_c2w[idx] = new_c2w[-1]
+    return params, grids, losses, sel_frames
+
+
+def mapping_step(params, grids, bound, store: KeyframeStore,
+                 est_c2w: torch.Tensor, idx: int, color, depth,
+                 lr_factor: float, camera: Camera, stage_iters,
+                 mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
+                 ba: bool, gen: Optional[torch.Generator] = None,
+                 insert_kf: bool = False, gt_pose=None,
+                 coarse_spec: Optional[MapSpec] = None,
+                 coarse_stage_iters=(), coarse_lr_factor: float = 1.0):
+    """One mapping event in the reference's order: the mapping optimisation
+    (+BA) -> keyframe insertion (insert_kf) -> the coarse mapper
+    (coarse_spec; the reference's third process, NICE_SLAM.py:278-286),
+    which sees the post-BA poses and the new keyframe.
+
+    Returns (params, grids, losses, sel_frames)."""
+    params, grids, losses, sel_frames = _one_map_optimize(
+        params, grids, bound, store, est_c2w, idx, color, depth, lr_factor,
+        camera, stage_iters, mapspec, rspec, mspec, ba, gen)
+    if insert_kf:
+        add_keyframe(store, color, depth, est_c2w[idx], gt_pose, idx)
+    if coarse_spec is not None:
+        params, grids, _, _ = _one_map_optimize(
+            params, grids, bound, store, est_c2w, idx, color, depth,
+            coarse_lr_factor, camera, coarse_stage_iters, coarse_spec,
+            rspec, mspec, False, gen)
+    return params, grids, losses, sel_frames

@@ -1,0 +1,235 @@
+"""Hierarchical grid decoders (NICE mode) with the JAX package's parameter
+layout: nested dicts of weight tensors, (in_dim, out_dim) weights so a
+dense layer is ``x @ w + b``.
+
+- `apply_mlp` (reference decoder.py:91-203): per-point grid feature by
+  trilinear interp, Fourier point embedding, 5 dense blocks with additive
+  feature injection ``h += fc_c[i](c)`` and a skip concat of the embedding
+  after block 2.
+- `apply_mlp_no_xyz` (decoder.py:206-274): feature-only input, skip concat
+  of the feature after block 2 (the coarse level).
+- `model_apply` stage dispatch (decoder.py:312-342): coarse/middle ->
+  occupancy only; fine -> middle + fine occupancy; colour -> the colour
+  head's rgb with the occupancy of middle + fine.  The fine and colour
+  stages run through the fused decode (ops/fused_decode.py), which on the
+  card is the hand-written CUDA kernel pair.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from nice_slam_torch.models.embedding import (
+    apply_embedding,
+    embedding_dim,
+    init_fourier_embedding,
+)
+from nice_slam_torch.ops.fused_decode import (
+    fused_nice_decode,
+    pack_nice_weights,
+)
+from nice_slam_torch.ops.grid import normalize_coords, trilinear_interp
+
+
+@dataclass(frozen=True)
+class DecoderSpec:
+    name: str = ""
+    c_dim: int = 32
+    hidden: int = 32
+    n_blocks: int = 5
+    skips: Tuple[int, ...] = (2,)
+    color: bool = False
+    embed: str = "fourier"
+    no_xyz: bool = False
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    nice: bool = True
+    coarse: bool = True
+    c_dim: int = 32
+    hidden: int = 32
+    pos_embedding_method: str = "fourier"
+    coarse_bound_enlarge: int = 2
+
+    def decoder_specs(self):
+        if not self.nice:
+            raise NotImplementedError(
+                "iMAP* decoders are not in the PyTorch port yet")
+        specs = {
+            "middle": DecoderSpec(name="middle", c_dim=self.c_dim,
+                                  hidden=self.hidden,
+                                  embed=self.pos_embedding_method),
+            "fine": DecoderSpec(name="fine", c_dim=self.c_dim * 2,
+                                hidden=self.hidden,
+                                embed=self.pos_embedding_method),
+            "color": DecoderSpec(name="color", c_dim=self.c_dim,
+                                 hidden=self.hidden, color=True,
+                                 embed=self.pos_embedding_method),
+        }
+        if self.coarse:
+            specs["coarse"] = DecoderSpec(name="coarse", c_dim=self.c_dim,
+                                          hidden=self.hidden, no_xyz=True)
+        return specs
+
+
+def check_supported(spec: ModelSpec) -> None:
+    """The fused decode (and so this slice) takes NICE mode with 32-wide
+    features and hidden layers and the Fourier embedding."""
+    if not spec.nice:
+        raise NotImplementedError(
+            "iMAP* mode (nice=False) is not in the PyTorch port yet")
+    if (spec.c_dim, spec.hidden, spec.pos_embedding_method) != (
+            32, 32, "fourier"):
+        raise NotImplementedError(
+            "the fused decode kernel takes c_dim=32, hidden_size=32 and the "
+            f"fourier embedding; got c_dim={spec.c_dim}, "
+            f"hidden={spec.hidden}, embedding={spec.pos_embedding_method}")
+
+
+# ---------------------------------------------------------------------------
+# Initialization (the torch inits the reference uses)
+
+def _xavier_uniform(gen, in_dim, out_dim, gain, device):
+    a = gain * np.sqrt(6.0 / (in_dim + out_dim))
+    u = torch.rand(in_dim, out_dim, generator=gen, device=device)
+    return u * (2 * a) - a
+
+
+def _dense_init(gen, in_dim, out_dim, device, activation="relu"):
+    """DenseLayer init: xavier_uniform by activation gain, zero bias
+    (reference decoder.py:70-79)."""
+    gain = np.sqrt(2.0) if activation == "relu" else 1.0
+    return {"w": _xavier_uniform(gen, in_dim, out_dim, gain, device),
+            "b": torch.zeros(out_dim, device=device)}
+
+
+def _torch_linear_init(gen, in_dim, out_dim, device):
+    """torch.nn.Linear default init (the reference's fc_c layers)."""
+    bound = 1.0 / np.sqrt(in_dim)
+    w = torch.rand(in_dim, out_dim, generator=gen, device=device)
+    b = torch.rand(out_dim, generator=gen, device=device)
+    return {"w": w * (2 * bound) - bound, "b": b * (2 * bound) - bound}
+
+
+def _calibrate_head(out_params, spec: DecoderSpec):
+    """Small head weights and a slightly negative occupancy bias, so that
+    sigmoid(10*occ) starts in its responsive range (the JAX package's
+    pretrain-free init)."""
+    occ_idx = 3 if spec.color else 0
+    b = out_params["b"].clone()
+    b[occ_idx] = -0.2
+    return {"w": out_params["w"] * 0.1, "b": b}
+
+
+def init_decoder(gen: Optional[torch.Generator], spec: DecoderSpec,
+                 device="cpu"):
+    h = spec.hidden
+    params = {}
+    if spec.no_xyz:
+        params["pts"] = [
+            _dense_init(gen, h + spec.c_dim if (i - 1) in spec.skips else h,
+                        h, device)
+            for i in range(spec.n_blocks)]
+        params["out"] = _calibrate_head(_dense_init(
+            gen, h, 4 if spec.color else 1, device, "linear"), spec)
+        return params
+    emb = embedding_dim(spec.embed)
+    params["embed"] = init_fourier_embedding(gen, device=device)
+    pts = []
+    for i in range(spec.n_blocks):
+        in_dim = emb if i == 0 else (h + emb if (i - 1) in spec.skips else h)
+        pts.append(_dense_init(gen, in_dim, h, device))
+    params["pts"] = pts
+    params["fc_c"] = [_torch_linear_init(gen, spec.c_dim, h, device)
+                      for _ in range(spec.n_blocks)]
+    params["out"] = _calibrate_head(_dense_init(
+        gen, h, 4 if spec.color else 1, device, "linear"), spec)
+    return params
+
+
+def init_model(gen: Optional[torch.Generator], spec: ModelSpec, device="cpu"):
+    dspecs = spec.decoder_specs()
+    return {name: init_decoder(gen, dspecs[name], device)
+            for name in sorted(dspecs)}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+
+def _dense(x, layer):
+    return x @ layer["w"] + layer["b"]
+
+
+def apply_mlp(params, spec: DecoderSpec, p: torch.Tensor, grids,
+              bound) -> torch.Tensor:
+    """Coordinate MLP with per-layer grid-feature injection (the middle
+    level; fine and colour run in the fused decode).
+
+    p: (N, 3) world coords.  Returns (N, 4) if colour else (N,)."""
+    c = trilinear_interp(grids[spec.name], normalize_coords(p, bound))
+    e = apply_embedding(params["embed"], p, spec.embed)
+    h = e
+    for i in range(spec.n_blocks):
+        h = torch.relu(_dense(h, params["pts"][i]))
+        h = h + _dense(c, params["fc_c"][i])
+        if i in spec.skips:
+            h = torch.cat([e, h], dim=-1)
+    out = _dense(h, params["out"])
+    return out if spec.color else out[..., 0]
+
+
+def apply_mlp_no_xyz(params, spec: DecoderSpec, p: torch.Tensor, grids,
+                     bound) -> torch.Tensor:
+    """Feature-only MLP (coarse level); `bound` is the enlarged coarse
+    bound (reference NICE_SLAM.py:157)."""
+    c = trilinear_interp(grids[spec.name], normalize_coords(p, bound))
+    h = c
+    for i in range(spec.n_blocks):
+        h = torch.relu(_dense(h, params["pts"][i]))
+        if i in spec.skips:
+            h = torch.cat([c, h], dim=-1)
+    out = _dense(h, params["out"])
+    return out if spec.color else out[..., 0]
+
+
+def _fused_apply(params, grids, bound, p, stage: str,
+                 train_decoders: bool) -> torch.Tensor:
+    """Fine/colour-stage decode: features gathered here, the two or three
+    MLPs and the occupancy sum in the fused decode."""
+    p_nor = normalize_coords(p, bound)
+    c_mid = trilinear_interp(grids["middle"], p_nor)
+    c_fine = trilinear_interp(grids["fine"], p_nor)
+    with_color = stage == "color"
+    # the fine stage does not read c_color: pass c_mid in its place
+    c_color = (trilinear_interp(grids["color"], p_nor) if with_color
+               else c_mid)
+    return fused_nice_decode(with_color, train_decoders, p.contiguous(),
+                             c_mid, c_fine, c_color,
+                             *pack_nice_weights(params))
+
+
+def model_apply(params, spec: ModelSpec, grids, bound, p: torch.Tensor,
+                stage: str = "color",
+                train_decoders: bool = True) -> torch.Tensor:
+    """Stage-dispatched forward: (N, 3) points -> raw (N, 4) [rgb, occ].
+
+    train_decoders=False tells the fused decode that no decoder weight
+    gradient is wanted (frozen decoders)."""
+    check_supported(spec)
+    dspecs = spec.decoder_specs()
+    zeros3 = torch.zeros(p.shape[:-1] + (3,), dtype=p.dtype, device=p.device)
+    if stage == "coarse":
+        occ = apply_mlp_no_xyz(params["coarse"], dspecs["coarse"], p, grids,
+                               bound * spec.coarse_bound_enlarge)
+        return torch.cat([zeros3, occ[..., None]], dim=-1)
+    if stage == "middle":
+        occ = apply_mlp(params["middle"], dspecs["middle"], p, grids, bound)
+        return torch.cat([zeros3, occ[..., None]], dim=-1)
+    if stage in ("fine", "color"):
+        return _fused_apply(params, grids, bound, p, stage, train_decoders)
+    raise ValueError(f"unknown stage {stage}")

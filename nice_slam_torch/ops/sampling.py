@@ -1,0 +1,53 @@
+"""Depth sampling along rays: stratified bins and depth-guided surface
+samples (reference src/utils/Renderer.py:112-170).
+
+The per-ray "depth hole" case is a `torch.where` select, so batch shapes
+never depend on the data.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def stratified_zvals(near: torch.Tensor, far: torch.Tensor, n: int,
+                     lindisp: bool = False) -> torch.Tensor:
+    """Evenly spaced z values between per-ray near/far.
+
+    near/far broadcast against (..., 1); returns (..., n)."""
+    t = torch.linspace(0.0, 1.0, n, dtype=far.dtype, device=far.device)
+    if lindisp:
+        return 1.0 / (1.0 / near * (1.0 - t) + 1.0 / far * t)
+    return near * (1.0 - t) + far * t
+
+
+def perturb_zvals(z_vals: torch.Tensor,
+                  gen: Optional[torch.Generator] = None,
+                  u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stratified jitter within each bin (reference Renderer.py:159-166).
+
+    The uniforms `u` (same shape as z_vals) are drawn from `gen` unless
+    passed in."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    if u is None:
+        u = torch.rand(z_vals.shape, generator=gen, dtype=z_vals.dtype,
+                       device=z_vals.device)
+    return lower + (upper - lower) * u
+
+
+def surface_zvals(gt_depth: torch.Tensor, n_surface: int,
+                  max_depth) -> torch.Tensor:
+    """Depth-guided samples: [0.95, 1.05]*d for valid-depth rays, uniform
+    [0.001, max_depth] for depth holes (reference Renderer.py:121-150).
+
+    gt_depth: (N,). Returns (N, n_surface)."""
+    t = torch.linspace(0.0, 1.0, n_surface, dtype=gt_depth.dtype,
+                       device=gt_depth.device)
+    d = gt_depth[..., None]
+    z_surf = 0.95 * d * (1.0 - t) + 1.05 * d * t
+    z_hole = 0.001 * (1.0 - t) + max_depth * t
+    return torch.where(d > 0, z_surf, z_hole.expand(z_surf.shape))

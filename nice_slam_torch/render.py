@@ -1,0 +1,126 @@
+"""Differentiable volume renderer (src/utils/Renderer.py), as in the JAX
+package:
+
+- per-ray near/far: near = 0.01 * sensor depth, far = ray/AABB exit + 0.01
+  clamped to 1.2 * max depth (Renderer.py:88-111);
+- N_samples stratified bins + N_surface depth-guided samples, with the
+  depth-hole uniform fallback as a per-ray `where` (Renderer.py:112-150);
+- merge by sort, decode all points in one batch, alpha-composite.
+
+Out-of-bound points get occupancy forced to +100 (an opaque wall at the
+AABB, Renderer.py:57).  N_importance resampling waits for the iMAP* slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from nice_slam_torch.models.decoders import ModelSpec, model_apply
+from nice_slam_torch.ops.composite import raw2outputs
+from nice_slam_torch.ops.rays import image_rays, ray_aabb_far
+from nice_slam_torch.ops.sampling import (
+    perturb_zvals,
+    stratified_zvals,
+    surface_zvals,
+)
+
+
+@dataclass(frozen=True)
+class RenderSpec:
+    n_samples: int = 32
+    n_surface: int = 16
+    n_importance: int = 0
+    lindisp: bool = False
+    perturb: float = 0.0
+    occupancy: bool = True
+    # False: no decoder weight gradient is wanted (tracking, and mapping
+    # stages whose decoders are frozen); the fused decode skips that work
+    train_decoders: bool = True
+
+
+def eval_points(params, mspec: ModelSpec, grids, bound, p: torch.Tensor,
+                stage: str, train_decoders: bool = True) -> torch.Tensor:
+    """Decode raw (N, 4) predictions; occupancy forced to 100 outside the
+    AABB (reference Renderer.py:38-61)."""
+    raw = model_apply(params, mspec, grids, bound, p, stage,
+                      train_decoders=train_decoders)
+    inside = torch.all((p > bound[:, 0]) & (p < bound[:, 1]), dim=-1)
+    occ = torch.where(inside, raw[..., 3], torch.full_like(raw[..., 3], 100.0))
+    return torch.cat([raw[..., :3], occ[..., None]], dim=-1)
+
+
+def _zvals(rays_o, rays_d, gt_depth, bound, rspec: RenderSpec,
+           with_depth: bool, gen: Optional[torch.Generator] = None):
+    """Sample depths along each ray.  Returns (N, S) sorted z values."""
+    far_bb = ray_aabb_far(rays_o.detach(), rays_d.detach(),
+                          bound)[:, None] + 0.01
+    if with_depth:
+        d = gt_depth[:, None]
+        near = d * 0.01
+        max_d = torch.max(gt_depth)
+        far = torch.minimum(torch.clamp(far_bb, min=0.0), max_d * 1.2)
+    else:
+        near = torch.full_like(far_bb, 0.01)
+        far = far_bb
+    z_vals = stratified_zvals(near, far, rspec.n_samples, rspec.lindisp)
+    if rspec.perturb > 0.0:
+        z_vals = perturb_zvals(z_vals, gen)
+    if with_depth and rspec.n_surface > 0:
+        z_surf = surface_zvals(gt_depth, rspec.n_surface, torch.max(gt_depth))
+        z_vals, _ = torch.sort(torch.cat([z_vals, z_surf], dim=-1), dim=-1)
+    return z_vals
+
+
+def render_rays(params, mspec: ModelSpec, grids, bound,
+                rays_o: torch.Tensor, rays_d: torch.Tensor,
+                rspec: RenderSpec, stage: str,
+                gt_depth: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None):
+    """Render a batch of rays.
+
+    gt_depth=None (e.g. the coarse mapper) disables surface sampling and
+    uses scalar near (reference Renderer.py:88-92).  `gen` feeds the
+    stratified jitter when rspec.perturb > 0.
+
+    Returns (depth (N,), uncertainty (N,), color (N, 3), weights (N, S))."""
+    if rspec.n_importance > 0:
+        raise NotImplementedError(
+            "N_importance resampling is not in the PyTorch port yet")
+    with_depth = gt_depth is not None and stage != "coarse"
+    z_vals = _zvals(rays_o, rays_d, gt_depth if with_depth else None, bound,
+                    rspec, with_depth, gen)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    n, s, _ = pts.shape
+    raw = eval_points(params, mspec, grids, bound, pts.reshape(-1, 3), stage,
+                      train_decoders=rspec.train_decoders)
+    raw = raw.reshape(n, s, 4)
+    return raw2outputs(raw, z_vals, rays_d, rspec.occupancy)
+
+
+@torch.no_grad()
+def render_image(params, mspec: ModelSpec, grids, bound, c2w, camera,
+                 rspec: RenderSpec, stage: str = "color", gt_depth=None,
+                 chunk: int = 16384):
+    """Full-image rendering in fixed-size chunks of rays (reference
+    Renderer.py:200-255).  `camera` carries (H, W, fx, fy, cx, cy).
+    Returns (depth (H, W), uncertainty (H, W), color (H, W, 3))."""
+    H, W = camera.H, camera.W
+    rays_o, rays_d = image_rays(H, W, camera.fx, camera.fy, camera.cx,
+                                camera.cy, c2w)
+    rays_o = rays_o.reshape(-1, 3)
+    rays_d = rays_d.reshape(-1, 3)
+    gt = gt_depth.reshape(-1) if gt_depth is not None else None
+    depth, var, color = [], [], []
+    for s in range(0, H * W, chunk):
+        d, v, c, _ = render_rays(
+            params, mspec, grids, bound, rays_o[s:s + chunk],
+            rays_d[s:s + chunk], rspec, stage,
+            gt_depth=gt[s:s + chunk] if gt is not None else None)
+        depth.append(d)
+        var.append(v)
+        color.append(c)
+    return (torch.cat(depth).reshape(H, W), torch.cat(var).reshape(H, W),
+            torch.cat(color).reshape(H, W, 3))

@@ -1,0 +1,210 @@
+"""Per-frame camera tracking (src/Tracker.py), as in the JAX package:
+a loop of Adam steps on the 7-vector camera against a frozen map, each
+step sampling pixels, rendering, and taking the robust depth (+ colour)
+loss; the camera kept is the post-step camera of the lowest pre-step loss.
+The ray/AABB prefilter (Tracker.py:93-104) is a loss mask, so shapes do
+not depend on the data.  The selection stays on the device (no host sync
+per iteration).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from nice_slam_torch.camera import Camera
+from nice_slam_torch.models.decoders import ModelSpec
+from nice_slam_torch.ops.optim import adam_init, adam_update
+from nice_slam_torch.ops.rays import (
+    gather_pixels,
+    ray_aabb_far,
+    rays_from_uv,
+    sample_pixels,
+)
+from nice_slam_torch.ops.se3 import (
+    cam_from_tensor,
+    tensor_from_cam,
+    to_homogeneous,
+)
+from nice_slam_torch.render import RenderSpec, render_rays
+
+
+@dataclass(frozen=True)
+class TrackSpec:
+    iters: int = 10
+    pixels: int = 200
+    lr: float = 0.001
+    seperate_lr: bool = False
+    w_color_loss: float = 0.5
+    ignore_edge_w: int = 20
+    ignore_edge_h: int = 20
+    handle_dynamic: bool = True
+    use_color: bool = True
+    const_speed: bool = True
+    # two-candidate initialisation (constant-speed extrapolation vs the
+    # previous pose), see nice_slam_tpu/tracking.py TrackSpec for the
+    # measured rationale of the asymmetric margin and the 1 cm floor
+    init_select: bool = True
+    init_select_margin: float = 3.0
+    nice: bool = True
+
+
+def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median of x over mask==True, torch.median semantics (lower middle)."""
+    big = torch.where(mask, x, torch.full_like(x, float("inf")))
+    srt, _ = torch.sort(big)
+    n = torch.sum(mask.to(torch.int64))
+    idx = torch.clamp((n - 1) // 2, min=0)
+    return srt[idx]
+
+
+def _track_pixels(gen, tspec: TrackSpec, camera: Camera):
+    return sample_pixels(gen, tspec.pixels, tspec.ignore_edge_h,
+                         camera.H - tspec.ignore_edge_h, tspec.ignore_edge_w,
+                         camera.W - tspec.ignore_edge_w)
+
+
+def tracking_loss(cam, params, grids, bound, gt_color, gt_depth,
+                  camera: Camera, tspec: TrackSpec, rspec: RenderSpec,
+                  mspec: ModelSpec, gen: Optional[torch.Generator] = None,
+                  pix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One tracking loss at camera 7-vector `cam` (Tracker.py:71-128):
+    robust depth L1 / sqrt(uncertainty) with the 10x-median dynamic-outlier
+    mask, plus the colour term.  Pixels are `pix` = (i, j) or drawn from
+    `gen`."""
+    c2w = cam_from_tensor(cam)
+    i, j = pix if pix is not None else _track_pixels(gen, tspec, camera)
+    rays_o, rays_d = rays_from_uv(i, j, c2w, camera.fx, camera.fy,
+                                  camera.cx, camera.cy)
+    batch_d = gather_pixels(gt_depth, i, j)
+    batch_c = gather_pixels(gt_color, i, j)
+    if tspec.nice:
+        t_exit = ray_aabb_far(rays_o.detach(), rays_d.detach(), bound)
+        inside = t_exit >= batch_d
+    else:
+        inside = torch.ones_like(batch_d, dtype=torch.bool)
+    depth, var, color, _ = render_rays(params, mspec, grids, bound, rays_o,
+                                       rays_d, rspec, "color",
+                                       gt_depth=batch_d)
+    var = var.detach()
+    tmp = torch.abs(batch_d - depth) / torch.sqrt(var + 1e-10)
+    if tspec.handle_dynamic:
+        med = masked_median(tmp.detach(), inside)
+        mask = (tmp < 10.0 * med) & (batch_d > 0) & inside
+    else:
+        mask = (batch_d > 0) & inside
+    loss = torch.sum(tmp * mask)
+    if tspec.use_color:
+        closs = torch.sum(torch.abs(batch_c - color) * mask[:, None])
+        loss = loss + tspec.w_color_loss * closs
+    return loss
+
+
+@torch.no_grad()
+def tracking_depth_median(cam, params, grids, bound, gt_depth,
+                          camera: Camera, tspec: TrackSpec,
+                          rspec: RenderSpec, mspec: ModelSpec,
+                          gen: Optional[torch.Generator] = None,
+                          pix=None):
+    """Median absolute depth residual (metres) of a candidate camera over
+    one pixel sample: the init_select signal (deliberately not the
+    tracking loss, and without the pose-dependent AABB filter; see
+    nice_slam_tpu/tracking.py)."""
+    c2w = cam_from_tensor(cam)
+    i, j = pix if pix is not None else _track_pixels(gen, tspec, camera)
+    rays_o, rays_d = rays_from_uv(i, j, c2w, camera.fx, camera.fy,
+                                  camera.cx, camera.cy)
+    batch_d = gather_pixels(gt_depth, i, j)
+    depth, _, _, _ = render_rays(params, mspec, grids, bound, rays_o, rays_d,
+                                 rspec, "color", gt_depth=batch_d)
+    return masked_median(torch.abs(batch_d - depth), batch_d > 0)
+
+
+def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
+                camera: Camera, tspec: TrackSpec, rspec: RenderSpec,
+                mspec: ModelSpec, gen: Optional[torch.Generator] = None):
+    """Optimise one frame's camera.  Returns (best_cam, best_loss), both on
+    the device.
+
+    The candidate kept is the post-step camera whose pre-step loss was
+    minimal (Tracker.py:232-247).  The decoders are frozen, so the fused
+    decode is told that no weight gradient is wanted."""
+    rspec = dataclasses.replace(rspec, train_decoders=False)
+    dev = cam0.device
+    if tspec.seperate_lr:
+        # quaternion LR is 0.2x the translation LR (Tracker.py:202-213)
+        lr = torch.cat([torch.full((4,), tspec.lr * 0.2, device=dev),
+                        torch.full((3,), tspec.lr, device=dev)])
+    else:
+        lr = torch.full((7,), tspec.lr, device=dev)
+    cam = cam0.detach()
+    opt = adam_init(cam)
+    best_cam = cam
+    best_loss = torch.tensor(float("inf"), device=dev)
+    for _ in range(tspec.iters):
+        c = cam.clone().requires_grad_(True)
+        loss = tracking_loss(c, params, grids, bound, gt_color, gt_depth,
+                             camera, tspec, rspec, mspec, gen=gen)
+        (g,) = torch.autograd.grad(loss, c)
+        loss = loss.detach()
+        new_cam, opt = adam_update(cam, g, opt, lr)
+        better = loss < best_loss
+        best_cam = torch.where(better, new_cam, best_cam)
+        best_loss = torch.where(better, loss, best_loss)
+        cam = new_cam
+    return best_cam, best_loss
+
+
+def const_speed_init(pre_c2w, pre_pre_c2w):
+    """Constant-speed motion model: delta = pre @ inv(pre_pre) applied to
+    pre (Tracker.py:192-198).  4x4 in and out."""
+    delta = pre_c2w @ torch.linalg.inv(pre_pre_c2w)
+    return delta @ pre_c2w
+
+
+def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
+               gt_color, gt_depth, camera: Camera, tspec: TrackSpec,
+               rspec: RenderSpec, mspec: ModelSpec,
+               gen: Optional[torch.Generator] = None):
+    """Track frame `idx` from the poses already in est_c2w (n, 4, 4) and
+    write its pose there."""
+    pre = est_c2w[idx - 1]
+    init_c2w = pre
+    if tspec.const_speed and idx >= 2:
+        init_c2w = const_speed_init(pre, est_c2w[idx - 2])
+        if tspec.init_select:
+            # keep the extrapolation unless it renders catastrophically
+            # worse than the previous pose on the same pixels (margin x,
+            # the previous pose's median floored at 1 cm)
+            pix = _track_pixels(gen, tspec, camera)
+            eval_rspec = dataclasses.replace(rspec, train_decoders=False)
+            med_cs = tracking_depth_median(
+                tensor_from_cam(init_c2w), params, grids, bound, gt_depth,
+                camera, tspec, eval_rspec, mspec, pix=pix)
+            med_pre = tracking_depth_median(
+                tensor_from_cam(pre), params, grids, bound, gt_depth,
+                camera, tspec, eval_rspec, mspec, pix=pix)
+            keep = med_cs <= tspec.init_select_margin * torch.clamp(
+                med_pre, min=0.01)
+            init_c2w = torch.where(keep, init_c2w, pre)
+    best_cam, _ = track_frame(
+        params, grids, bound, tensor_from_cam(init_c2w), gt_color, gt_depth,
+        camera, tspec, rspec, mspec, gen=gen)
+    est_c2w[idx] = to_homogeneous(cam_from_tensor(best_cam))
+
+
+def track_frames_group(params, grids, bound, est_c2w: torch.Tensor,
+                       idx0: int, gt_colors, gt_depths, camera: Camera,
+                       tspec: TrackSpec, rspec: RenderSpec, mspec: ModelSpec,
+                       gen: Optional[torch.Generator] = None):
+    """Track G consecutive frames idx0 .. idx0+G-1 against a frozen map,
+    each initialised from the pose just written for the one before (the
+    strict schedule: the mapper runs only at group boundaries).
+
+    gt_colors: (G, H, W, 3) fp32; gt_depths: (G, H, W)."""
+    for g in range(gt_colors.shape[0]):
+        track_step(params, grids, bound, est_c2w, idx0 + g, gt_colors[g],
+                   gt_depths[g], camera, tspec, rspec, mspec, gen=gen)

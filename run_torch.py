@@ -1,0 +1,101 @@
+#!/usr/bin/env python
+"""Run the PyTorch port's SLAM engine (nice_slam_torch) on a scene config.
+
+Usage:
+    python run_torch.py configs/Synthetic/synthetic.yaml --frames 11
+    python run_torch.py --synthetic 40           # built-in synthetic scene
+    python run_torch.py <config> --device cpu    # plain PyTorch, no kernels
+
+This slice of the port runs strict NICE-SLAM (sync_method: strict, the
+grouped schedule) on one GPU, with the fused decode as CUDA kernels.  Not
+yet in the port: loose/free sync, iMAP* (--imap), meshing (--no-mesh is
+implied: no mesh is written), checkpoint save/resume, the visualizer and
+the parallel modes; a config that asks for one of them is refused.
+
+Prints a JSON summary (ate_rmse_m, ate_mean_m, frames, timings_s, ...)
+and writes <output>/ate.json and the estimated trajectory
+<output>/traj_est.npy ((frames, 4, 4) camera-to-world).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+
+def main():
+    ap = argparse.ArgumentParser(
+        description="nice-slam PyTorch port runner (strict NICE-SLAM; "
+                    "not yet: loose/free sync, --imap, meshing, "
+                    "checkpoint/resume, visualizer, parallel modes; "
+                    "--no-mesh is implied)")
+    ap.add_argument("config", nargs="?", default=None,
+                    help="scene config yaml")
+    ap.add_argument("--input_folder", type=str, default=None,
+                    help="overrides the input folder in the config")
+    ap.add_argument("--output", type=str, default=None,
+                    help="overrides the output folder in the config")
+    ap.add_argument("--imap", action="store_true",
+                    help="iMAP* mode: not in this slice of the port (refused)")
+    ap.add_argument("--synthetic", type=int, default=None, metavar="N",
+                    help="run on the built-in synthetic scene with N frames")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="limit the number of frames processed")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="override the seed (tpu.seed in the config)")
+    ap.add_argument("--device", type=str, default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "PyTorch versions of the kernels)")
+    ap.add_argument("--no-mesh", action="store_true",
+                    help="accepted for run.py compatibility; the port does "
+                         "not mesh yet")
+    args = ap.parse_args()
+
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+
+    if args.imap:
+        raise SystemExit("iMAP* mode is not in this slice of the PyTorch "
+                         "port; use run.py")
+    overrides = {}
+    if args.synthetic is not None:
+        if args.config is None:
+            args.config = os.path.join(
+                os.path.dirname(os.path.abspath(__file__)),
+                "configs", "Synthetic", "synthetic.yaml")
+            overrides = {"data": {"output": "output/synthetic_torch"}}
+        overrides["dataset"] = "synthetic"
+        overrides["synthetic"] = {"n_frames": args.synthetic}
+    if args.seed is not None:
+        overrides.setdefault("tpu", {})["seed"] = args.seed
+    if args.input_folder:
+        overrides.setdefault("data", {})["input_folder"] = args.input_folder
+    if args.output:
+        overrides.setdefault("data", {})["output"] = args.output
+
+    cfg = load_config(args.config, overrides=overrides)
+    eng = SlamEngine(cfg, device=args.device)
+    t0 = time.perf_counter()
+    eng.run(n_frames=args.frames, progress=True)
+    wall = time.perf_counter() - t0
+
+    stats = eng.ate()
+    print(json.dumps({"ate_rmse_m": stats["rmse"],
+                      "ate_mean_m": stats["mean"],
+                      "frames": eng.frames_done,
+                      "wall_s": wall,
+                      "timings_s": eng.timings,
+                      "device": str(eng.device)}, indent=2))
+    import numpy as np
+
+    os.makedirs(eng.output, exist_ok=True)
+    with open(os.path.join(eng.output, "ate.json"), "w") as f:
+        json.dump(stats, f, indent=2)
+    np.save(os.path.join(eng.output, "traj_est.npy"),
+            eng.est_c2w[:eng.frames_done])
+
+
+if __name__ == "__main__":
+    main()
