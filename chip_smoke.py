@@ -8,7 +8,10 @@
 2. Kernel phase: the fused decode forward (K1) and backward (K2) against
    their plain PyTorch versions on the card, at N = 9,600 (tracking),
    48,000 (mapping) and 700 (ragged), in the fine and colour stages, with
-   and without weight gradients.  Tolerances: forward max abs err
+   weight gradients for no decoder, for the colour decoder (the main
+   path's colour stage) and for all three (the live masks, set by which
+   weights require a gradient; frozen decoders must get None).
+   Tolerances: forward max abs err
    <= 1e-4 * max(1, max|ref|); dp and dc elementwise rtol 1e-3, atol 1e-4
    against autograd of the plain version, where a missing point is
    accepted only if one of its ReLU pre-activations lies within 1e-4 of
@@ -18,6 +21,8 @@
    with the cotangent of the points that have a pre-activation within
    1e-4 of zero set to zero in both runs (one flipped ReLU moves a whole
    sum).  The reported max_abs_err of K2 is over the other points.
+   Also prints each K2 variant's registers, spill bytes and resident
+   blocks per SM (CUDA runtime).
 3. Main path: SlamEngine on configs/Synthetic/synthetic.yaml at its full
    width (240x320, tracking 200 px x 50 iters, mapping 1000 px x 60 iters,
    iters_first 500, 32+16 samples, hidden 32, c_dim 32, coarse mapper on)
@@ -28,10 +33,16 @@
    the schedule and the ATE is finite and under 0.25 m.
 4. Profile: torch.profiler over one more tracked frame and mapping event
    of the trained engine gives the device busy share and the top kernels.
-5. Timing phase at N = 48,000 (colour stage, weight gradients on): each
-   kernel with CUDA events beside its plain version and its bound.  There
-   is no single PyTorch call that computes the fused decode, so
-   library_ms is null.
+5. Timing phase: K1 at N = 48,000 and 9,600 (colour stage); K2 at the
+   main path's four shapes (48,000 colour with the colour decoder live;
+   48,000 colour, 48,000 fine and 9,600 colour without weight gradients)
+   and at 48,000 colour with all three decoders live (the shape timed
+   before K2's redesign).  Each with CUDA events beside its plain version
+   and two bounds: fp32 (all operations at the CUDA cores' 67 TFLOP/s)
+   and the design's own (products of width 32 on the tensor cores at
+   495/3 TFLOP/s for 3xTF32, the rest at 67 TFLOP/s); each bound is the
+   larger of operations and bytes.  There is no single PyTorch call that
+   computes the fused decode, so library_ms is null.
 
 The last two lines are a JSON object of the kernels and the contract line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -49,8 +60,9 @@ import sys
 import time
 
 # published peaks of the H100 SXM (NVIDIA data sheet): fp32 outside the
-# tensor cores and HBM3 bandwidth
+# tensor cores, TF32 on the tensor cores (dense) and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -75,9 +87,7 @@ DEC_C = {"middle": 32, "fine": 64, "color": 32}
 DEC_O = {"middle": 1, "fine": 1, "color": 4}
 
 
-def _macs_fwd(dec: str) -> int:
-    c, o = DEC_C[dec], DEC_O[dec]
-    return 3 * EMB + sum(n * HID for n in LAYER_IN) + 5 * c * HID + HID * o
+DECS = ("middle", "fine", "color")
 
 
 def _n_weights(dec: str) -> int:
@@ -86,35 +96,53 @@ def _n_weights(dec: str) -> int:
             + 5 * c * HID + 5 * HID + HID * o + o)
 
 
-def decode_work(n: int, with_color: bool, direction: str, train: bool):
-    """(flops, bytes) of one call on n points.  The backward recomputes the
-    forward (its inputs hold no activations), then takes the input VJPs
-    (W^T, V^T, Wo^T, B^T products) and, with train, the weight-gradient
-    products."""
-    decs = ["middle", "fine"] + (["color"] if with_color else [])
-    macs = 0
-    for d in decs:
-        f = _macs_fwd(d)
-        if direction == "fwd":
-            macs += f
-        else:
-            macs += 2 * f                 # recompute + input VJP
-            if train:
-                macs += f                 # dW, dV, dWo, dB
-    flops = 2 * macs * n
+def _macs(dec: str, direction: str, live: bool):
+    """(tensor-core MAC, SIMT MAC) per point of one decoder.  Products of
+    width 32 (x W_i, c V_i; dz W_i^T, dh V_i^T; x_i^T dz, c^T dh) are the
+    tensor-core share; the embedding (p B, dpre B^T, p^T dpre) and the
+    heads are SIMT.  The backward recomputes the forward, takes dc only for
+    the first 32 feature columns (the fine decoder's c_mid half is
+    stop-gradient) and the weight-gradient products only when live."""
+    c, o = DEC_C[dec], DEC_O[dec]
+    trunk = sum(n * HID for n in LAYER_IN)
+    tc = trunk + 5 * c * HID
+    simt = 3 * EMB + HID * o
+    if direction == "bwd":
+        tc, simt = tc + trunk + 5 * HID * HID, simt + 3 * EMB + HID * o
+        if live:
+            tc += trunk + 5 * c * HID
+            simt += 3 * EMB + HID * o
+    return tc, simt
+
+
+def decode_work(n: int, with_color: bool, direction: str, live: int = 0):
+    """(tensor-core flops, SIMT flops, bytes) of one call on n points;
+    live: bit d set = decoder d takes weight gradients."""
+    decs = DECS[:3 if with_color else 2]
+    tc = simt = 0
+    for d, name in enumerate(decs):
+        t, s_ = _macs(name, direction, bool(live >> d & 1))
+        tc, simt = tc + t, simt + s_
     wbytes = 4 * sum(_n_weights(d) for d in decs)
-    n_c = 3 if with_color else 2
+    n_c = len(decs)
     if direction == "fwd":
         nbytes = n * 4 * (3 + HID * n_c + 4) + wbytes
     else:
+        gbytes = 4 * sum(_n_weights(d) for k, d in enumerate(decs)
+                         if live >> k & 1)
         nbytes = (n * 4 * (3 + HID * n_c + 4)          # p, c, g in
                   + n * 4 * (3 + HID * n_c)            # dp, dc out
-                  + wbytes * (2 if train else 1))      # weights in, grads out
-    return flops, nbytes
+                  + wbytes + gbytes)                   # weights in, grads out
+    return 2 * tc * n, 2 * simt * n, nbytes
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(tc_flops: float, simt_flops: float, nbytes: float,
+             tensor_cores: bool = False):
+    """(ms, 'operations' | 'bytes'): fp32 on the CUDA cores, or with
+    tensor_cores the width-32 products at the 3xTF32 rate."""
+    t_ops = ((tc_flops / (PEAK_TF32_FLOPS / 3) if tensor_cores
+              else tc_flops / PEAK_FP32_FLOPS)
+             + simt_flops / PEAK_FP32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes")
@@ -147,15 +175,20 @@ def relu_margin(torch, fd, with_color, p, cm, cf, cc, ws):
     return torch.stack(mins).amin(0)
 
 
+LIVE_SETS = (("none", 0), ("color", 4), ("all", 7))
+CHECK_N = (9600, 48000, 700)
+
+
 def check_kernels(torch, fd, ws, dev, log):
     """Returns (max abs err of K1, max abs err of K2)."""
     err_f = err_b = 0.0
     seed = 0
-    for n in (9600, 48000, 700):
+    for n in CHECK_N:
         for stage in ("fine", "color"):
             with_color = stage == "color"
-            for train in (False, True):
+            for live_name, live in LIVE_SETS:
                 seed += 1
+                train = live != 0
                 p, cm, cf, cc, go = make_inputs(torch, n, seed, dev)
                 cc_in = cc if with_color else cm
                 # forward through the wrapper (kernel) and the oracle
@@ -172,15 +205,20 @@ def check_kernels(torch, fd, ws, dev, log):
                 err_f = max(err_f, e)
 
                 # backward through the wrapper (kernel) and autograd of
-                # the oracle
+                # the oracle; decoder d's weights require a gradient when
+                # bit d of `live` is set
                 def grads(fn, cot):
                     xs = [t.clone().requires_grad_(True)
                           for t in (p, cm, cf, cc_in)]
-                    wr = [w.clone().requires_grad_(train) for w in ws]
+                    wr = [w.clone().requires_grad_(
+                        bool(live >> (k // fd.N_PER_DEC) & 1))
+                        for k, w in enumerate(ws)]
                     o = fn(with_color, xs[0], xs[1], xs[2], xs[3], wr)
-                    want = xs + (wr if train else [])
-                    return torch.autograd.grad((o * cot).sum(), want,
-                                               allow_unused=True)
+                    want = xs + [w for w in wr if w.requires_grad]
+                    got = list(torch.autograd.grad((o * cot).sum(), want,
+                                                   allow_unused=True))
+                    return got[:4] + [got.pop(4) if w.requires_grad else None
+                                      for w in wr]
 
                 def kern(c, a, b, d, e_, w):
                     return fd.fused_nice_decode(c, train, a, b, d, e_, *w)
@@ -207,12 +245,17 @@ def check_kernels(torch, fd, ws, dev, log):
                     unexplained = int(steady[rows].sum())
                     fail_if(unexplained > 0
                             or rows.numel() > max(2, n // 1000),
-                            f"K2 n={n} {stage} train={train}: {name} misses "
-                            f"at {rows.numel()} points ({unexplained} "
-                            "without a ReLU near zero), max abs err "
-                            f"{float((a - b).abs().max())}")
+                            f"K2 n={n} {stage} live={live_name}: {name} "
+                            f"misses at {rows.numel()} points "
+                            f"({unexplained} without a ReLU near zero), max "
+                            f"abs err {float((a - b).abs().max())}")
                     log(f"  K2 n={n} {stage} {name}: {rows.numel()} points "
                         "differ by a ReLU flip (pre-activation < 1e-4)")
+                for k in range(len(ws)):
+                    if not live >> (k // fd.N_PER_DEC) & 1:
+                        fail_if(gk[4 + k] is not None,
+                                f"K2 n={n} {stage} live={live_name}: frozen "
+                                f"weight {k} got a gradient")
                 if train:
                     # weight gradients sum over all points, so a flipped
                     # ReLU moves whole sums: compare them on the points
@@ -223,6 +266,8 @@ def check_kernels(torch, fd, ws, dev, log):
                     torch.cuda.synchronize()
                     gr = grads(plain, go_s)
                     for k in range(len(ws)):
+                        if not live >> (k // fd.N_PER_DEC) & 1:
+                            continue
                         a, b = gk[4 + k], gr[4 + k]
                         b = torch.zeros_like(ws[k]) if b is None else b
                         a = torch.zeros_like(ws[k]) if a is None else a
@@ -233,9 +278,9 @@ def check_kernels(torch, fd, ws, dev, log):
                             continue
                         cos = float((a * b).sum()) / max(na * nb, 1e-30)
                         fail_if(cos <= 0.9999 or abs(na / nb - 1) > 1e-3,
-                                f"K2 n={n} {stage}: weight grad {k} "
-                                f"cosine {cos} norm ratio {na / nb}")
-                log(f"kernel check n={n} stage={stage} train={train}: ok "
+                                f"K2 n={n} {stage} live={live_name}: weight "
+                                f"grad {k} cosine {cos} norm ratio {na / nb}")
+                log(f"kernel check n={n} stage={stage} live={live_name}: ok "
                     f"(fwd err {err_f:.3g}, bwd err {err_b:.3g})")
     return err_f, err_b
 
@@ -296,6 +341,7 @@ def run_main_path(torch, fd, log):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = fd.launch_counts()
+    kinds = fd.bwd_launch_kinds()
     peak = torch.cuda.max_memory_allocated()
     ate = eng.ate()["rmse"]
     exp_f, exp_b = expected_launches(cfg, n_frames)
@@ -303,7 +349,8 @@ def run_main_path(torch, fd, log):
         f"{n_frames / wall:.4f} frames/s, ATE rmse {ate:.5f} m, peak "
         f"device memory {peak / 2**20:.1f} MiB, timings {eng.timings}")
     log(f"main path launches: K1 {counts['fused_decode_fwd']} (schedule "
-        f"{exp_f}), K2 {counts['fused_decode_bwd']} (schedule {exp_b})")
+        f"{exp_f}), K2 {counts['fused_decode_bwd']} (schedule {exp_b}); K2 "
+        f"by kind {kinds}")
     fail_if(counts["fused_decode_fwd"] == 0 or counts["fused_decode_bwd"] == 0,
             "a kernel of the main path was never launched")
     fail_if(counts["fused_decode_fwd"] != exp_f
@@ -311,7 +358,7 @@ def run_main_path(torch, fd, log):
             "launch counts differ from the schedule")
     fail_if(not math.isfinite(ate) or ate > 0.25,
             f"ATE {ate} not finite or above 0.25 m")
-    return counts, eng
+    return counts, kinds, eng
 
 
 def profile_window(torch, eng, log):
@@ -359,7 +406,10 @@ def profile_window(torch, eng, log):
 # ---------------------------------------------------------------------------
 # Phase 4: timing
 
-def cuda_time_ms(torch, fn, warmup=3, reps=15):
+def cuda_time_ms(torch, fn, warmup=3, reps=9, inner=10):
+    """Median over `reps` of the device time of `inner` back-to-back calls,
+    divided by `inner` (so the host's enqueue time of one call hides
+    behind the device's work on the ones before it)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -368,33 +418,61 @@ def cuda_time_ms(torch, fn, warmup=3, reps=15):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
-def time_kernels(torch, fd, ws, dev, n, with_color, train, log):
+def _bounds(res, work):
+    tc, simt, nbytes = work
+    res["bound_ms"], res["bound_by"] = bound_ms(tc, simt, nbytes)
+    res["design_bound_ms"], res["design_bound_by"] = bound_ms(
+        tc, simt, nbytes, tensor_cores=True)
+    return res
+
+
+def time_fwd(torch, fd, ws, dev, n, with_color, log):
+    p, cm, cf, cc, _ = make_inputs(torch, n, 99, dev)
+    cc_in = cc if with_color else cm
+    flat = fd.pack_flat(ws)
+    with torch.no_grad():
+        res = {"ms": cuda_time_ms(torch, lambda: fd._launch_fwd(
+            with_color, p, cm, cf, cc_in, flat)),
+            "plain_ms": cuda_time_ms(torch, lambda: fd.reference_nice_decode(
+                with_color, p, cm, cf, cc_in, *ws), inner=1)}
+    _bounds(res, decode_work(n, with_color, "fwd"))
+    log(f"timing K1 n={n} {'color' if with_color else 'fine'}: "
+        + ", ".join(f"{k} {v}" for k, v in res.items()))
+    return res
+
+
+def time_bwd(torch, fd, ws, dev, n, with_color, live, log):
+    """K2's launches alone (the C entry with its buffers allocated once:
+    the decoder kernels and, with live decoders, the weight-gradient
+    reduction), the wrapper around it as the backward calls it (image
+    gather, allocation, launches, dp sum), and the plain version."""
     p, cm, cf, cc, go = make_inputs(torch, n, 99, dev)
     cc_in = cc if with_color else cm
     flat = fd.pack_flat(ws)
-    res = {}
+    lib = fd._bwd_kernels()
+    args, outs, scratch = fd._bwd_prepare(with_color, live, p, cm, cf,
+                                          cc_in, go, flat)
     with torch.no_grad():
-        res["fwd_ms"] = cuda_time_ms(torch, lambda: fd._launch_fwd(
-            with_color, p, cm, cf, cc_in, flat))
-        res["fwd_plain_ms"] = cuda_time_ms(torch, lambda: fd.reference_nice_decode(
-            with_color, p, cm, cf, cc_in, *ws))
-        res["bwd_ms"] = cuda_time_ms(torch, lambda: fd._launch_bwd(
-            with_color, train, p, cm, cf, cc_in, go, flat))
-        res["bwd_plain_ms"] = cuda_time_ms(torch, lambda: fd.plain_nice_decode_bwd(
-            with_color, train, p, cm, cf, cc_in, go, ws))
-    for d in ("fwd", "bwd"):
-        fl, by = decode_work(n, with_color, d, train)
-        res[f"{d}_bound_ms"], res[f"{d}_bound_by"] = bound_ms(fl, by)
-    log(f"timing n={n} with_color={with_color} train={train}: "
-        + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                    for k, v in res.items()))
+        res = {"ms": cuda_time_ms(torch, lambda: lib.nice_decode_bwd(*args)),
+               "wrapper_ms": cuda_time_ms(torch, lambda: fd._launch_bwd(
+                   with_color, live, p, cm, cf, cc_in, go, flat)),
+               "plain_ms": cuda_time_ms(
+                   torch, lambda: fd.plain_nice_decode_bwd(
+                       with_color, live, p, cm, cf, cc_in, go, ws), inner=1)}
+    del outs, scratch
+    _bounds(res, decode_work(n, with_color, "bwd", live))
+    res.update({"n": n, "stage": "color" if with_color else "fine",
+                "live": live})
+    log(f"timing K2 n={n} {res['stage']} live={live}: "
+        + ", ".join(f"{k} {v}" for k, v in res.items()))
     return res
 
 
@@ -436,6 +514,10 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "smem",
                                        "Function properties")):
                 log(f"  [{name}] {line.strip()}")
+    for live in (False, True):
+        for d, name in enumerate(DECS):
+            log(f"K2 variant {'live' if live else 'frozen'} {name}: "
+                f"{fd.bwd_variant_info(live, d)}")
 
     ws = [w.contiguous() for w in fd.pack_nice_weights(load_npz_decoders(
         os.path.join(REPO, "pretrained", "decoders_tpu.npz"),
@@ -443,25 +525,34 @@ def main() -> int:
                    device=dev)))]
     err_f, err_b = check_kernels(torch, fd, ws, dev, log)
 
-    counts, eng = run_main_path(torch, fd, log)
+    counts, kinds, eng = run_main_path(torch, fd, log)
     profile_window(torch, eng, log)
 
-    t_map = time_kernels(torch, fd, ws, dev, 48000, True, True, log)
-    time_kernels(torch, fd, ws, dev, 9600, True, False, log)
-    src = "nice_slam_torch/csrc/fused_decode.cu"
+    k1 = time_fwd(torch, fd, ws, dev, 48000, True, log)
+    time_fwd(torch, fd, ws, dev, 9600, True, log)
+    # K2 at the main path's four shapes, then the shape of the timing
+    # before its redesign (48,000 colour, all three decoders live)
+    shapes = [time_bwd(torch, fd, ws, dev, n, wc, live, log)
+              for n, wc, live in ((48000, True, 4), (48000, True, 0),
+                                  (48000, False, 0), (9600, True, 0),
+                                  (48000, True, 7))]
+    k2 = shapes[-1]
     kernels = [
-        {"name": "fused_decode_fwd", "route": "cuda", "source": src,
+        {"name": "fused_decode_fwd", "route": "cuda",
+         "source": "nice_slam_torch/csrc/fused_decode.cu",
          "replaces": "nice_slam_tpu/ops/pallas/fused_decode.py:274",
          "launches": counts["fused_decode_fwd"], "max_abs_err": err_f,
-         "ms": t_map["fwd_ms"], "plain_ms": t_map["fwd_plain_ms"],
-         "bound_ms": t_map["fwd_bound_ms"],
-         "bound_by": t_map["fwd_bound_by"], "library_ms": None},
-        {"name": "fused_decode_bwd", "route": "cuda", "source": src,
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None},
+        {"name": "fused_decode_bwd", "route": "cuda",
+         "source": "nice_slam_torch/csrc/fused_decode_bwd.cu",
          "replaces": "nice_slam_tpu/ops/pallas/fused_decode.py:304",
          "launches": counts["fused_decode_bwd"], "max_abs_err": err_b,
-         "ms": t_map["bwd_ms"], "plain_ms": t_map["bwd_plain_ms"],
-         "bound_ms": t_map["bwd_bound_ms"],
-         "bound_by": t_map["bwd_bound_by"], "library_ms": None},
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None, "design_bound_ms": k2["design_bound_ms"],
+         "launches_by_kind": kinds, "shapes": shapes},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> its sources in csrc/
 SOURCES: Dict[str, List[str]] = {
     "fused_decode": ["fused_decode.cu"],
+    "fused_decode_bwd": ["fused_decode_bwd.cu"],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,8 @@
 """Fused NICE decode: the middle + fine + colour MLPs of the fine and colour
-stages, forward and backward, as one hand-written CUDA kernel per
-direction (nice_slam_torch/csrc/fused_decode.cu).
+stages, forward and backward, as hand-written CUDA kernels: K1, the
+forward (nice_slam_torch/csrc/fused_decode.cu), and K2, the backward
+(csrc/fused_decode_bwd.cu: 3xTF32 tensor cores, one decoder per block,
+weight gradients only for the decoders that train).
 
 This is the port of the JAX package's Pallas kernels
 (nice_slam_tpu/ops/pallas/fused_decode.py: `_fwd_kernel` via `_fwd`, and
@@ -10,16 +12,18 @@ the same `pack_nice_weights` order) is the kernels' oracle: the CPU path
 runs it, and chip_smoke.py holds the kernels against it on the card.
 
 `fused_nice_decode` on CUDA tensors launches the kernels or raises; on CPU
-tensors it runs the plain version.  The two launch counters on
+tensors it runs the plain version.  The launch counters on
 `FusedNiceDecode` count kernel launches only.
 
 Semantics (as in the JAX package):
 - the fine decoder sees [c_fine, stop_grad(c_mid)]: its c_mid cotangent
-  is dropped;
+  is dropped (and not computed);
 - the colour head's occupancy output is discarded (the stage's occupancy
   is middle + fine): its cotangent is zero;
-- train_weights=False returns no weight gradients (frozen decoders), and
-  the kernel skips that work.
+- weight gradients are computed only for the live decoders: with
+  train_weights, decoder d is live when any of its weights requires a
+  gradient.  The others get None (the JAX package computes them and the
+  caller drops them; the values of the live ones are the same).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import ctypes
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 HID = 32
@@ -114,16 +119,18 @@ def _mlp_forward(p, c, B, W, b, V, a, Wo, bo, save=False):
     return out
 
 
-def _mlp_backward(dout, p, c, B, W, b, V, a, Wo, bo, weights=True):
+def _mlp_backward(dout, p, c, B, W, b, V, a, Wo, bo, weights=True,
+                  dc_cols=None):
     """Hand-derived VJP of _mlp_forward.  Returns (dp, dc, weight grads in
     pack order [dB, dW0..4, db0..4, dV0..4, da0..4, dWo, dbo], or None
-    with weights=False)."""
+    with weights=False).  dc_cols: the cotangent of only the first dc_cols
+    feature columns (default all)."""
     pb = p @ B
     _, (e, xs, zs, x_last) = _mlp_forward(p, c, B, W, b, V, a, Wo, bo,
                                           save=True)
     dx = dout @ Wo.T
     de = torch.zeros_like(e)
-    dc = torch.zeros_like(c)
+    dc = torch.zeros_like(c[:, :dc_cols])
     dW, db, dV, da = ([None] * N_BLOCKS for _ in range(4))
     for i in reversed(range(N_BLOCKS)):
         if i == SKIP:
@@ -132,7 +139,7 @@ def _mlp_backward(dout, p, c, B, W, b, V, a, Wo, bo, weights=True):
             dh = dx[:, EMB:]
         else:
             dh = dx
-        dc = dc + dh @ V[i].T
+        dc = dc + dh @ V[i][:dc_cols].T
         dz = dh * (zs[i] > 0)
         if weights:
             dV[i] = c.T @ dh
@@ -166,64 +173,96 @@ def reference_nice_decode(with_color, p, c_mid, c_fine, c_color, *weights):
     return torch.cat([rgb, occ[:, None]], dim=-1)
 
 
-def plain_nice_decode_bwd(with_color: bool, train_weights: bool, p, c_mid,
-                          c_fine, c_color, g, weights: Sequence):
+def plain_nice_decode_bwd(with_color: bool, live: int, p, c_mid, c_fine,
+                          c_color, g, weights: Sequence):
     """Plain version of the backward kernel: (dp, dc_mid, dc_fine,
-    dc_color, weight grads (69) or None)."""
+    dc_color, weight grads).  live: bit d set = decoder d (0 middle,
+    1 fine, 2 colour) takes weight gradients.  The weight grads are the 69
+    arrays of pack order, None for the decoders that are not live (and
+    zeros for a live colour decoder in the fine stage, which it does not
+    run)."""
     ws = list(weights)
-    tw = train_weights
     docc = g[:, 3:4]
-    dp_m, dcm, wg_m = _mlp_backward(docc, p, c_mid, *_unpack(ws, 0), tw)
+    dp, dcm, wg_m = _mlp_backward(docc, p, c_mid, *_unpack(ws, 0),
+                                  bool(live & 1))
     cfull = torch.cat([c_fine, c_mid], dim=-1)
-    dp_f, dcfull, wg_f = _mlp_backward(docc, p, cfull, *_unpack(ws, 1), tw)
-    dcf = dcfull[:, :HID]  # the stop-gradient c_mid half is dropped
-    dp = dp_m + dp_f
+    # the stop-gradient c_mid half of the fine input: not computed
+    dp_f, dcf, wg_f = _mlp_backward(docc, p, cfull, *_unpack(ws, 1),
+                                    bool(live & 2), dc_cols=HID)
+    dp = dp + dp_f
     if with_color:
         dout_c = torch.cat([g[:, :3], torch.zeros_like(g[:, :1])], dim=-1)
         dp_c, dcc, wg_c = _mlp_backward(dout_c, p, c_color,
-                                        *_unpack(ws, 2), tw)
+                                        *_unpack(ws, 2), bool(live & 4))
         dp = dp + dp_c
     else:
         dcc = torch.zeros_like(c_mid)
-        wg_c = [torch.zeros_like(w) for w in ws[2 * N_PER_DEC:]]
-    wgrads = (wg_m + wg_f + wg_c) if tw else None
+        wg_c = ([torch.zeros_like(w) for w in ws[2 * N_PER_DEC:]]
+                if live & 4 else None)
+    wgrads = []
+    for wg in (wg_m, wg_f, wg_c):
+        wgrads += [None] * N_PER_DEC if wg is None else wg
     return dp, dcm, dcf, dcc, wgrads
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernels
 
-_lib = None
+_libs = {}
 
 
 def _kernels():
-    """The built kernel library with its C signatures declared."""
-    global _lib
-    if _lib is None:
+    """The built forward library with its C signatures declared."""
+    if "fwd" not in _libs:
         from nice_slam_torch.ops.cuda_build import load
 
         lib = load("fused_decode")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.nice_decode_weight_floats.restype = ci
         lib.nice_decode_weight_floats.argtypes = []
-        lib.nice_decode_tile_points.restype = ci
-        lib.nice_decode_tile_points.argtypes = []
         lib.nice_decode_decoder_offset.restype = ci
         lib.nice_decode_decoder_offset.argtypes = [ci]
         lib.nice_decode_error_string.restype = ctypes.c_char_p
         lib.nice_decode_error_string.argtypes = [ci]
         lib.nice_decode_fwd.restype = ci
         lib.nice_decode_fwd.argtypes = [vp] * 6 + [ci, ci, vp]
-        lib.nice_decode_bwd.restype = ci
-        lib.nice_decode_bwd.argtypes = [vp] * 12 + [ci, ci, ci, vp]
         offs, total = weight_offsets()
         if (lib.nice_decode_weight_floats() != total
                 or [lib.nice_decode_decoder_offset(d) for d in range(3)]
                 != [offs[d * N_PER_DEC] for d in range(3)]):
-            raise RuntimeError("fused_decode.cu weight layout differs from "
-                               "ops/fused_decode.py weight_offsets()")
-        _lib = lib
-    return _lib
+            raise RuntimeError("fused_decode_layout.cuh weight layout differs "
+                               "from ops/fused_decode.py weight_offsets()")
+        _libs["fwd"] = lib
+    return _libs["fwd"]
+
+
+def _bwd_kernels():
+    """The built backward library with its C signatures declared."""
+    if "bwd" not in _libs:
+        from nice_slam_torch.ops.cuda_build import load
+
+        lib = load("fused_decode_bwd")
+        vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+        for name in ("nice_bwd_image_floats", "nice_bwd_tile_points"):
+            getattr(lib, name).restype = ci
+            getattr(lib, name).argtypes = []
+        lib.nice_bwd_image_offset.restype = ci
+        lib.nice_bwd_image_offset.argtypes = [ci]
+        lib.nice_decode_error_string.restype = ctypes.c_char_p
+        lib.nice_decode_error_string.argtypes = [ci]
+        lib.nice_bwd_variant_info.restype = ci
+        lib.nice_bwd_variant_info.argtypes = [ci, ci, pi, pi, pi]
+        lib.nice_decode_bwd.restype = ci
+        lib.nice_decode_bwd.argtypes = [vp] * 12 + [ci, ci, ci, vp]
+        img_offs, img_total = bwd_image_layout()
+        if (lib.nice_bwd_image_floats() != img_total
+                or [lib.nice_bwd_image_offset(d) for d in range(3)]
+                != img_offs
+                or lib.nice_bwd_tile_points() != BWD_TILE):
+            raise RuntimeError("fused_decode_bwd.cu image layout differs "
+                               "from ops/fused_decode.py bwd_image_layout()")
+        _libs["bwd"] = lib
+    return _libs["bwd"]
 
 
 def _check_err(lib, err: int, what: str):
@@ -246,6 +285,94 @@ def unpack_flat(flat: torch.Tensor) -> List[torch.Tensor]:
     offs, _ = weight_offsets()
     return [flat[o:o + r * c].view(r, c)
             for o, (r, c) in zip(offs, weight_shapes())]
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel's shared-memory image of each decoder
+# (csrc/fused_decode_bwd.cu, struct Img): every 32-wide matrix row-major
+# with a row stride of 40 floats and its columns XOR ((row & 4) << 1); the
+# embedding rows of W0 and W3 padded from 93 to 96 with zeros.
+
+BWD_TILE = 64      # points per block of the backward kernel
+_EP, _WS = 96, 40
+
+
+def _img_fields(c: int) -> dict:
+    f = {"B": 0, "W0": 3 * _EP}
+    f["W1"] = f["W0"] + _EP * _WS
+    f["W2"] = f["W1"] + HID * _WS
+    f["W3"] = f["W2"] + HID * _WS
+    f["W4"] = f["W3"] + (_EP + HID) * _WS
+    f["b"] = f["W4"] + HID * _WS
+    f["a"] = f["b"] + N_BLOCKS * HID
+    f["Wo"] = f["a"] + N_BLOCKS * HID
+    f["bo"] = f["Wo"] + HID * 4
+    f["V"] = f["bo"] + 4
+    f["size"] = f["V"] + N_BLOCKS * c * _WS
+    return f
+
+
+def bwd_image_layout() -> Tuple[List[int], int]:
+    """Offsets of the three decoders' images and the total, in floats."""
+    offs, o = [], 0
+    for name in DECS:
+        offs.append(o)
+        o += _img_fields(C_DIMS[name])["size"]
+    return offs, o
+
+
+def bwd_image_index():
+    """int64 numpy index: image[k] = flat[index[k]] builds the backward's
+    weight image from the packed buffer in one gather.  Padding reads the
+    padding float of the middle decoder's B (3 * 93 = 279 < 280), which
+    pack_flat leaves zero."""
+    offs, _ = weight_offsets()
+    zero = offs[0] + 3 * EMB
+    img_offs, total = bwd_image_layout()
+    idx = np.full(total, zero, dtype=np.int64)
+    cols = np.arange(HID)
+    for d, name in enumerate(DECS):
+        c_dim, o_dim = C_DIMS[name], OUT_DIMS[name]
+        f = _img_fields(c_dim)
+        base = img_offs[d]
+        src = [offs[d * N_PER_DEC + k] for k in range(N_PER_DEC)]
+
+        def put(dst, src_off, rows):
+            # rows[r]: the source row of image row r, or -1 for zeros
+            for r, sr in enumerate(rows):
+                if sr >= 0:
+                    idx[base + dst + r * _WS + (cols ^ ((r & 4) << 1))] = (
+                        src_off + sr * HID + cols)
+
+        for j in range(3):
+            idx[base + j * _EP + np.arange(EMB)] = src[0] + j * EMB + \
+                np.arange(EMB)
+        emb_rows = list(range(EMB)) + [-1] * (_EP - EMB)
+        put(f["W0"], src[1], emb_rows)
+        put(f["W1"], src[2], range(HID))
+        put(f["W2"], src[3], range(HID))
+        put(f["W3"], src[4], emb_rows + list(range(EMB, EMB + HID)))
+        put(f["W4"], src[5], range(HID))
+        for i in range(N_BLOCKS):
+            idx[base + f["b"] + i * HID + cols] = src[6 + i] + cols
+            put(f["V"] + i * c_dim * _WS, src[11 + i], range(c_dim))
+            idx[base + f["a"] + i * HID + cols] = src[16 + i] + cols
+        for k in range(HID):
+            idx[base + f["Wo"] + 4 * k + np.arange(o_dim)] = (
+                src[21] + k * o_dim + np.arange(o_dim))
+        idx[base + f["bo"] + np.arange(o_dim)] = src[22] + np.arange(o_dim)
+    return idx
+
+
+_img_index = {}
+
+
+def _bwd_image(flat: torch.Tensor) -> torch.Tensor:
+    """The backward's weight image of a packed buffer (one gather)."""
+    key = str(flat.device)
+    if key not in _img_index:
+        _img_index[key] = torch.from_numpy(bwd_image_index()).to(flat.device)
+    return flat[_img_index[key]]
 
 
 def _check_cuda_inputs(p, c_mid, c_fine, c_color, weights):
@@ -287,33 +414,81 @@ def _launch_fwd(with_color, p, c_mid, c_fine, c_color, flat):
     return out
 
 
-def _launch_bwd(with_color, train_weights, p, c_mid, c_fine, c_color, g,
-                flat):
-    lib = _kernels()
+def _decoder_sizes() -> List[int]:
+    offs, total = weight_offsets()
+    starts = [offs[d * N_PER_DEC] for d in range(3)] + [total]
+    return [starts[d + 1] - starts[d] for d in range(3)]
+
+
+def _bwd_prepare(with_color, live, p, c_mid, c_fine, c_color, g, flat):
+    """K2's C arguments with its outputs allocated: (args, (dp_part,
+    dc_mid, dc_fine, dc_color (None in the fine stage), packed weight
+    gradients (valid in the live decoders' sections) or None), scratch)."""
     n = p.shape[0]
     dev = p.device
-    dp = torch.empty(n, 3, dtype=torch.float32, device=dev)
-    dcm = torch.empty(n, HID, dtype=torch.float32, device=dev)
-    dcf = torch.empty(n, HID, dtype=torch.float32, device=dev)
-    dcc = torch.empty(n, HID, dtype=torch.float32, device=dev)
-    total = flat.numel()
-    if train_weights:
-        rows = -(-n // lib.nice_decode_tile_points())
-        partial = torch.empty(rows, total, dtype=torch.float32, device=dev)
-        wgrad = torch.zeros(total, dtype=torch.float32, device=dev)
+    n_dec = 3 if with_color else 2
+    live &= (1 << n_dec) - 1
+    img = _bwd_image(flat)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dp_part = torch.empty(n_dec, n, 3, **f32)
+    dcm = torch.empty(n, HID, **f32)
+    dcf = torch.empty(n, HID, **f32)
+    dcc = torch.empty(n, HID, **f32) if with_color else None
+    if live:
+        tiles = -(-n // BWD_TILE)
+        sizes = _decoder_sizes()
+        cols = sum(sizes[d] for d in range(n_dec) if live >> d & 1)
+        partial = torch.empty(tiles * cols, **f32)
+        # the kernel writes the live sections; with no points, nothing runs
+        wgrad = (torch.empty if n else torch.zeros)(flat.numel(), **f32)
         pptr, wptr = partial.data_ptr(), wgrad.data_ptr()
     else:
-        wgrad = None
+        partial = wgrad = None
         pptr = wptr = None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.nice_decode_bwd(p.data_ptr(), c_mid.data_ptr(),
-                              c_fine.data_ptr(), c_color.data_ptr(),
-                              g.data_ptr(), flat.data_ptr(), dp.data_ptr(),
-                              dcm.data_ptr(), dcf.data_ptr(), dcc.data_ptr(),
-                              pptr, wptr, n, int(with_color),
-                              int(train_weights), stream)
-    _check_err(lib, err, "fused decode backward kernel")
-    return dp, dcm, dcf, dcc, wgrad
+    args = (p.data_ptr(), c_mid.data_ptr(), c_fine.data_ptr(),
+            c_color.data_ptr(), g.data_ptr(), img.data_ptr(),
+            dp_part.data_ptr(), dcm.data_ptr(), dcf.data_ptr(),
+            dcc.data_ptr() if with_color else None, pptr, wptr, n,
+            int(with_color), live, stream)
+    # the third item holds the scratch buffers that args point to: keep it
+    # while args are used again (a timing loop)
+    return args, (dp_part, dcm, dcf, dcc, wgrad), (img, partial)
+
+
+def _launch_bwd(with_color, live, p, c_mid, c_fine, c_color, g, flat):
+    """K2.  Returns (dp, dc_mid, dc_fine, dc_color (None in the fine
+    stage), packed weight gradients (valid in the live decoders' sections)
+    or None)."""
+    lib = _bwd_kernels()
+    args, (dp_part, dcm, dcf, dcc, wgrad), _ = _bwd_prepare(
+        with_color, live, p, c_mid, c_fine, c_color, g, flat)
+    _check_err(lib, lib.nice_decode_bwd(*args),
+               "fused decode backward kernel")
+    return dp_part.sum(0), dcm, dcf, dcc, wgrad
+
+
+def bwd_variant_info(live: bool, dec: int) -> dict:
+    """Registers, spill bytes a thread and resident blocks per SM of the
+    backward kernel for decoder `dec` with (live) or without weight
+    gradients, from the CUDA runtime."""
+    lib = _bwd_kernels()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = lib.nice_bwd_variant_info(int(live), dec,
+                                    *[ctypes.byref(v) for v in vals])
+    _check_err(lib, err, "backward kernel attributes")
+    return {"registers": vals[0].value, "local_bytes": vals[1].value,
+            "blocks_per_sm": vals[2].value}
+
+
+def _live_mask(ctx) -> int:
+    """Decoder d is live when weight gradients are asked for and any of its
+    23 weights needs one."""
+    if not ctx.train_weights:
+        return 0
+    need = ctx.needs_input_grad[6:]
+    return sum(1 << d for d in range(3)
+               if any(need[d * N_PER_DEC:(d + 1) * N_PER_DEC]))
 
 
 class FusedNiceDecode(torch.autograd.Function):
@@ -321,10 +496,12 @@ class FusedNiceDecode(torch.autograd.Function):
 
     `fwd_launches` / `bwd_launches` count launches of the forward and
     backward kernels (the backward's weight-gradient reduction belongs to
-    the backward launch)."""
+    the backward launch); `bwd_kinds` splits the backward's by stage,
+    weight gradients and points."""
 
     fwd_launches = 0
     bwd_launches = 0
+    bwd_kinds: dict = {}
 
     @staticmethod
     def forward(ctx, with_color: bool, train_weights: bool, p, c_mid, c_fine,
@@ -348,7 +525,7 @@ class FusedNiceDecode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         with_color = ctx.with_color
-        train = ctx.train_weights and any(ctx.needs_input_grad[6:])
+        live = _live_mask(ctx)
         saved = ctx.saved_tensors
         p, c_mid, c_fine, c_color = saved[:4]
         g = g.contiguous()
@@ -360,14 +537,27 @@ class FusedNiceDecode(torch.autograd.Function):
                                  f"{g.dtype} {tuple(g.shape)} on {g.device}")
             flat = saved[4]
             dp, dcm, dcf, dcc, wflat = _launch_bwd(
-                with_color, train, p, c_mid, c_fine, c_color, g, flat)
+                with_color, live, p, c_mid, c_fine, c_color, g, flat)
             FusedNiceDecode.bwd_launches += 1
-            wgrads = unpack_flat(wflat) if train else None
+            ran = live & (7 if with_color else 3)
+            kind = (f"{'color' if with_color else 'fine'} "
+                    f"{'wgrad' if ran else 'no-wgrad'} n={p.shape[0]}")
+            kinds = FusedNiceDecode.bwd_kinds
+            kinds[kind] = kinds.get(kind, 0) + 1
+            views = unpack_flat(wflat) if ran else None
+            wgrads = []
+            for d in range(3):
+                sl = slice(d * N_PER_DEC, (d + 1) * N_PER_DEC)
+                if not live >> d & 1:
+                    wgrads += [None] * N_PER_DEC
+                elif ran >> d & 1:
+                    wgrads += views[sl]
+                else:   # a live colour decoder in the fine stage
+                    wgrads += [torch.zeros_like(flat[:r * c]).view(r, c)
+                               for r, c in weight_shapes()[sl]]
         else:
             dp, dcm, dcf, dcc, wgrads = plain_nice_decode_bwd(
-                with_color, train, p, c_mid, c_fine, c_color, g, saved[4:])
-        if wgrads is None:
-            wgrads = [None] * (3 * N_PER_DEC)
+                with_color, live, p, c_mid, c_fine, c_color, g, saved[4:])
         return (None, None, dp, dcm, dcf, dcc if with_color else None,
                 *wgrads)
 
@@ -378,7 +568,8 @@ def fused_nice_decode(with_color: bool, train_weights: bool, p, c_mid,
 
     weights: pack_nice_weights(params) order.  with_color=False computes
     the 'fine' stage (rgb zeros; c_color is not read).  train_weights=False
-    returns no decoder weight gradients."""
+    returns no decoder weight gradients; with True, only the decoders whose
+    weights require a gradient get one."""
     return FusedNiceDecode.apply(with_color, train_weights, p, c_mid, c_fine,
                                  c_color, *weights)
 
@@ -386,8 +577,14 @@ def fused_nice_decode(with_color: bool, train_weights: bool, p, c_mid,
 def reset_launch_counts() -> None:
     FusedNiceDecode.fwd_launches = 0
     FusedNiceDecode.bwd_launches = 0
+    FusedNiceDecode.bwd_kinds = {}
 
 
 def launch_counts() -> dict:
     return {"fused_decode_fwd": FusedNiceDecode.fwd_launches,
             "fused_decode_bwd": FusedNiceDecode.bwd_launches}
+
+
+def bwd_launch_kinds() -> dict:
+    """Backward launches by 'stage wgrad|no-wgrad n=points'."""
+    return dict(FusedNiceDecode.bwd_kinds)

@@ -72,6 +72,42 @@ def test_plain_decode_matches_jax(weights, with_color):
         np.testing.assert_allclose(a, np.asarray(b), **TOL)
 
 
+@pytest.mark.parametrize("with_color", [False, True], ids=["fine", "color"])
+@pytest.mark.parametrize("live", [0, 4, 7], ids=["none", "color", "all"])
+def test_plain_bwd_live_matches_jax(weights, with_color, live):
+    """plain_nice_decode_bwd (the backward kernel's oracle) with a live mask
+    against the JAX package's _mlp_backward of each decoder on the same
+    numpy inputs: dp (summed over the decoders), dc_mid, dc_fine (the
+    c_fine half), dc_color and the live decoders' weight gradients; the
+    frozen decoders' are None."""
+    _, ws_j, ws_t = weights
+    p, (cm, cf, cc), g = _inputs(N=64, seed=7)
+    cc_in = cc if with_color else cm
+    T = torch.tensor
+    dp, dcm, dcf, dcc, wg = fd.plain_nice_decode_bwd(
+        with_color, live, T(p), T(cm), T(cf), T(cc_in), T(g), ws_t)
+    docc = g[:, 3:4]
+    dout_c = np.concatenate([g[:, :3], np.zeros_like(g[:, :1])], axis=-1)
+    cases = [(docc, cm, dcm), (docc, np.concatenate([cf, cm], -1), dcf),
+             (dout_c, cc, dcc)][:3 if with_color else 2]
+    dp_j = 0.0
+    for d, (dout, c, dc_t) in enumerate(cases):
+        dp_d, dc_d, wg_d = jfd._mlp_backward(dout, p, c, *jfd._unpack(ws_j, d))
+        dp_j = dp_j + np.asarray(dp_d)
+        np.testing.assert_allclose(n(dc_t), np.asarray(dc_d)[:, :32], **TOL)
+        for k in range(fd.N_PER_DEC):
+            a = wg[d * fd.N_PER_DEC + k]
+            if live >> d & 1:
+                np.testing.assert_allclose(n(a), np.asarray(wg_d[k]), **TOL)
+            else:
+                assert a is None
+    np.testing.assert_allclose(n(dp), dp_j, **TOL)
+    if not with_color:
+        colour = wg[2 * fd.N_PER_DEC:]
+        assert all(a is None for a in colour) if not live & 4 else \
+            all(float(a.abs().max()) == 0.0 for a in colour)
+
+
 @pytest.mark.parametrize("stage", ["coarse", "middle", "fine", "color"])
 def test_model_apply_matches_jax(stage):
     """model_apply of every stage against JAX model_apply(fused=False) on
