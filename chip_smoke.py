@@ -21,8 +21,8 @@
    with the cotangent of the points that have a pre-activation within
    1e-4 of zero set to zero in both runs (one flipped ReLU moves a whole
    sum).  The reported max_abs_err of K2 is over the other points.
-   Also prints each K2 variant's registers, spill bytes and resident
-   blocks per SM (CUDA runtime).
+   Also prints K1's and each K2 variant's registers, spill bytes and
+   resident blocks per SM (CUDA runtime).
 3. Main path: SlamEngine on configs/Synthetic/synthetic.yaml at its full
    width (240x320, tracking 200 px x 50 iters, mapping 1000 px x 60 iters,
    iters_first 500, 32+16 samples, hidden 32, c_dim 32, coarse mapper on)
@@ -30,18 +30,21 @@
    and its colour refinement runs).  Decoders come from the repository's
    pretrained/decoders_tpu.npz as the config says; the grids are random
    from the config's seed.  Fails unless the kernel launch counts match
-   the schedule and the ATE is finite and under 0.25 m.
+   the schedule (K1 also by kind: stage and points) and the ATE is finite
+   and under 0.25 m.
 4. Profile: torch.profiler over one more tracked frame and mapping event
    of the trained engine gives the device busy share and the top kernels.
-5. Timing phase: K1 at N = 48,000 and 9,600 (colour stage); K2 at the
-   main path's four shapes (48,000 colour with the colour decoder live;
-   48,000 colour, 48,000 fine and 9,600 colour without weight gradients)
-   and at 48,000 colour with all three decoders live (the shape timed
-   before K2's redesign).  Each with CUDA events beside its plain version
-   and two bounds: fp32 (all operations at the CUDA cores' 67 TFLOP/s)
-   and the design's own (products of width 32 on the tensor cores at
-   495/3 TFLOP/s for 3xTF32, the rest at 67 TFLOP/s); each bound is the
-   larger of operations and bytes.  There is no single PyTorch call that
+5. Timing phase: K1 at the main path's three shapes (48,000 colour,
+   48,000 fine, 9,600 colour); K2 at the main path's four shapes (48,000
+   colour with the colour decoder live; 48,000 colour, 48,000 fine and
+   9,600 colour without weight gradients) and at 48,000 colour with all
+   three decoders live (the shape timed before K2's redesign).  Each
+   kernel's launches alone (its C entry, buffers allocated once) and its
+   wrapper as the autograd Function calls it, with CUDA events, beside
+   its plain version and two bounds: fp32 (all operations at the CUDA
+   cores' 67 TFLOP/s) and the design's own (products of width 32 on the
+   tensor cores at 495/3 TFLOP/s for 3xTF32, the rest at 67 TFLOP/s);
+   each bound is the larger of operations and bytes.  There is no single PyTorch call that
    computes the fused decode, so library_ms is null.
 
 The last two lines are a JSON object of the kernels and the contract line
@@ -292,16 +295,20 @@ def expected_launches(cfg, n_img: int):
     """Fused-decode launches of the strict schedule over n_img frames:
     every fine/colour-stage mapping iteration (forward + backward), every
     tracking iteration (forward + backward) and the two init_select
-    renders of each frame from the third on (forward)."""
-    m, t = cfg["mapping"], cfg["tracking"]
+    renders of each frame from the third on (forward, at the tracking
+    shape).  Returns (K1 launches, K2 launches, K1 launches by
+    'stage n=points')."""
+    m, t, r = cfg["mapping"], cfg["tracking"], cfg["rendering"]
+    per_ray = r["N_samples"] + r["N_surface"]
 
-    def fused_iters(n, mid, fine):
+    def stage_iters(n, mid, fine):
+        """(fine-stage, colour-stage) iterations of a mapping event"""
         n_mid = min(int(n * mid) + 1, n)
         n_fine = max(min(int(n * fine) + 1, n) - n_mid, 0)
-        return n - n_mid                  # fine + colour iterations
+        return n_fine, n - n_mid - n_fine
 
     ratios = (m["middle_iter_ratio"], m["fine_iter_ratio"])
-    events = [fused_iters(m["iters_first"], *ratios)]
+    events = [stage_iters(m["iters_first"], *ratios)]
     track_fwd = track_bwd = 0
     cur = 1
     every = m["every_frame"]
@@ -314,11 +321,20 @@ def expected_launches(cfg, n_img: int):
                     and idx >= 2):
                 track_fwd += 2
         if g_end == n_img - 1 and m["color_refine"]:
-            events.append(5 * fused_iters(m["iters"], 0.0, 0.0))
+            fine, color = stage_iters(m["iters"], 0.0, 0.0)
+            events.append((5 * fine, 5 * color))
         else:
-            events.append(fused_iters(m["iters"], *ratios))
+            events.append(stage_iters(m["iters"], *ratios))
         cur = g_end + 1
-    return track_fwd + sum(events), track_bwd + sum(events)
+    fine = sum(e[0] for e in events)
+    color = sum(e[1] for e in events)
+    n_map, n_track = m["pixels"] * per_ray, t["pixels"] * per_ray
+    kinds = {}
+    for key, count in ((f"color n={n_map}", color), (f"fine n={n_map}", fine),
+                       (f"color n={n_track}", track_fwd)):
+        if count:
+            kinds[key] = kinds.get(key, 0) + count
+    return track_fwd + fine + color, track_bwd + fine + color, kinds
 
 
 def run_main_path(torch, fd, log):
@@ -341,24 +357,25 @@ def run_main_path(torch, fd, log):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = fd.launch_counts()
+    fwd_kinds = fd.fwd_launch_kinds()
     kinds = fd.bwd_launch_kinds()
     peak = torch.cuda.max_memory_allocated()
     ate = eng.ate()["rmse"]
-    exp_f, exp_b = expected_launches(cfg, n_frames)
+    exp_f, exp_b, exp_fk = expected_launches(cfg, n_frames)
     log(f"main path: {n_frames} frames in {wall:.3f} s = "
         f"{n_frames / wall:.4f} frames/s, ATE rmse {ate:.5f} m, peak "
         f"device memory {peak / 2**20:.1f} MiB, timings {eng.timings}")
     log(f"main path launches: K1 {counts['fused_decode_fwd']} (schedule "
-        f"{exp_f}), K2 {counts['fused_decode_bwd']} (schedule {exp_b}); K2 "
-        f"by kind {kinds}")
+        f"{exp_f}), K2 {counts['fused_decode_bwd']} (schedule {exp_b}); K1 "
+        f"by kind {fwd_kinds} (schedule {exp_fk}); K2 by kind {kinds}")
     fail_if(counts["fused_decode_fwd"] == 0 or counts["fused_decode_bwd"] == 0,
             "a kernel of the main path was never launched")
     fail_if(counts["fused_decode_fwd"] != exp_f
-            or counts["fused_decode_bwd"] != exp_b,
+            or counts["fused_decode_bwd"] != exp_b or fwd_kinds != exp_fk,
             "launch counts differ from the schedule")
     fail_if(not math.isfinite(ate) or ate > 0.25,
             f"ATE {ate} not finite or above 0.25 m")
-    return counts, kinds, eng
+    return counts, fwd_kinds, kinds, eng
 
 
 def profile_window(torch, eng, log):
@@ -435,16 +452,25 @@ def _bounds(res, work):
 
 
 def time_fwd(torch, fd, ws, dev, n, with_color, log):
+    """K1's launches alone (the C entry with its buffers allocated once:
+    the decoder kernel and the occupancy sum), the wrapper as the forward
+    calls it (image build, allocation, launches), and the plain version."""
     p, cm, cf, cc, _ = make_inputs(torch, n, 99, dev)
     cc_in = cc if with_color else cm
-    flat = fd.pack_flat(ws)
+    img = fd.build_image(ws)
+    lib = fd._kernels()
+    args, out, scratch = fd._fwd_prepare(with_color, p, cm, cf, cc_in, img)
     with torch.no_grad():
-        res = {"ms": cuda_time_ms(torch, lambda: fd._launch_fwd(
-            with_color, p, cm, cf, cc_in, flat)),
-            "plain_ms": cuda_time_ms(torch, lambda: fd.reference_nice_decode(
-                with_color, p, cm, cf, cc_in, *ws), inner=1)}
+        res = {"ms": cuda_time_ms(torch, lambda: lib.nice_decode_fwd(*args)),
+               "wrapper_ms": cuda_time_ms(torch, lambda: fd._launch_fwd(
+                   with_color, p, cm, cf, cc_in, fd.build_image(ws))),
+               "plain_ms": cuda_time_ms(
+                   torch, lambda: fd.reference_nice_decode(
+                       with_color, p, cm, cf, cc_in, *ws), inner=1)}
+    del out, scratch
     _bounds(res, decode_work(n, with_color, "fwd"))
-    log(f"timing K1 n={n} {'color' if with_color else 'fine'}: "
+    res.update({"n": n, "stage": "color" if with_color else "fine"})
+    log(f"timing K1 n={n} {res['stage']}: "
         + ", ".join(f"{k} {v}" for k, v in res.items()))
     return res
 
@@ -452,18 +478,19 @@ def time_fwd(torch, fd, ws, dev, n, with_color, log):
 def time_bwd(torch, fd, ws, dev, n, with_color, live, log):
     """K2's launches alone (the C entry with its buffers allocated once:
     the decoder kernels and, with live decoders, the weight-gradient
-    reduction), the wrapper around it as the backward calls it (image
-    gather, allocation, launches, dp sum), and the plain version."""
+    reduction), the wrapper around it as the backward calls it
+    (allocation, launches, dp sum; the image comes from the forward), and
+    the plain version."""
     p, cm, cf, cc, go = make_inputs(torch, n, 99, dev)
     cc_in = cc if with_color else cm
-    flat = fd.pack_flat(ws)
+    img = fd.build_image(ws)
     lib = fd._bwd_kernels()
     args, outs, scratch = fd._bwd_prepare(with_color, live, p, cm, cf,
-                                          cc_in, go, flat)
+                                          cc_in, go, img)
     with torch.no_grad():
         res = {"ms": cuda_time_ms(torch, lambda: lib.nice_decode_bwd(*args)),
                "wrapper_ms": cuda_time_ms(torch, lambda: fd._launch_bwd(
-                   with_color, live, p, cm, cf, cc_in, go, flat)),
+                   with_color, live, p, cm, cf, cc_in, go, img)),
                "plain_ms": cuda_time_ms(
                    torch, lambda: fd.plain_nice_decode_bwd(
                        with_color, live, p, cm, cf, cc_in, go, ws), inner=1)}
@@ -514,6 +541,7 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "smem",
                                        "Function properties")):
                 log(f"  [{name}] {line.strip()}")
+    log(f"K1: {fd.fwd_variant_info()}")
     for live in (False, True):
         for d, name in enumerate(DECS):
             log(f"K2 variant {'live' if live else 'frozen'} {name}: "
@@ -525,11 +553,13 @@ def main() -> int:
                    device=dev)))]
     err_f, err_b = check_kernels(torch, fd, ws, dev, log)
 
-    counts, kinds, eng = run_main_path(torch, fd, log)
+    counts, fwd_kinds, kinds, eng = run_main_path(torch, fd, log)
     profile_window(torch, eng, log)
 
-    k1 = time_fwd(torch, fd, ws, dev, 48000, True, log)
-    time_fwd(torch, fd, ws, dev, 9600, True, log)
+    # K1 at the main path's three shapes
+    fwd_shapes = [time_fwd(torch, fd, ws, dev, n, wc, log)
+                  for n, wc in ((48000, True), (48000, False), (9600, True))]
+    k1 = fwd_shapes[0]
     # K2 at the main path's four shapes, then the shape of the timing
     # before its redesign (48,000 colour, all three decoders live)
     shapes = [time_bwd(torch, fd, ws, dev, n, wc, live, log)
@@ -544,7 +574,8 @@ def main() -> int:
          "launches": counts["fused_decode_fwd"], "max_abs_err": err_f,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "design_bound_ms": k1["design_bound_ms"],
+         "launches_by_kind": fwd_kinds, "shapes": fwd_shapes},
         {"name": "fused_decode_bwd", "route": "cuda",
          "source": "nice_slam_torch/csrc/fused_decode_bwd.cu",
          "replaces": "nice_slam_tpu/ops/pallas/fused_decode.py:304",

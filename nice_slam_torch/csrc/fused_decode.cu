@@ -1,225 +1,276 @@
 // Fused NICE decode, forward (K1), for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel of nice_slam_tpu/ops/pallas/fused_decode.py:
-//   K1  _fwd_kernel  (launched by _fwd, fused_decode.py:170-189, 274-295)
-// The backward (K2) is fused_decode_bwd.cu.
+// Replaces the Pallas TPU kernel _fwd_kernel of
+// nice_slam_tpu/ops/pallas/fused_decode.py (fused_decode.py:170-189,
+// launched by _fwd at :274): per point, e = sin(p.B), then the 5-block
+// middle, fine and (colour stage) colour MLPs
+//   z_i = x_i W_i + b_i,  h_i = relu(z_i) + c V_i + a_i,
+//   x_0 = e, x_3 = [e, h_2], x_i = h_{i-1} else,
+// middle on c_mid, fine on [c_fine | c_mid], colour on c_color.  Output
+// (N, 4) = [rgb, occ_mid + occ_fine]; in the fine stage rgb is zero and
+// c_color is not read.  The backward (K2) is fused_decode_bwd.cu.
 //
-// Per point: e = sin(p.B) in full fp32, then three 5-block MLPs
-//   h = relu(x W + b) + c V + a, skip concat x3 = [e, h2] (125 wide),
-// middle on c_mid, fine on [c_fine | c_mid], colour on c_color (colour stage
-// only).  Output (N, 4) = [rgb, occ_mid + occ_fine].
+// What bounds it on the H100: the colour-stage forward is ~51,700 MAC per
+// point against 412 bytes of point I/O, so it is bound by arithmetic.  Every
+// product of width 32 (x W_i, c V_i) runs on the tensor cores as 3xTF32
+// (fused_decode_mma.cuh: mma.sync m16n8k8 TF32, each operand split into its
+// TF32 rounding and the remainder), which keeps fp32-level error at up to
+// 495/3 TFLOP/s.  The embedding (p.B, K=3) and the heads (O <= 4) stay SIMT
+// fp32; sin is the branch-free sin_fp32 (2 ulp, never the fast intrinsic:
+// the arguments reach O(100)).
 //
-// What bounds it on the H100: the colour-stage forward is 51,653 MAC per
-// point against 412 bytes of point I/O (~250 FLOP/B), so it is bound by
-// fp32 arithmetic (67 TFLOP/s outside the tensor cores), not by memory.
-// The design keeps every activation of a point in its own thread
-// (registers and local memory) and stages one decoder's weights at a time
-// in dynamic shared memory (the fine decoder is 20,924 floats, ~84 KB; all
-// three would leave no room), so each multiply-add reads its weight as a
-// warp-uniform shared-memory broadcast (float4 where the row allows) and
-// nothing but the point rows and the output touches device memory.  The
-// embedding stays fp32 (sinf, never the fast intrinsic: the arguments
-// reach O(100)).
-//
-// Weight buffer: the packed layout of fused_decode_layout.cuh.
+// Design (the trunk of K2, shared through fused_decode_mma.cuh):
+// - Decoder-major grid (128-point tiles, decoders: middle, fine and in the
+//   colour stage colour): a block stages its decoder's weight image
+//   (Img<C>, 78 KB or 103 KB) into shared memory with cp.async, overlapped
+//   with loading its points and features, while the other block of the SM
+//   computes.  One block per tile and not blocks persistent over tiles:
+//   the hardware's block scheduler then balances the decoders (a fine tile
+//   costs ~1.3 times a middle or colour one), which a fixed share of tiles
+//   per block did not, and staging the image for every tile is hidden
+//   (persistent blocks were slower at 48,000 points in both stages and no
+//   faster at 9,600: nice_slam_torch/tools/decode_ablation.py, variant
+//   persistent).
+// - A warp owns 16 points of the tile and never waits for the others:
+//   after the image is staged there is no barrier.  Activations stay in
+//   registers as mma accumulator fragments, each reused as the next
+//   product's A operand through c_to_a.  e is computed once, one k-block
+//   at a time in block 0, which takes both its products there: z_0 and the
+//   e part of z_3 (z3e, 16 registers instead of e's 48).
+// - Output, deterministic: the middle and fine blocks write their
+//   occupancy into occ_part[0] and occ_part[1], the colour block writes
+//   [rgb, 0] into out; nice_fwd_combine_kernel then writes
+//   out[:, 3] = occ_part[0] + occ_part[1] (and zero rgb in the fine stage),
+//   the order of the plain version.  The ragged tail is zero-padded on
+//   load and masked on store.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "fused_decode_layout.cuh"
+#include "fused_decode_mma.cuh"
 
 namespace {
 
 using namespace nice_decode;
 
-constexpr int TP = 128;  // points per block = threads per block
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int TPTS = 16 * WARPS;  // points per tile (a warp owns 16)
 
-constexpr size_t FWD_SMEM = sizeof(float) * WMAX;
+// every block of a launch reserves the largest image (the fine decoder's)
+constexpr size_t SMEM = sizeof(float) * Img<2 * HID>::size;
 
-__device__ __forceinline__ int w_off(int i) {
-  // offset of W_i inside a decoder (identical for every decoder)
-  return i == 0 ? 280
-       : i == 1 ? 280 + EMB * HID
-       : i == 2 ? 280 + EMB * HID + HID * HID
-       : i == 3 ? 280 + EMB * HID + 2 * HID * HID
-                : 280 + EMB * HID + 2 * HID * HID + (EMB + HID) * HID;
-}
+struct FwdArgs {
+  const float* p;
+  const float* cm;
+  const float* cf;
+  const float* cc;
+  const float* wimg;  // the three decoders' shared-memory images
+  float* occ_part;    // [2][n]: the middle and fine decoders' occupancy
+  float* out;         // [n][4]
+  int n;
+};
 
-// Copy one decoder's weights into shared memory (all threads take part).
-__device__ __forceinline__ void stage_weights(float* sw, const float* w,
-                                              int n_floats) {
-  const float4* src = reinterpret_cast<const float4*>(w);
-  float4* dst = reinterpret_cast<float4*>(sw);
-  for (int q = threadIdx.x; q < n_floats / 4; q += blockDim.x) dst[q] = src[q];
-}
-
-// e_k = sin(p . B[:, k]) in full fp32
-__device__ __forceinline__ float embed_arg(const float* B, int k, float p0,
-                                           float p1, float p2) {
-  return p0 * B[k] + p1 * B[EMB + k] + p2 * B[2 * EMB + k];
-}
-
-// acc[j] += x * row[j], row 16-byte aligned in shared memory
-__device__ __forceinline__ void axpy32(float x, const float* row,
-                                       float (&acc)[HID]) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int q = 0; q < HID / 4; ++q) {
-    const float4 v = r4[q];
-    acc[4 * q + 0] = fmaf(x, v.x, acc[4 * q + 0]);
-    acc[4 * q + 1] = fmaf(x, v.y, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(x, v.z, acc[4 * q + 2]);
-    acc[4 * q + 3] = fmaf(x, v.w, acc[4 * q + 3]);
-  }
-}
-
-__device__ __forceinline__ unsigned relu_bits(const float (&z)[HID]) {
-  unsigned m = 0u;
-#pragma unroll
-  for (int j = 0; j < HID; ++j) m |= (z[j] > 0.f ? 1u : 0u) << j;
-  return m;
-}
-
-// Block i of the trunk, in place on h:
-//   z = x_i W_i + b_i   with x_0 = e, x_3 = [e, h_2], x_i = h_{i-1} else
-//   h = relu(z) + a_i + c V_i
-// Returns the relu pattern of z.  The layer index is a runtime value: one
-// copy of this code serves all five blocks (the 32-wide loops unroll).
-template <int C, int O>
-__device__ __forceinline__ unsigned mlp_block(const float* w, int i, float p0,
-                                              float p1, float p2,
-                                              const float (&c)[C],
-                                              float (&h)[HID]) {
-  using L = Layout<C, O>;
-  const float* W = w + w_off(i);
-  float z[HID];
-#pragma unroll
-  for (int j = 0; j < HID; ++j) z[j] = w[L::b + i * HID + j];
-  int k0 = 0;
-  if (i == 0 || i == 3) {
-    for (int k = 0; k < EMB; ++k) {
-      const float e = sinf(embed_arg(w + L::B, k, p0, p1, p2));
-      axpy32(e, W + k * HID, z);
-    }
-    k0 = EMB;
-  }
-  if (i != 0) {
-#pragma unroll
-    for (int k = 0; k < HID; ++k) axpy32(h[k], W + (k0 + k) * HID, z);
-  }
-  const float* a = w + L::a + i * HID;
-  const float* V = w + L::V + i * C * HID;
-#pragma unroll
-  for (int j = 0; j < HID; ++j) h[j] = fmaxf(z[j], 0.f) + a[j];
-#pragma unroll
-  for (int k = 0; k < C; ++k) axpy32(c[k], V + k * HID, h);
-  return relu_bits(z);
-}
-
-// The five blocks; h ends as h_4.  With Hs != nullptr, Hs[i * 32 + j]
-// keeps h_i and mask[i] the relu pattern of z_i (for the backward).
-template <int C, int O>
-__device__ __forceinline__ void mlp_trunk(const float* w, float p0, float p1,
-                                          float p2, const float (&c)[C],
-                                          float (&h)[HID], float* Hs,
-                                          unsigned* mask) {
-#pragma unroll
-  for (int j = 0; j < HID; ++j) h[j] = 0.f;
-#pragma unroll 1
-  for (int i = 0; i < NBLK; ++i) {
-    const unsigned m = mlp_block<C, O>(w, i, p0, p1, p2, c, h);
-    if (Hs != nullptr) {
-      mask[i] = m;
-#pragma unroll
-      for (int j = 0; j < HID; ++j) Hs[i * HID + j] = h[j];
-    }
-  }
-}
-
+// The lane's two points (rows ra, rb) and its feature A fragments (k-block
+// kb: columns 8kb + 2t, 8kb + 2t + 1); the fine decoder reads
+// [c_fine | c_mid].  Zeros past n.
 template <int C>
-__device__ __forceinline__ void load_row(const float* src, int i, bool valid,
-                                         float* dst) {
-  // one point's feature row (32 floats); zeros past the ragged tail
-  const float4* s4 = reinterpret_cast<const float4*>(src + (size_t)i * C);
+__device__ __forceinline__ void load_points(const FwdArgs& a,
+                                            const float* csrc, int ra, int t,
+                                            float (&pa)[3], float (&pb)[3],
+                                            float (&cfr)[C / 8][4]) {
+  const int rb = ra + 8;
+  const bool va = ra < a.n, vb = rb < a.n;
 #pragma unroll
-  for (int q = 0; q < C / 4; ++q) {
-    const float4 v = valid ? s4[q] : make_float4(0.f, 0.f, 0.f, 0.f);
-    dst[4 * q + 0] = v.x;
-    dst[4 * q + 1] = v.y;
-    dst[4 * q + 2] = v.z;
-    dst[4 * q + 3] = v.w;
+  for (int j = 0; j < 3; ++j) {
+    pa[j] = va ? a.p[3 * (size_t)ra + j] : 0.f;
+    pb[j] = vb ? a.p[3 * (size_t)rb + j] : 0.f;
+  }
+#pragma unroll
+  for (int kb = 0; kb < C / 8; ++kb) {
+    const float* src = kb >= 4 ? a.cm : csrc;
+    const int col = 8 * (kb & 3) + 2 * t;
+    const float2 z2 = make_float2(0.f, 0.f);
+    const float2 xa =
+        va ? *reinterpret_cast<const float2*>(src + (size_t)ra * HID + col) : z2;
+    const float2 xb =
+        vb ? *reinterpret_cast<const float2*>(src + (size_t)rb * HID + col) : z2;
+    cfr[kb][0] = xa.x;
+    cfr[kb][1] = xb.x;
+    cfr[kb][2] = xa.y;
+    cfr[kb][3] = xb.y;
   }
 }
 
-__global__ void __launch_bounds__(TP)
-nice_fwd_kernel(const float* __restrict__ p, const float* __restrict__ cm,
-                const float* __restrict__ cf, const float* __restrict__ cc,
-                const float* __restrict__ w, float* __restrict__ out, int n,
-                int with_color) {
-  extern __shared__ float4 smem4[];
-  float* sw = reinterpret_cast<float*>(smem4);
-  const int i = blockIdx.x * TP + threadIdx.x;
-  const bool valid = i < n;
-  const float p0 = valid ? p[3 * (size_t)i + 0] : 0.f;
-  const float p1 = valid ? p[3 * (size_t)i + 1] : 0.f;
-  const float p2 = valid ? p[3 * (size_t)i + 2] : 0.f;
-  float h[HID];
-  float occ = 0.f;
-  float rgb[3] = {0.f, 0.f, 0.f};
-
-  // middle decoder on c_mid
-  stage_weights(sw, w + MID_OFF, LMid::size);
-  __syncthreads();
-  {
-    float c[HID];
-    load_row<HID>(cm, i, valid, c);
-    mlp_trunk<HID, 1>(sw, p0, p1, p2, c, h, nullptr, nullptr);
-    float s = sw[LMid::bo];
+// acc = v broadcast over the lane's two rows (v: a 32-wide bias row)
+__device__ __forceinline__ void bias_rows(float (&acc)[4][4], const float* v,
+                                          int t) {
 #pragma unroll
-    for (int k = 0; k < HID; ++k) s = fmaf(h[k], sw[LMid::Wo + k], s);
-    occ = s;
+  for (int nb = 0; nb < 4; ++nb) {
+    const int c = 8 * nb + 2 * t;
+    acc[nb][0] = acc[nb][2] = v[c];
+    acc[nb][1] = acc[nb][3] = v[c + 1];
   }
-  __syncthreads();
+}
 
-  // fine decoder on [c_fine | c_mid]
-  stage_weights(sw, w + FINE_OFF, LFine::size);
-  __syncthreads();
+// The forward of decoder d (feature width C) for the warp's 16 points,
+// from row `row` on: the lane's rows row + g and row + g + 8, its points
+// pa, pb and feature fragments cfr (load_points).
+template <int C>
+__device__ __forceinline__ void decode_slab(const FwdArgs& a, int d,
+                                            const float* sm, const Lane& L,
+                                            int row, const float (&pa)[3],
+                                            const float (&pb)[3],
+                                            const float (&cfr)[C / 8][4]) {
+  using I = Img<C>;
+  const int g = L.g, t = L.t;
+  const float* Bs = sm + I::B;
+  // block 0 and the e part of block 3: e = sin(p.B) one k-block at a time
+  float z[4][4], z3e[4][4] = {}, h[4][4];
+  bias_rows(z, sm + I::b, t);
   {
-    float c[2 * HID];
-    load_row<HID>(cf, i, valid, c);
-    load_row<HID>(cm, i, valid, c + HID);
-    mlp_trunk<2 * HID, 1>(sw, p0, p1, p2, c, h, nullptr, nullptr);
-    float s = sw[LFine::bo];
+    const float* W0 = sm + I::W0;
+    const float* W3 = sm + I::W3;
 #pragma unroll
-    for (int k = 0; k < HID; ++k) s = fmaf(h[k], sw[LFine::Wo + k], s);
-    occ += s;
-  }
-
-  if (with_color) {
-    __syncthreads();
-    stage_weights(sw, w + COLOR_OFF, LColor::size);
-    __syncthreads();
-    float c[HID];
-    load_row<HID>(cc, i, valid, c);
-    mlp_trunk<HID, 4>(sw, p0, p1, p2, c, h, nullptr, nullptr);
+    for (int kb = 0; kb < EP / 8; ++kb) {
+      // A fragment of e: columns 8kb + 2t (+1) of the lane's two rows
+      float e[4];
 #pragma unroll
-    for (int o = 0; o < 3; ++o) {
-      float s = sw[LColor::bo + o];
+      for (int j = 0; j < 2; ++j) {
+        const int k = 8 * kb + 2 * t + j;
+        const float b0 = Bs[k], b1 = Bs[EP + k], b2 = Bs[2 * EP + k];
+        e[2 * j] = sin_fp32(fmaf(pa[2], b2, fmaf(pa[1], b1, pa[0] * b0)));
+        e[2 * j + 1] =
+            sin_fp32(fmaf(pb[2], b2, fmaf(pb[1], b1, pb[0] * b0)));
+      }
+      const AFrag A = split_a(e);
 #pragma unroll
-      for (int k = 0; k < HID; ++k) s = fmaf(h[k], sw[LColor::Wo + k * 4 + o], s);
-      rgb[o] = s;
+      for (int nb = 0; nb < 4; ++nb) {
+        const int o = L.f[nb & 1] + 8 * WS * kb + 8 * nb;
+        mma3(z[nb], A, W0[o], W0[o + WS]);
+        mma3(z3e[nb], A, W3[o], W3[o + WS]);
+      }
     }
   }
-  if (valid) {
-    reinterpret_cast<float4*>(out)[i] = make_float4(rgb[0], rgb[1], rgb[2], occ);
+  bias_rows(h, sm + I::a, t);
+  mm_fwd<C / 8>(h, cfr, sm + I::V, L);
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) h[nb][r] += fmaxf(z[nb][r], 0.f);
+
+  // blocks 1..4
+#pragma unroll 1
+  for (int i = 1; i < NBLK; ++i) {
+    bias_rows(z, sm + I::b + i * HID, t);
+    if (i == 3) {
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) z[nb][r] += z3e[nb][r];
+    }
+    float x[4][4];
+    c_to_a(h, x);
+    mm_fwd<4>(z, x, sm + img_w(i) + (i == 3 ? EP * WS : 0), L);
+    bias_rows(h, sm + I::a + i * HID, t);
+    mm_fwd<C / 8>(h, cfr, sm + I::V + i * C * WS, L);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) h[nb][r] += fmaxf(z[nb][r], 0.f);
+  }
+
+  // head: out = h_4 Wo + bo (Wo zero past O): the lane's 8 columns, then
+  // a butterfly over the four lanes of a row
+  const float* Wo = sm + I::Wo;
+  float sa[3] = {0.f, 0.f, 0.f}, sb[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* w = Wo + 4 * (8 * nb + 2 * t + j);
+#pragma unroll
+      for (int o = 0; o < 3; ++o) {
+        sa[o] = fmaf(h[nb][j], w[o], sa[o]);
+        sb[o] = fmaf(h[nb][2 + j], w[o], sb[o]);
+      }
+    }
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    sa[o] += __shfl_xor_sync(0xffffffffu, sa[o], 1);
+    sa[o] += __shfl_xor_sync(0xffffffffu, sa[o], 2);
+    sb[o] += __shfl_xor_sync(0xffffffffu, sb[o], 1);
+    sb[o] += __shfl_xor_sync(0xffffffffu, sb[o], 2);
+    sa[o] += sm[I::bo + o];
+    sb[o] += sm[I::bo + o];
+  }
+  const int ra = row + g, rb = ra + 8;
+  if (t == 0) {
+    if (d == 2) {
+      float4* o4 = reinterpret_cast<float4*>(a.out);
+      if (ra < a.n) o4[ra] = make_float4(sa[0], sa[1], sa[2], 0.f);
+      if (rb < a.n) o4[rb] = make_float4(sb[0], sb[1], sb[2], 0.f);
+    } else {
+      float* occ = a.occ_part + (size_t)d * a.n;
+      if (ra < a.n) occ[ra] = sa[0];
+      if (rb < a.n) occ[rb] = sb[0];
+    }
   }
 }
 
-int set_smem_limits() {
+// The forward of decoder d (feature width C) for the block's tile.
+template <int C>
+__device__ __forceinline__ void decoder_fwd(const FwdArgs& a, int d,
+                                            float* sm) {
+  using I = Img<C>;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Lane L = lane_offsets(lane);
+  const int g = L.g, t = L.t;
+  const float* csrc = d == 0 ? a.cm : d == 1 ? a.cf : a.cc;
+
+  // stage the image; meanwhile load the warp's points and features
+  const float* wg = a.wimg + img_off(d);
+  for (int q = tid; q < I::size / 4; q += THREADS)
+    cp_async16(sm + 4 * q, wg + 4 * q);
+  int row = blockIdx.x * TPTS + 16 * warp;  // the warp's first point
+  float pa[3], pb[3];
+  float cfr[C / 8][4];
+  load_points<C>(a, csrc, row + g, t, pa, pb, cfr);
+  cp_async_wait_all();
+  __syncthreads();
+  if (row < a.n) decode_slab<C>(a, d, sm, L, row, pa, pb, cfr);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+nice_fwd_kernel(const FwdArgs a) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int d = blockIdx.y;
+  if (d == 1)
+    decoder_fwd<2 * HID>(a, d, sm);
+  else
+    decoder_fwd<HID>(a, d, sm);
+}
+
+// out[:, 3] = occ_mid + occ_fine; in the fine stage also rgb = 0
+__global__ void __launch_bounds__(256)
+nice_fwd_combine_kernel(const float* __restrict__ occ_part,
+                        float* __restrict__ out, int n, int with_color) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float occ = occ_part[i] + occ_part[(size_t)n + i];
+  if (with_color)
+    out[4 * (size_t)i + 3] = occ;
+  else
+    reinterpret_cast<float4*>(out)[i] = make_float4(0.f, 0.f, 0.f, occ);
+}
+
+int set_smem_limit() {
   static int done = 0;
   if (!done) {
     cudaFuncSetAttribute(nice_fwd_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)FWD_SMEM);
+                         (int)SMEM);
     done = 1;
   }
   return (int)cudaGetLastError();
@@ -237,19 +288,44 @@ int nice_decode_decoder_offset(int d) {
   return d == 0 ? MID_OFF : d == 1 ? FINE_OFF : COLOR_OFF;
 }
 
+// Floats in the three decoders' shared-memory images, and where each starts.
+int nice_decode_image_floats() { return IMG_TOTAL; }
+int nice_decode_image_offset(int d) { return img_off(d); }
+
 const char* nice_decode_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int nice_decode_fwd(const float* p, const float* cm, const float* cf,
-                    const float* cc, const float* w, float* out, int n,
-                    int with_color, void* stream) {
-  int err = set_smem_limits();
+// Registers, local (spill) bytes a thread and resident blocks per SM of the
+// forward kernel.
+int nice_fwd_variant_info(int* regs, int* local_bytes, int* blocks_per_sm) {
+  int err = set_smem_limit();
   if (err) return err;
-  if (n <= 0) return 0;
-  const int blocks = (n + TP - 1) / TP;
-  nice_fwd_kernel<<<blocks, TP, FWD_SMEM, (cudaStream_t)stream>>>(
-      p, cm, cf, cc, w, out, n, with_color);
+  cudaFuncAttributes at;
+  err = (int)cudaFuncGetAttributes(&at, nice_fwd_kernel);
+  if (err) return err;
+  *regs = at.numRegs;
+  *local_bytes = (int)at.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, nice_fwd_kernel, THREADS, SMEM);
+}
+
+// wimg: the images of nice_decode_image_offset; occ_part: [2][n] scratch;
+// out: [n][4].
+int nice_decode_fwd(const float* p, const float* cm, const float* cf,
+                    const float* cc, const float* wimg, float* occ_part,
+                    float* out, int n, int with_color, void* stream) {
+  int err = set_smem_limit();
+  if (err || n <= 0) return err;
+  const int n_dec = with_color ? 3 : 2;
+  const int gx = (n + TPTS - 1) / TPTS;  // one block per tile
+  const cudaStream_t st = (cudaStream_t)stream;
+  const FwdArgs a = {p, cm, cf, cc, wimg, occ_part, out, n};
+  nice_fwd_kernel<<<dim3(gx, n_dec), THREADS, SMEM, st>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  nice_fwd_combine_kernel<<<(n + 255) / 256, 256, 0, st>>>(occ_part, out, n,
+                                                           with_color);
   return (int)cudaGetLastError();
 }
 

@@ -36,10 +36,11 @@
 // - Weights in shared memory: each 32-wide matrix is stored with a row
 //   stride of 40 floats and column XOR ((row & 4) << 1), which makes both
 //   the forward B-fragment reads (W[k][n]) and the transposed ones
-//   (W[n][k], as float2) free of bank conflicts.  The wrapper builds this
-//   image from the packed buffer with one indexed gather.  The embedding
-//   K=93 and the skip input K=125 are padded to 96 and 128 with zero rows
-//   (x3 = [e | 0 0 0 | h2]).
+//   (W[n][k], as float2) free of bank conflicts.  The image and the trunk
+//   (fused_decode_mma.cuh) are shared with the forward (K1), which builds
+//   it from the weights with one gather and keeps it for this kernel.  The
+//   embedding K=93 and the skip input K=125 are padded to 96 and 128 with
+//   zero rows (x3 = [e | 0 0 0 | h2]).
 // - Weight gradients only for the decoders that train (the `live` mask),
 //   in a second launch of the same kernel (LIVE = true) whose blocks also
 //   keep the tile's inputs x_i, dz, dh, c in shared memory and take the
@@ -52,7 +53,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fused_decode_layout.cuh"
+#include "fused_decode_mma.cuh"
 
 namespace {
 
@@ -61,34 +62,6 @@ using namespace nice_decode;
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int TPTS = 16 * WARPS;  // points per tile (a warp owns 16)
-constexpr int EP = 96;            // embedding width padded to 12 k-blocks
-constexpr int WS = 40;            // shared-memory row stride of a 32-wide matrix
-
-// Shared-memory image of one decoder (offsets in floats), built by the
-// wrapper (ops/fused_decode.py bwd_image_index) from the packed buffer.
-template <int C>
-struct Img {
-  static constexpr int B = 0;                     // [3][96]
-  static constexpr int W0 = 3 * EP;               // 96 rows (93.. zero)
-  static constexpr int W1 = W0 + EP * WS;         // 32 rows
-  static constexpr int W2 = W1 + HID * WS;        // 32 rows
-  static constexpr int W3 = W2 + HID * WS;        // 128 rows: e | 0 | h2
-  static constexpr int W4 = W3 + (EP + HID) * WS; // 32 rows
-  static constexpr int b = W4 + HID * WS;         // 5 x 32
-  static constexpr int a = b + NBLK * HID;        // 5 x 32
-  static constexpr int Wo = a + NBLK * HID;       // [32][4], zero past O
-  static constexpr int bo = Wo + HID * 4;         // 4
-  static constexpr int V = bo + 4;                // 5 x C rows
-  static constexpr int size = V + NBLK * C * WS;
-};
-
-constexpr int IMG_MID = 0;
-constexpr int IMG_FINE = IMG_MID + Img<HID>::size;
-constexpr int IMG_COLOR = IMG_FINE + Img<2 * HID>::size;
-constexpr int IMG_TOTAL = IMG_COLOR + Img<HID>::size;
-
-static_assert(Img<HID>::size % 4 == 0 && Img<2 * HID>::size % 4 == 0,
-              "cp.async copies 16 bytes");
 
 // shared-memory tiles of a LIVE block (after the weight image), floats
 constexpr int XS = EP + NBLK * HID + 8;  // [e | h0 .. h4], stride 264
@@ -113,26 +86,11 @@ constexpr size_t FROZEN_SMEM_MAX = sizeof(float) * Img<2 * HID>::size;
 constexpr size_t LIVE_SMEM_MAX = sizeof(float) * Tiles<2 * HID>::size;
 static_assert(LIVE_SMEM_MAX <= 232448, "exceeds Hopper shared memory");
 
-__host__ __device__ constexpr int img_off(int d) {
-  return d == 0 ? IMG_MID : d == 1 ? IMG_FINE : IMG_COLOR;
-}
-__host__ __device__ constexpr int img_size(int d) {
-  return d == 1 ? Img<2 * HID>::size : Img<HID>::size;
-}
 __host__ __device__ constexpr int flat_off(int d) {
   return d == 0 ? MID_OFF : d == 1 ? FINE_OFF : COLOR_OFF;
 }
 __host__ __device__ constexpr int flat_size(int d) {
   return d == 0 ? LMid::size : d == 1 ? LFine::size : LColor::size;
-}
-
-// offset of W_i inside a decoder's image (identical for both widths)
-__device__ __forceinline__ int img_w(int i) {
-  return i == 0 ? Img<HID>::W0
-       : i == 1 ? Img<HID>::W1
-       : i == 2 ? Img<HID>::W2
-       : i == 3 ? Img<HID>::W3
-                : Img<HID>::W4;
 }
 
 // offset of W_i inside a decoder's packed section (Layout)
@@ -142,179 +100,6 @@ __device__ __forceinline__ int flat_w(int i) {
        : i == 2 ? LMid::W2
        : i == 3 ? LMid::W3
                 : LMid::W4;
-}
-
-// Element (r, c) of a 32-wide matrix lies at r * WS + (c ^ ((r & 4) << 1))
-// of its image.  The XOR term of a fragment read depends only on the lane
-// and on the parity of the 8-wide block index, so every read is a lane
-// base plus a compile-time offset:
-//   forward    W[8kb + 2t + j][8nb + g]: f[nb & 1] + 8 WS kb + WS j + 8nb
-//   transposed W[8nb + g][8kb + 2t : +2]: r[kb & 1] + 8 WS nb + 8kb
-struct Lane {
-  int g, t;
-  int f[2], r[2];
-};
-
-__device__ __forceinline__ Lane lane_offsets(int lane) {
-  Lane L;
-  L.g = lane >> 2;
-  L.t = lane & 3;
-  const int s = 8 * (L.t >> 1), u = 8 * (L.g >> 2);
-  L.f[0] = 2 * L.t * WS + L.g + s;
-  L.f[1] = 2 * L.t * WS + L.g - s;
-  L.r[0] = L.g * WS + 2 * L.t + u;
-  L.r[1] = L.g * WS + 2 * L.t - u;
-  return L;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// sin(x) and cos(x) in fp32 without a branch: x = j pi/2 + r with
-// j = rint(x 2/pi) and r from a three-step FMA reduction (pi/2 split into
-// three floats, 2^-76 left over), then the minimax polynomials of Cephes'
-// sinf/cosf on |r| <= pi/4 and the quadrant of j.  Error below 2 ulp
-// against double precision for |x| < 1.5e5 (tests/test_torch_kernels.py,
-// test_sincos_fp32_accuracy), the bound CUDA gives for sinf/cosf; the
-// decoder's arguments are O(100).  The library's sincosf branches to a
-// slow path for huge arguments, which kept the compiler from interleaving
-// the evaluations: they were 45% of this kernel's time.
-__device__ __forceinline__ void sincos_fp32(float x, float* s, float* c) {
-  const float j = rintf(x * 0.636619747f);
-  float r = fmaf(j, -1.57079637f, x);
-  r = fmaf(j, 4.37113883e-08f, r);
-  r = fmaf(j, 1.71512451e-15f, r);
-  const float z = r * r;
-  float ps = fmaf(z, -1.95152959e-4f, 8.33216087e-3f);
-  ps = fmaf(z, ps, -1.66666546e-1f);
-  const float sr = fmaf(r * z, ps, r);
-  float pc = fmaf(z, 2.44331571e-5f, -1.38873163e-3f);
-  pc = fmaf(z, pc, 4.16666457e-2f);
-  pc = fmaf(z, pc, -0.5f);
-  const float cr = fmaf(z, pc, 1.0f);
-  const int q = (int)j;
-  const float sv = (q & 1) ? cr : sr;
-  const float cv = (q & 1) ? sr : cr;
-  *s = (q & 2) ? -sv : sv;
-  *c = ((q + 1) & 2) ? -cv : cv;
-}
-
-// ---------------------------------------------------------------------------
-// 3xTF32 on the tensor cores
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small: big = x rounded to TF32, small = x - big (exact in
-// fp32).  small goes to the tensor core unrounded: the core reads the top
-// 19 bits of a TF32 operand, which leaves an error below 2^-21 |x| (the
-// round-toward-zero form of CUTLASS's fast 3xTF32); a second cvt would
-// cost three more instructions per operand.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = to_tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// The same split for a weight, which is finite: the rounding by integer
-// add-and-mask gives cvt.rna's result without its test for infinity (two
-// instructions instead of three, on the operand split most often).
-__device__ __forceinline__ void split_w(float x, uint32_t& big,
-                                       uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-struct AFrag {
-  uint32_t hi[4], lo[4];
-};
-
-// a: the A fragment in mma order (a0 (g, k=t), a1 (g+8, t), a2 (g, t+4),
-// a3 (g+8, t+4))
-__device__ __forceinline__ AFrag split_a(const float (&a)[4]) {
-  AFrag f;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) split_tf32(a[r], f.hi[r], f.lo[r]);
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b in 3xTF32 (small*big + big*small + big*big), b already split
-__device__ __forceinline__ void mma3_split(float (&d)[4], const AFrag& a,
-                                           uint32_t b0h, uint32_t b1h,
-                                           uint32_t b0l, uint32_t b1l) {
-  mma_tf32(d, a.lo, b0h, b1h);
-  mma_tf32(d, a.hi, b0l, b1l);
-  mma_tf32(d, a.hi, b0h, b1h);
-}
-
-// d += a * b in 3xTF32, b a weight fragment
-__device__ __forceinline__ void mma3(float (&d)[4], const AFrag& a, float b0,
-                                     float b1) {
-  uint32_t b0h, b0l, b1h, b1l;
-  split_w(b0, b0h, b0l);
-  split_w(b1, b1h, b1l);
-  mma3_split(d, a, b0h, b1h, b0l, b1l);
-}
-
-// d += a * b in 3xTF32, b an activation fragment
-__device__ __forceinline__ void mma3_act(float (&d)[4], const AFrag& a,
-                                         float b0, float b1) {
-  uint32_t b0h, b0l, b1h, b1l;
-  split_tf32(b0, b0h, b0l);
-  split_tf32(b1, b1h, b1l);
-  mma3_split(d, a, b0h, b1h, b0l, b1l);
-}
-
-// An accumulator (16 x 32, C layout: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8,
-// 2t), c3 (g+8, 2t+1) of each 8-column block) as the A operand of a
-// product over its 32 columns: k-block kb, with k = t <-> column 2t and
-// k = t + 4 <-> column 2t + 1.
-__device__ __forceinline__ void c_to_a(const float (&c)[4][4],
-                                       float (&a)[4][4]) {
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
-    a[kb][0] = c[kb][0];
-    a[kb][1] = c[kb][2];
-    a[kb][2] = c[kb][1];
-    a[kb][3] = c[kb][3];
-  }
-}
-
-// acc (16 x 32) += x (16 x 8KB, A fragments) . M[0 : 8KB, 0 : 32]
-template <int KB>
-__device__ __forceinline__ void mm_fwd(float (&acc)[4][4],
-                                       const float (&x)[KB][4],
-                                       const float* M, const Lane& L) {
-  const float* M0 = M + L.f[0];
-  const float* M1 = M + L.f[1];
-#pragma unroll
-  for (int kb = 0; kb < KB; ++kb) {
-    const AFrag A = split_a(x[kb]);
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const float* q = (nb & 1 ? M1 : M0) + 8 * WS * kb + 8 * nb;
-      mma3(acc[nb], A, q[0], q[WS]);
-    }
-  }
 }
 
 // acc (16 x 8NB) += y (16 x 32, A fragments) . M[0 : 8NB, 0 : 32]^T
@@ -334,15 +119,6 @@ __device__ __forceinline__ void mm_bwd(float (&acc)[NB][4],
       mma3(acc[nb], A, v.x, v.y);
     }
   }
-}
-
-__device__ __forceinline__ unsigned relu_bits(const float (&z)[4][4]) {
-  unsigned m = 0u;
-#pragma unroll
-  for (int nb = 0; nb < 4; ++nb)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) m |= (z[nb][r] > 0.f ? 1u : 0u) << (4 * nb + r);
-  return m;
 }
 
 // store an accumulator's 16 rows into a row-major tile (row0 = the warp's

@@ -1,8 +1,12 @@
 """Fused NICE decode: the middle + fine + colour MLPs of the fine and colour
 stages, forward and backward, as hand-written CUDA kernels: K1, the
-forward (nice_slam_torch/csrc/fused_decode.cu), and K2, the backward
-(csrc/fused_decode_bwd.cu: 3xTF32 tensor cores, one decoder per block,
-weight gradients only for the decoders that train).
+forward (nice_slam_torch/csrc/fused_decode.cu: one block per 128-point
+tile and decoder), and K2, the backward (csrc/fused_decode_bwd.cu: one
+decoder per block, weight gradients only for the decoders that train).  Both run their
+products of width 32 on the tensor cores in 3xTF32 through the trunk they
+share (csrc/fused_decode_mma.cuh), and both read the same weight image,
+which the forward builds from the weights (`build_image`) and keeps for
+the backward.
 
 This is the port of the JAX package's Pallas kernels
 (nice_slam_tpu/ops/pallas/fused_decode.py: `_fwd_kernel` via `_fwd`, and
@@ -13,7 +17,7 @@ runs it, and chip_smoke.py holds the kernels against it on the card.
 
 `fused_nice_decode` on CUDA tensors launches the kernels or raises; on CPU
 tensors it runs the plain version.  The launch counters on
-`FusedNiceDecode` count kernel launches only.
+`FusedNiceDecode` count kernel launches only, in all and by kind.
 
 Semantics (as in the JAX package):
 - the fine decoder sees [c_fine, stop_grad(c_mid)]: its c_mid cotangent
@@ -222,16 +226,29 @@ def _kernels():
         lib.nice_decode_weight_floats.argtypes = []
         lib.nice_decode_decoder_offset.restype = ci
         lib.nice_decode_decoder_offset.argtypes = [ci]
+        lib.nice_decode_image_floats.restype = ci
+        lib.nice_decode_image_floats.argtypes = []
+        lib.nice_decode_image_offset.restype = ci
+        lib.nice_decode_image_offset.argtypes = [ci]
         lib.nice_decode_error_string.restype = ctypes.c_char_p
         lib.nice_decode_error_string.argtypes = [ci]
+        pi = ctypes.POINTER(ctypes.c_int)
+        lib.nice_fwd_variant_info.restype = ci
+        lib.nice_fwd_variant_info.argtypes = [pi, pi, pi]
         lib.nice_decode_fwd.restype = ci
-        lib.nice_decode_fwd.argtypes = [vp] * 6 + [ci, ci, vp]
+        lib.nice_decode_fwd.argtypes = [vp] * 7 + [ci, ci, vp]
         offs, total = weight_offsets()
         if (lib.nice_decode_weight_floats() != total
                 or [lib.nice_decode_decoder_offset(d) for d in range(3)]
                 != [offs[d * N_PER_DEC] for d in range(3)]):
             raise RuntimeError("fused_decode_layout.cuh weight layout differs "
                                "from ops/fused_decode.py weight_offsets()")
+        img_offs, img_total = image_layout()
+        if (lib.nice_decode_image_floats() != img_total
+                or [lib.nice_decode_image_offset(d) for d in range(3)]
+                != img_offs):
+            raise RuntimeError("fused_decode_mma.cuh image layout differs "
+                               "from ops/fused_decode.py image_layout()")
         _libs["fwd"] = lib
     return _libs["fwd"]
 
@@ -254,13 +271,13 @@ def _bwd_kernels():
         lib.nice_bwd_variant_info.argtypes = [ci, ci, pi, pi, pi]
         lib.nice_decode_bwd.restype = ci
         lib.nice_decode_bwd.argtypes = [vp] * 12 + [ci, ci, ci, vp]
-        img_offs, img_total = bwd_image_layout()
+        img_offs, img_total = image_layout()
         if (lib.nice_bwd_image_floats() != img_total
                 or [lib.nice_bwd_image_offset(d) for d in range(3)]
                 != img_offs
                 or lib.nice_bwd_tile_points() != BWD_TILE):
             raise RuntimeError("fused_decode_bwd.cu image layout differs "
-                               "from ops/fused_decode.py bwd_image_layout()")
+                               "from ops/fused_decode.py image_layout()")
         _libs["bwd"] = lib
     return _libs["bwd"]
 
@@ -272,7 +289,8 @@ def _check_err(lib, err: int, what: str):
 
 
 def pack_flat(weights: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The 69 weights as the kernels' padded fp32 buffer."""
+    """The 69 weights as the padded fp32 buffer of the packed layout (the
+    layout of the backward's weight gradients)."""
     offs, total = weight_offsets()
     flat = torch.zeros(total, dtype=torch.float32, device=weights[0].device)
     for o, w in zip(offs, weights):
@@ -288,10 +306,10 @@ def unpack_flat(flat: torch.Tensor) -> List[torch.Tensor]:
 
 
 # ---------------------------------------------------------------------------
-# The backward kernel's shared-memory image of each decoder
-# (csrc/fused_decode_bwd.cu, struct Img): every 32-wide matrix row-major
-# with a row stride of 40 floats and its columns XOR ((row & 4) << 1); the
-# embedding rows of W0 and W3 padded from 93 to 96 with zeros.
+# The kernels' shared-memory image of each decoder (csrc/fused_decode_mma.cuh,
+# struct Img): every 32-wide matrix row-major with a row stride of 40 floats
+# and its columns XOR ((row & 4) << 1); the embedding rows of W0 and W3
+# padded from 93 to 96 with zeros.
 
 BWD_TILE = 64      # points per block of the backward kernel
 _EP, _WS = 96, 40
@@ -312,7 +330,7 @@ def _img_fields(c: int) -> dict:
     return f
 
 
-def bwd_image_layout() -> Tuple[List[int], int]:
+def image_layout() -> Tuple[List[int], int]:
     """Offsets of the three decoders' images and the total, in floats."""
     offs, o = [], 0
     for name in DECS:
@@ -321,14 +339,14 @@ def bwd_image_layout() -> Tuple[List[int], int]:
     return offs, o
 
 
-def bwd_image_index():
-    """int64 numpy index: image[k] = flat[index[k]] builds the backward's
-    weight image from the packed buffer in one gather.  Padding reads the
+def image_index():
+    """int64 numpy index: image[k] = flat[index[k]] gives the kernels'
+    weight image of the packed buffer (pack_flat).  Padding reads the
     padding float of the middle decoder's B (3 * 93 = 279 < 280), which
     pack_flat leaves zero."""
     offs, _ = weight_offsets()
     zero = offs[0] + 3 * EMB
-    img_offs, total = bwd_image_layout()
+    img_offs, total = image_layout()
     idx = np.full(total, zero, dtype=np.int64)
     cols = np.arange(HID)
     for d, name in enumerate(DECS):
@@ -364,15 +382,35 @@ def bwd_image_index():
     return idx
 
 
+def _weights_image_index():
+    """image_index over the 69 weights flattened and concatenated, with one
+    zero appended (the padding's slot), instead of the packed buffer."""
+    offs, total = weight_offsets()
+    shapes = weight_shapes()
+    n_cat = sum(r * c for r, c in shapes)
+    flat_to_cat = np.full(total, n_cat, dtype=np.int64)
+    o_cat = 0
+    for o, (r, c) in zip(offs, shapes):
+        flat_to_cat[o:o + r * c] = np.arange(o_cat, o_cat + r * c)
+        o_cat += r * c
+    return flat_to_cat[image_index()]
+
+
 _img_index = {}
 
 
-def _bwd_image(flat: torch.Tensor) -> torch.Tensor:
-    """The backward's weight image of a packed buffer (one gather)."""
-    key = str(flat.device)
+def build_image(weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The kernels' weight image of the 69 weights (any memory layout): one
+    concatenation of the flattened weights and a cached zero, then one
+    gather by a cached index."""
+    dev = weights[0].device
+    key = str(dev)
     if key not in _img_index:
-        _img_index[key] = torch.from_numpy(bwd_image_index()).to(flat.device)
-    return flat[_img_index[key]]
+        _img_index[key] = (
+            torch.from_numpy(_weights_image_index()).to(dev),
+            torch.zeros(1, dtype=torch.float32, device=dev))
+    idx, zero = _img_index[key]
+    return torch.cat([w.reshape(-1) for w in weights] + [zero])[idx]
 
 
 def _check_cuda_inputs(p, c_mid, c_fine, c_color, weights):
@@ -393,7 +431,7 @@ def _check_cuda_inputs(p, c_mid, c_fine, c_color, weights):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        # the weights are copied into the packed buffer in any layout
+        # the weights are gathered into the image in any layout
         if k < 4 and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t, _ in named[1:4]:
@@ -401,17 +439,38 @@ def _check_cuda_inputs(p, c_mid, c_fine, c_color, weights):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch_fwd(with_color, p, c_mid, c_fine, c_color, flat):
-    lib = _kernels()
+def _fwd_prepare(with_color, p, c_mid, c_fine, c_color, img):
+    """K1's C arguments with its output allocated: (args, out, scratch)."""
     n = p.shape[0]
-    out = torch.empty(n, 4, dtype=torch.float32, device=p.device)
+    f32 = dict(dtype=torch.float32, device=p.device)
+    out = torch.empty(n, 4, **f32)
+    occ_part = torch.empty(2, n, **f32)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = lib.nice_decode_fwd(p.data_ptr(), c_mid.data_ptr(),
-                              c_fine.data_ptr(), c_color.data_ptr(),
-                              flat.data_ptr(), out.data_ptr(), n,
-                              int(with_color), stream)
-    _check_err(lib, err, "fused decode forward kernel")
+    args = (p.data_ptr(), c_mid.data_ptr(), c_fine.data_ptr(),
+            c_color.data_ptr(), img.data_ptr(), occ_part.data_ptr(),
+            out.data_ptr(), n, int(with_color), stream)
+    # scratch: the buffer that args point to besides out; keep it while
+    # args are used again (a timing loop)
+    return args, out, occ_part
+
+
+def _launch_fwd(with_color, p, c_mid, c_fine, c_color, img):
+    """K1: raw (N, 4) from the weight image."""
+    lib = _kernels()
+    args, out, _ = _fwd_prepare(with_color, p, c_mid, c_fine, c_color, img)
+    _check_err(lib, lib.nice_decode_fwd(*args), "fused decode forward kernel")
     return out
+
+
+def fwd_variant_info() -> dict:
+    """Registers, spill bytes a thread and resident blocks per SM of the
+    forward kernel, from the CUDA runtime."""
+    lib = _kernels()
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = lib.nice_fwd_variant_info(*[ctypes.byref(v) for v in vals])
+    _check_err(lib, err, "forward kernel attributes")
+    return {"registers": vals[0].value, "local_bytes": vals[1].value,
+            "blocks_per_sm": vals[2].value}
 
 
 def _decoder_sizes() -> List[int]:
@@ -420,7 +479,7 @@ def _decoder_sizes() -> List[int]:
     return [starts[d + 1] - starts[d] for d in range(3)]
 
 
-def _bwd_prepare(with_color, live, p, c_mid, c_fine, c_color, g, flat):
+def _bwd_prepare(with_color, live, p, c_mid, c_fine, c_color, g, img):
     """K2's C arguments with its outputs allocated: (args, (dp_part,
     dc_mid, dc_fine, dc_color (None in the fine stage), packed weight
     gradients (valid in the live decoders' sections) or None), scratch)."""
@@ -428,7 +487,6 @@ def _bwd_prepare(with_color, live, p, c_mid, c_fine, c_color, g, flat):
     dev = p.device
     n_dec = 3 if with_color else 2
     live &= (1 << n_dec) - 1
-    img = _bwd_image(flat)
     f32 = dict(dtype=torch.float32, device=dev)
     dp_part = torch.empty(n_dec, n, 3, **f32)
     dcm = torch.empty(n, HID, **f32)
@@ -440,7 +498,8 @@ def _bwd_prepare(with_color, live, p, c_mid, c_fine, c_color, g, flat):
         cols = sum(sizes[d] for d in range(n_dec) if live >> d & 1)
         partial = torch.empty(tiles * cols, **f32)
         # the kernel writes the live sections; with no points, nothing runs
-        wgrad = (torch.empty if n else torch.zeros)(flat.numel(), **f32)
+        wgrad = (torch.empty if n else torch.zeros)(weight_offsets()[1],
+                                                    **f32)
         pptr, wptr = partial.data_ptr(), wgrad.data_ptr()
     else:
         partial = wgrad = None
@@ -451,18 +510,18 @@ def _bwd_prepare(with_color, live, p, c_mid, c_fine, c_color, g, flat):
             dp_part.data_ptr(), dcm.data_ptr(), dcf.data_ptr(),
             dcc.data_ptr() if with_color else None, pptr, wptr, n,
             int(with_color), live, stream)
-    # the third item holds the scratch buffers that args point to: keep it
+    # the third item holds the scratch buffer that args point to: keep it
     # while args are used again (a timing loop)
-    return args, (dp_part, dcm, dcf, dcc, wgrad), (img, partial)
+    return args, (dp_part, dcm, dcf, dcc, wgrad), partial
 
 
-def _launch_bwd(with_color, live, p, c_mid, c_fine, c_color, g, flat):
+def _launch_bwd(with_color, live, p, c_mid, c_fine, c_color, g, img):
     """K2.  Returns (dp, dc_mid, dc_fine, dc_color (None in the fine
     stage), packed weight gradients (valid in the live decoders' sections)
     or None)."""
     lib = _bwd_kernels()
     args, (dp_part, dcm, dcf, dcc, wgrad), _ = _bwd_prepare(
-        with_color, live, p, c_mid, c_fine, c_color, g, flat)
+        with_color, live, p, c_mid, c_fine, c_color, g, img)
     _check_err(lib, lib.nice_decode_bwd(*args),
                "fused decode backward kernel")
     return dp_part.sum(0), dcm, dcf, dcc, wgrad
@@ -495,12 +554,14 @@ class FusedNiceDecode(torch.autograd.Function):
     """raw (N, 4) = [rgb, occ_mid + occ_fine] with the hand VJP.
 
     `fwd_launches` / `bwd_launches` count launches of the forward and
-    backward kernels (the backward's weight-gradient reduction belongs to
-    the backward launch); `bwd_kinds` splits the backward's by stage,
+    backward kernels (the forward's occupancy sum and the backward's
+    weight-gradient reduction belong to their launch); `fwd_kinds` splits
+    the forward's by stage and points, `bwd_kinds` the backward's by stage,
     weight gradients and points."""
 
     fwd_launches = 0
     bwd_launches = 0
+    fwd_kinds: dict = {}
     bwd_kinds: dict = {}
 
     @staticmethod
@@ -510,10 +571,13 @@ class FusedNiceDecode(torch.autograd.Function):
         ctx.train_weights = train_weights
         if p.is_cuda:
             _check_cuda_inputs(p, c_mid, c_fine, c_color, weights)
-            flat = pack_flat(weights)
-            out = _launch_fwd(with_color, p, c_mid, c_fine, c_color, flat)
+            img = build_image(weights)
+            out = _launch_fwd(with_color, p, c_mid, c_fine, c_color, img)
             FusedNiceDecode.fwd_launches += 1
-            ctx.save_for_backward(p, c_mid, c_fine, c_color, flat)
+            kind = f"{'color' if with_color else 'fine'} n={p.shape[0]}"
+            kinds = FusedNiceDecode.fwd_kinds
+            kinds[kind] = kinds.get(kind, 0) + 1
+            ctx.save_for_backward(p, c_mid, c_fine, c_color, img)
             return out
         for t in (c_mid, c_fine, c_color) + tuple(weights):
             if t.is_cuda:
@@ -535,9 +599,8 @@ class FusedNiceDecode(torch.autograd.Function):
                     or g.data_ptr() % 16 != 0):
                 raise ValueError("fused_nice_decode: bad output cotangent "
                                  f"{g.dtype} {tuple(g.shape)} on {g.device}")
-            flat = saved[4]
             dp, dcm, dcf, dcc, wflat = _launch_bwd(
-                with_color, live, p, c_mid, c_fine, c_color, g, flat)
+                with_color, live, p, c_mid, c_fine, c_color, g, saved[4])
             FusedNiceDecode.bwd_launches += 1
             ran = live & (7 if with_color else 3)
             kind = (f"{'color' if with_color else 'fine'} "
@@ -553,7 +616,7 @@ class FusedNiceDecode(torch.autograd.Function):
                 elif ran >> d & 1:
                     wgrads += views[sl]
                 else:   # a live colour decoder in the fine stage
-                    wgrads += [torch.zeros_like(flat[:r * c]).view(r, c)
+                    wgrads += [p.new_zeros(r, c)
                                for r, c in weight_shapes()[sl]]
         else:
             dp, dcm, dcf, dcc, wgrads = plain_nice_decode_bwd(
@@ -577,12 +640,18 @@ def fused_nice_decode(with_color: bool, train_weights: bool, p, c_mid,
 def reset_launch_counts() -> None:
     FusedNiceDecode.fwd_launches = 0
     FusedNiceDecode.bwd_launches = 0
+    FusedNiceDecode.fwd_kinds = {}
     FusedNiceDecode.bwd_kinds = {}
 
 
 def launch_counts() -> dict:
     return {"fused_decode_fwd": FusedNiceDecode.fwd_launches,
             "fused_decode_bwd": FusedNiceDecode.bwd_launches}
+
+
+def fwd_launch_kinds() -> dict:
+    """Forward launches by 'stage n=points'."""
+    return dict(FusedNiceDecode.fwd_kinds)
 
 
 def bwd_launch_kinds() -> dict:

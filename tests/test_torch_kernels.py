@@ -169,51 +169,86 @@ def test_live_mask_from_needs_input_grad():
     assert fd._live_mask(ctx) == 0
 
 
+def _body(src: str, signature: str) -> str:
+    """The text of a function of a CUDA source, from its signature to the
+    closing brace at column 0."""
+    body = src[src.index(signature):]
+    return body[:body.index("\n}\n")]
+
+
 def test_kernel_sources_keep_fp32():
-    """The embedding stays in full-precision sinf/cosf in both kernels, and
-    every tensor-core product of the backward is 3xTF32: each operand split
-    into its round-to-nearest TF32 part (cvt.rna.tf32, or for a weight the
-    same rounding by integer add-and-mask) and the remainder, and the only
-    caller of the TF32 mma is the three-product mma3_split."""
+    """The embedding stays in full-precision fp32 sin/cos in both kernels,
+    and every tensor-core product is 3xTF32: each operand split into its
+    round-to-nearest TF32 part (cvt.rna.tf32, or for a weight the same
+    rounding by integer add-and-mask) and the remainder, and the only
+    caller of the TF32 mma is the three-product mma3_split of the shared
+    trunk (fused_decode_mma.cuh), which K2 includes."""
+    import re
+
     srcs = {name: open(os.path.join(CSRC, name)).read()
             for name in ("fused_decode.cu", "fused_decode_bwd.cu",
-                         "fused_decode_layout.cuh")}
+                         "fused_decode_layout.cuh", "fused_decode_mma.cuh")}
     for name, src in srcs.items():
         assert "__sinf" not in src and "__cosf" not in src, name
         assert "__sincosf" not in src, name
         assert "bf16" not in src and "__half" not in src, name
-    bwd = srcs["fused_decode_bwd.cu"]
-    assert "cvt.rna.tf32.f32" in bwd
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in bwd
-    assert "big = to_tf32(x);" in bwd
-    assert "small = __float_as_uint(x - __uint_as_float(big));" in bwd
+    bwd, mma = srcs["fused_decode_bwd.cu"], srcs["fused_decode_mma.cuh"]
+    assert '#include "fused_decode_mma.cuh"' in bwd
+    assert "cvt.rna.tf32.f32" in mma
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in mma
+    assert "big = to_tf32(x);" in mma
+    assert "small = __float_as_uint(x - __uint_as_float(big));" in mma
     # mma_tf32: one definition and the three calls inside mma3_split, which
     # mma3 calls after splitting its operand
-    assert bwd.count("mma_tf32(") == 4
-    body = bwd[bwd.index("void mma3_split("):]
-    body = body[:body.index("\n}\n")]
+    assert mma.count("mma_tf32(") == 4
+    bwd_code = re.sub(r"//[^\n]*", "", bwd)
+    assert "mma_tf32(" not in bwd_code and "mma.sync" not in bwd_code
+    body = _body(mma, "void mma3_split(")
     assert body.count("mma_tf32(") == 3
     assert "a.lo, b0h" in body and "a.hi, b0l" in body and "a.hi, b0h" in body
     for name, split in (("mma3", "split_w("), ("mma3_act", "split_tf32(")):
-        body = bwd[bwd.index(f"void {name}("):]
-        body = body[:body.index("\n}\n")]
+        body = _body(mma, f"void {name}(")
         assert body.count(split) == 2 and "mma3_split(" in body
     # a weight's rounding: cvt.rna's result by integer add-and-mask
-    assert "big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in bwd
+    assert "big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in mma
+
+
+def test_forward_kernel_source():
+    """K1 (fused_decode.cu) is built on the shared trunk: it includes
+    fused_decode_mma.cuh, takes its TF32 products only through mma3 (and
+    mm_fwd, which calls it), computes sin with the branch-free sin_fp32
+    (no library sinf/cosf/sincosf, no fast intrinsic), and the old
+    per-thread trunk with its Hs/mask outputs is gone."""
+    import re
+
+    src = open(os.path.join(CSRC, "fused_decode.cu")).read()
+    code = re.sub(r"//[^\n]*", "", src)   # comments may name what is not used
+    assert '#include "fused_decode_mma.cuh"' in code
+    for name in ("sinf(", "cosf(", "sincosf(", "__sinf", "__cosf", "__expf",
+                 "__sincosf", "__fdividef", "__powf"):
+        assert not re.search(r"(?<![\w])" + re.escape(name), code), name
+    assert "sin_fp32(" in code
+    assert "mma_tf32(" not in code and "mma.sync" not in code
+    assert "asm(" not in code and "asm volatile" not in code
+    assert "mma3(" in code and "mm_fwd<" in code
+    for gone in ("Hs", "mask", "mlp_trunk", "axpy32"):
+        assert not re.search(r"\b" + gone + r"\b", code), gone
+    # the sine is sincos_fp32's own reduction and polynomials
+    mma = open(os.path.join(CSRC, "fused_decode_mma.cuh")).read()
+    assert "sincos_fp32(x, &s, &c);" in _body(mma, "float sin_fp32(")
 
 
 def test_sincos_fp32_accuracy():
-    """The backward's branch-free sin/cos (sincos_fp32, constants read from
-    the CUDA source) stays within 2 ulp of double precision, the bound
+    """The kernels' branch-free sin/cos (sincos_fp32, constants read from
+    the shared trunk, fused_decode_mma.cuh) stays within 2 ulp of double precision, the bound
     CUDA gives for sinf/cosf: random arguments up to 3,000, magnitudes
     from 1e-6 to 1e5, and the floats next to multiples of pi/2 (where the
     reduction cancels) up to 1.5e5.  FMA is emulated in float64 (the
     product of two floats is exact there)."""
     import re
 
-    src = open(os.path.join(CSRC, "fused_decode_bwd.cu")).read()
-    body = src[src.index("void sincos_fp32("):]
-    body = body[:body.index("\n}\n")]
+    src = open(os.path.join(CSRC, "fused_decode_mma.cuh")).read()
+    body = _body(src, "void sincos_fp32(")
     k = [np.float32(v[:-1]) for v in
          re.findall(r"-?\d+\.\d+(?:e[-+]?\d+)?f", body)]
     assert len(k) == 12
@@ -260,15 +295,15 @@ def test_sincos_fp32_accuracy():
 
 
 def test_bwd_image_layout():
-    """The backward's shared-memory image (built by one gather from the
-    packed buffer) holds every weight exactly once, reads its padding from
+    """The kernels' shared-memory image (K1 builds it, K2 reads it; here as
+    one gather from the packed buffer) holds every weight exactly once, reads its padding from
     a zero slot, and lays each 32-wide matrix out so that both fragment
     reads of the kernel touch 32 distinct banks: the forward's W[8kb + 2t
     + j][8nb + g] and the transposed float2 W[8nb + g][8kb + 2t : +2]
     (lane = 4g + t)."""
-    idx = fd.bwd_image_index()
+    idx = fd.image_index()
     offs, total = fd.weight_offsets()
-    img_offs, img_total = fd.bwd_image_layout()
+    img_offs, img_total = fd.image_layout()
     assert idx.shape == (img_total,) and img_offs == [0, 19940, 46280]
     counts = np.bincount(idx, minlength=total)
     real = np.zeros(total, bool)
@@ -304,6 +339,76 @@ def test_bwd_image_layout():
                 banks = [(addr(8 * nb + g, 8 * kb + 2 * t) + w) % 32
                          for g, t in half for w in (0, 1)]
                 assert len(set(banks)) == 32
+
+
+def test_build_image_matches_packed_gather():
+    """The image the forward builds straight from the weights (one
+    concatenation and one gather) equals the gather of the packed buffer,
+    pack_flat(ws)[image_index()], bit for bit, for random weights of which
+    some are Fortran-order (transposed) views, as the npz decoders load."""
+    rng = np.random.RandomState(7)
+    ws = []
+    for k, (r, c) in enumerate(fd.weight_shapes()):
+        a = rng.randn(r, c).astype(np.float32)
+        if k % 3 == 0 and r > 1 and c > 1:
+            t = torch.from_numpy(np.asfortranarray(a))
+            assert not t.is_contiguous()
+        else:
+            t = torch.from_numpy(a)
+        ws.append(t)
+    img = fd.build_image(ws)
+    want = fd.pack_flat(ws)[torch.from_numpy(fd.image_index())]
+    assert img.dtype == torch.float32 and img.shape == want.shape
+    assert torch.equal(img.view(torch.int32), want.view(torch.int32))
+    # padding reads the zero slot
+    zero = fd.image_index() == fd.weight_offsets()[0][0] + 3 * fd.EMB
+    assert zero.sum() > 0 and float(img[torch.from_numpy(zero)].abs().max()) == 0.0
+
+
+def test_schedule_launches_by_kind():
+    """chip_smoke.py's schedule of the main path (11 frames of the synthetic
+    config): K1 517 times at 48,000 points in the colour stage, 112 in the
+    fine stage and 518 at the tracking shape (500 iterations and 18
+    init_select renders); K2 1129 times."""
+    import runpy
+
+    from nice_slam_torch.config import load_config
+
+    cs = runpy.run_path(os.path.join(REPO, "chip_smoke.py"),
+                        run_name="not_main")
+    cfg = load_config(cs["SYN_CFG"], overrides={"synthetic": {"n_frames": 11}})
+    fwd, bwd, kinds = cs["expected_launches"](cfg, 11)
+    assert (fwd, bwd) == (1147, 1129)
+    assert kinds == {"color n=48000": 517, "fine n=48000": 112,
+                     "color n=9600": 518}
+
+
+def test_forward_launch_kinds_counter():
+    """fwd_launch_kinds and bwd_launch_kinds start empty after
+    reset_launch_counts, and the CPU path launches no kernel."""
+    fd.reset_launch_counts()
+    assert fd.fwd_launch_kinds() == {} and fd.bwd_launch_kinds() == {}
+    assert fd.launch_counts() == {"fused_decode_fwd": 0,
+                                  "fused_decode_bwd": 0}
+
+
+def test_ablation_patches_apply():
+    """Every variant of the decode ablation tool finds its patch targets in
+    the current sources (a stale target raises there), changes something
+    (apart from base), and patches the shared trunk only in its own copy."""
+    from nice_slam_torch.tools import decode_ablation as da
+
+    for kernel, (source, variants) in da.VARIANTS.items():
+        base = da.patched_sources(kernel, "base")
+        assert set(base) == {source, *da.HEADERS}
+        assert base[source] == open(os.path.join(CSRC, source)).read()
+        for name in variants:
+            texts = da.patched_sources(kernel, name)
+            changed = [f for f in texts if texts[f] != base[f]]
+            assert (name == "base") == (not changed), (kernel, name)
+    mma = open(os.path.join(CSRC, da.MMA)).read()
+    assert da.patched_sources("k1", "one_mma")[da.MMA] != mma
+    assert mma.count("mma_tf32(d, a.lo, b0h, b1h);") == 1
 
 
 @pytest.fixture
@@ -361,11 +466,14 @@ def test_kernels_match_plain_on_cuda(weights, cuda_device, with_color, live,
         return out, gr[:4], wg
 
     before = fd.launch_counts()
+    kind = f"{'color' if with_color else 'fine'} n={N}"
+    kinds_before = fd.fwd_launch_kinds().get(kind, 0)
     out_k, g_k, w_k = run(lambda xs, wt: fd.fused_nice_decode(
         with_color, True, *xs, *wt))
     after = fd.launch_counts()
     assert after["fused_decode_fwd"] == before["fused_decode_fwd"] + 1
     assert after["fused_decode_bwd"] == before["fused_decode_bwd"] + 1
+    assert fd.fwd_launch_kinds()[kind] == kinds_before + 1
     out_r, g_r, w_r = run(lambda xs, wt: fd.reference_nice_decode(
         with_color, *xs, *wt))
     np.testing.assert_allclose(n(out_k), n(out_r), atol=1e-4)
