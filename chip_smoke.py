@@ -46,6 +46,28 @@
    tensor cores at 495/3 TFLOP/s for 3xTF32, the rest at 67 TFLOP/s);
    each bound is the larger of operations and bytes.  There is no single PyTorch call that
    computes the fused decode, so library_ms is null.
+6. Loose: the main path's config with sync_method loose (lag 2), 11
+   frames and mapping.ckpt_freq 5: events 0, then 5 (fired after tracking
+   frame 7), then the final event 10.  Fails unless each event fires at
+   its schedule's tracker position, K1/K2 launch as the schedule says and
+   the ATE is finite and under 0.35 m (the JAX package's bound for a
+   lagged run).
+7. Free: the same with sync_method free (lag 5) and 12 frames: events 0,
+   5 (after tracking frame 10) and the final event 11.
+8. Resume: a fresh engine resumes from the loose run's ckpts/00005.npz;
+   right after resume its params, grids, trajectory, keyframe store and
+   keyframe ids must equal the file's arrays bit for bit; it then runs to
+   frame 10 (frames_done 11, launches as the schedule from the resume
+   point, ATE finite and under 0.35 m).
+9. iMAP*: load_config(synthetic.yaml, nice=False) with scale 1.0 and 5
+   frames, at iMAP*'s full width (one 256-wide, 4-block MLP, 32 + 12
+   samples per ray; tracking 200 px x 50 iters, mapping 1000 px x 60
+   iters as 3 passes of 20, iters_first 500).  Fails unless K1 and K2 never
+   launch (iMAP* decodes in plain fp32 torch.matmul) and the ATE is finite
+   and under 0.5 m.
+Phases 6-9 each run in a device memory freed of the earlier phases'
+engines and print their wall time, frames/s, ATE, peak device memory and
+launch counts.
 
 The last two lines are a JSON object of the kernels and the contract line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -54,6 +76,7 @@ The last two lines are a JSON object of the kernels and the contract line
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -291,15 +314,35 @@ def check_kernels(torch, fd, ws, dev, log):
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 
-def expected_launches(cfg, n_img: int):
-    """Fused-decode launches of the strict schedule over n_img frames:
-    every fine/colour-stage mapping iteration (forward + backward), every
-    tracking iteration (forward + backward) and the two init_select
-    renders of each frame from the third on (forward, at the tracking
-    shape).  Returns (K1 launches, K2 launches, K1 launches by
-    'stage n=points')."""
+def map_events(n_img: int, every: int, lag: int, start: int = 0):
+    """The frames mapped from frame `start` on, by the per-frame rule of
+    the reference schedule: frame 0 first; while tracking idx, the frame
+    idx - lag when it lies on the every_frame cadence; the final frame
+    maps itself (and wins over a lagged event there)."""
+    events = [0] if start == 0 else []
+    for idx in range(max(start, 1), n_img):
+        if idx == n_img - 1:
+            events.append(idx)
+        elif idx - lag > 0 and (idx - lag) % every == 0:
+            events.append(idx - lag)
+    return events
+
+
+def expected_launches(cfg, n_img: int, events=None, tracked=None):
+    """Fused-decode launches of a schedule over n_img frames: every
+    fine/colour-stage iteration of the mapping events `events` (forward +
+    backward; frame 0's is the first event, the last frame's the colour
+    refinement), every tracking iteration of the frames `tracked`
+    (forward + backward) and the two init_select renders of each tracked
+    frame from the third on (forward, at the tracking shape).  Defaults:
+    the strict schedule from frame 0.  Returns (K1 launches, K2 launches,
+    K1 launches by 'stage n=points')."""
     m, t, r = cfg["mapping"], cfg["tracking"], cfg["rendering"]
     per_ray = r["N_samples"] + r["N_surface"]
+    if events is None:
+        events = map_events(n_img, m["every_frame"], 0)
+    if tracked is None:
+        tracked = range(1, n_img)
 
     def stage_iters(n, mid, fine):
         """(fine-stage, colour-stage) iterations of a mapping event"""
@@ -308,26 +351,23 @@ def expected_launches(cfg, n_img: int):
         return n_fine, n - n_mid - n_fine
 
     ratios = (m["middle_iter_ratio"], m["fine_iter_ratio"])
-    events = [stage_iters(m["iters_first"], *ratios)]
-    track_fwd = track_bwd = 0
-    cur = 1
-    every = m["every_frame"]
-    while cur < n_img:
-        g_end = min(((cur - 1) // every + 1) * every, n_img - 1)
-        for idx in range(cur, g_end + 1):
-            track_fwd += t["iters"]
-            track_bwd += t["iters"]
-            if (t["const_speed_assumption"] and t["init_select"]
-                    and idx >= 2):
-                track_fwd += 2
-        if g_end == n_img - 1 and m["color_refine"]:
+    iters = []
+    for idx in events:
+        if idx == 0:
+            iters.append(stage_iters(m["iters_first"], *ratios))
+        elif idx == n_img - 1 and m["color_refine"]:
             fine, color = stage_iters(m["iters"], 0.0, 0.0)
-            events.append((5 * fine, 5 * color))
+            iters.append((5 * fine, 5 * color))
         else:
-            events.append(stage_iters(m["iters"], *ratios))
-        cur = g_end + 1
-    fine = sum(e[0] for e in events)
-    color = sum(e[1] for e in events)
+            iters.append(stage_iters(m["iters"], *ratios))
+    track_fwd = track_bwd = 0
+    for idx in tracked:
+        track_fwd += t["iters"]
+        track_bwd += t["iters"]
+        if t["const_speed_assumption"] and t["init_select"] and idx >= 2:
+            track_fwd += 2
+    fine = sum(e[0] for e in iters)
+    color = sum(e[1] for e in iters)
     n_map, n_track = m["pixels"] * per_ray, t["pixels"] * per_ray
     kinds = {}
     for key, count in ((f"color n={n_map}", color), (f"fine n={n_map}", fine),
@@ -390,17 +430,17 @@ def profile_window(torch, eng, log):
 
     s = eng.specs
     idx = eng.n_img - 1
-    colors, depths, _ = eng._load_frames(idx, idx)
+    color, depth, _ = eng._load_frame(idx)
     st = eng.map_state
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         track_step(st.params, st.grids, eng.bound, eng.est_c2w_dev, idx,
-                   colors[0], depths[0], s.camera, s.track, s.render,
-                   s.model, gen=eng.gen)
-        eng._map(idx, colors[0], depths[0], s.mapper, eng.iters,
-                 eng.lr_factor, False, record=False)
+                   color, depth, s.camera, s.track, s.render, s.model,
+                   gen=eng.gen)
+        eng._map(idx, color, depth, s.mapper, eng.iters, eng.lr_factor,
+                 False, record=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel rows only: an operator's row repeats its kernels' time
@@ -418,6 +458,145 @@ def profile_window(torch, eng, log):
         f"share {dev_s / wall:.4f}, idle share <= {1 - dev_s / wall:.4f}")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-9: loose, free, resume, iMAP*
+
+def _release(torch):
+    """Free the engines of earlier phases (their recorders hold them in
+    reference cycles) and the allocator's cached blocks, so that the next
+    phase's peak device memory is its own."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _drive(torch, fd, eng, log, name, n_frames, first_frame=0):
+    """Run `eng` to n_frames with the launch counts set to 0 just before
+    and read just after; record, at each mapping event, the last frame
+    this run has tracked (frame 0 counts as tracked when the run starts
+    there).  Returns the path's result dict."""
+    events = []
+    tracked = [0 if first_frame == 0 else None]
+    orig_map, orig_track = eng.mapping_event, eng.track
+
+    def track(idx, *a, **k):
+        orig_track(idx, *a, **k)
+        tracked[0] = idx
+
+    def mapping_event(idx, *a, **k):
+        events.append((idx, tracked[0]))
+        return orig_map(idx, *a, **k)
+
+    eng.track, eng.mapping_event = track, mapping_event
+    for i in range(first_frame, n_frames):
+        eng.dataset[i]   # the dataset renders frames on the host
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fd.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(n_frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fd.launch_counts()
+    res = {"path": name, "wall_s": wall,
+           "frames": n_frames - first_frame,
+           "frames_per_s": (n_frames - first_frame) / wall,
+           "ate_rmse_m": eng.ate()["rmse"],
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
+           "events": events, "timings": dict(eng.timings)}
+    log(f"{name}: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    return res
+
+
+def _check_lagged(cfg, res, n_frames, lag, first_frame, max_ate):
+    m = cfg["mapping"]
+    want = map_events(n_frames, m["every_frame"], lag, first_frame)
+    # the tracker's frame when each event fires: frame 0 at the first
+    # event, the last frame at the final one, else the event's frame + lag
+    pos = [(i, 0 if i == 0 and first_frame == 0 else
+            n_frames - 1 if i == n_frames - 1 else i + lag) for i in want]
+    fail_if(res["events"] != pos,
+            f"{res['path']}: events (frame, tracker at) {res['events']}, "
+            f"schedule {pos}")
+    exp_f, exp_b, _ = expected_launches(
+        cfg, n_frames, events=want,
+        tracked=range(max(first_frame, 1), n_frames))
+    fail_if(res["k1"] == 0 or res["k2"] == 0,
+            f"{res['path']}: a kernel of the path was never launched")
+    fail_if((res["k1"], res["k2"]) != (exp_f, exp_b),
+            f"{res['path']}: launches K1 {res['k1']} K2 {res['k2']}, "
+            f"schedule {exp_f} {exp_b}")
+    ate = res["ate_rmse_m"]
+    fail_if(not math.isfinite(ate) or ate > max_ate,
+            f"{res['path']}: ATE {ate} not finite or above {max_ate} m")
+
+
+def run_lagged(torch, fd, log, sync, n_frames):
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+
+    cfg = load_config(SYN_CFG, overrides={
+        "sync_method": sync, "synthetic": {"n_frames": n_frames},
+        "mapping": {"ckpt_freq": 5},
+        "data": {"output": os.path.join(REPO, "output",
+                                        f"chip_smoke_{sync}")}})
+    eng = SlamEngine(cfg, device="cuda")
+    res = _drive(torch, fd, eng, log, sync, n_frames)
+    _check_lagged(cfg, res, n_frames, eng.map_lag, 0, 0.35)
+    return res, cfg
+
+
+def run_resume(torch, fd, log, cfg, n_frames):
+    """Resume a fresh engine from the loose run's checkpoint of frame 5:
+    the state must equal the file's arrays bit for bit; then run on."""
+    import numpy as np
+
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.utils.checkpoint import _flatten, store_arrays
+
+    ck = os.path.join(cfg["data"]["output"], "ckpts", "00005.npz")
+    eng = SlamEngine(cfg, device="cuda").resume(ck)
+    with np.load(ck) as z:
+        saved = {k: z[k] for k in z.files}
+    now = {"est_c2w": eng.est_c2w,
+           "extra/kf_frame_ids": np.asarray(eng.kf_frame_ids, np.int64)}
+    _flatten(eng.map_state.params, "params", now)
+    _flatten(eng.map_state.grids, "grids", now)
+    _flatten(store_arrays(eng.store), "keyframes", now)
+    fail_if(not set(now) <= set(saved), "resume: keys missing from the file")
+    differ = [k for k in now if now[k].dtype != saved[k].dtype
+              or not np.array_equal(now[k], saved[k])]
+    fail_if(bool(differ), f"resume: state differs from the file at {differ}")
+    log(f"resume: {len(now)} arrays equal the file bit for bit; "
+        f"frames_done {eng.frames_done}")
+    start = eng.frames_done
+    res = _drive(torch, fd, eng, log, "resume", n_frames, first_frame=start)
+    fail_if(eng.frames_done != n_frames,
+            f"resume: frames_done {eng.frames_done}, want {n_frames}")
+    _check_lagged(cfg, res, n_frames, eng.map_lag, start, 0.35)
+    return res
+
+
+def run_imap(torch, fd, log, n_frames=5):
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+
+    cfg = load_config(SYN_CFG, nice=False, overrides={
+        "scale": 1.0, "synthetic": {"n_frames": n_frames},
+        "data": {"output": os.path.join(REPO, "output",
+                                        "chip_smoke_imap")}})
+    eng = SlamEngine(cfg, device="cuda")
+    res = _drive(torch, fd, eng, log, "imap", n_frames)
+    fail_if(res["k1"] != 0 or res["k2"] != 0,
+            f"imap: the fused decode launched ({res['k1']}, {res['k2']})")
+    fail_if(eng.frames_done != n_frames, "imap: frames_done")
+    ate = res["ate_rmse_m"]
+    fail_if(not math.isfinite(ate) or ate > 0.5,
+            f"imap: ATE {ate} not finite or above 0.5 m")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -567,6 +746,20 @@ def main() -> int:
                                   (48000, False, 0), (9600, True, 0),
                                   (48000, True, 7))]
     k2 = shapes[-1]
+    # the strict engine is done with: later phases start without it
+    del eng
+
+    loose, loose_cfg = run_lagged(torch, fd, log, "loose", 11)
+    free, _ = run_lagged(torch, fd, log, "free", 12)
+    resumed = run_resume(torch, fd, log, loose_cfg, 11)
+    imap = run_imap(torch, fd, log)
+    by_path = {r["path"]: r for r in (loose, free, resumed, imap)}
+
+    def paths(key):
+        return {"strict": counts[key],
+                **{p: r["k1" if key == "fused_decode_fwd" else "k2"]
+                   for p, r in by_path.items()}}
+
     kernels = [
         {"name": "fused_decode_fwd", "route": "cuda",
          "source": "nice_slam_torch/csrc/fused_decode.cu",
@@ -575,7 +768,9 @@ def main() -> int:
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": None, "design_bound_ms": k1["design_bound_ms"],
-         "launches_by_kind": fwd_kinds, "shapes": fwd_shapes},
+         "launches_by_kind": fwd_kinds,
+         "launches_by_path": paths("fused_decode_fwd"),
+         "shapes": fwd_shapes},
         {"name": "fused_decode_bwd", "route": "cuda",
          "source": "nice_slam_torch/csrc/fused_decode_bwd.cu",
          "replaces": "nice_slam_tpu/ops/pallas/fused_decode.py:304",
@@ -583,7 +778,8 @@ def main() -> int:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None, "design_bound_ms": k2["design_bound_ms"],
-         "launches_by_kind": kinds, "shapes": shapes},
+         "launches_by_kind": kinds,
+         "launches_by_path": paths("fused_decode_bwd"), "shapes": shapes},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

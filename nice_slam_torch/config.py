@@ -290,7 +290,8 @@ def specs_from_config(cfg: dict) -> SlamSpecs:
         keyframe_selection=m["keyframe_selection_method"],
         keyframe_every=m["keyframe_every"],
         ba=m["BA"], ba_cam_lr=m["BA_cam_lr"], nice=nice,
-        coarse_mapper=False, stage_lr=stage_lr,
+        coarse_mapper=False, imap_decoders_lr=m["imap_decoders_lr"],
+        stage_lr=stage_lr,
     )
     coarse_mapper = None
     if nice and cfg["coarse"]:

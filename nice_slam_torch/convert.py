@@ -16,7 +16,7 @@ import torch
 from nice_slam_torch.ops.tree import tree_map
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cuda"):
     """Nested dicts/lists of numpy arrays -> the same tree of fp32 torch
     tensors on `device`."""
     return tree_map(lambda a: torch.from_numpy(

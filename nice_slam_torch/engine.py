@@ -1,25 +1,32 @@
-"""The SLAM engine of the PyTorch port: strict NICE-SLAM on one device.
+"""The SLAM engine of the PyTorch port, on one device.
 
-Under `sync_method: strict` the reference's three processes reduce to a
-sequential interleave (SURVEY §3.5), which is what the JAX package's
-grouped loop runs (nice_slam_tpu/engine.py `_run_grouped`) and what this
-engine runs:
+The reference's three processes (tracker, mapper, coarse mapper) reduce to
+a deterministic interleave, as in the JAX package (nice_slam_tpu/engine.py):
 
     map(0, iters_first x lr_first_factor)
-    for each frame group [cur, g_end] ending on an every_frame boundary
-    (or the last frame): track the group against the frozen map, then run
-    the mapping event of g_end (mapping + BA, keyframe insertion, the
-    coarse mapper; the last frame's event is the colour refinement)
+    for idx in 1..n-1: track(idx); map frame idx - map_lag when it lies on
+    the every_frame cadence; the last frame maps itself (for NICE the
+    colour refinement)
+
+map_lag is 0 under `sync_method: strict`, every_frame // 2 under `loose`
+(the reference's bounded lag, Tracker.py:168-175) and every_frame under
+`free` (the tracker never waits).  `run()` drives that per-frame loop in
+every mode; it is the JAX package's per-frame loop, whose event sequence
+its grouped loop reproduces.
 
 Keyframes are inserted every keyframe_every frames and at the last two;
-local BA starts once more than four keyframes exist.  The trajectory, the
-map and the keyframe store stay on the device.
+local BA starts once more than four keyframes exist.  iMAP* mode
+(`nice: False`) runs each non-first event as three passes of iters // 3,
+has no colour refinement and no pretrained decoders.  Checkpoints
+(<output>/ckpts/{idx:05d}.npz, the JAX package's format) are written every
+ckpt_freq frames and at the last frame; `resume()` continues from one.
+The trajectory, the map and the keyframe store stay on the device.
 
-Not in this slice (the JAX package has them): loose/free sync, iMAP*,
-meshing, checkpoint save/resume, the visualizer, the parallel modes, the
-Gauss-Newton pose polish and occupancy-guided sampling.  The constructor
-raises when a config asks for one of them.  The JAX package's TPU
-dispatch knobs (tpu.*) are accepted and ignored.
+Not in this slice (the JAX package has them): meshing, the visualizer,
+the parallel modes, the Gauss-Newton pose polish and occupancy-guided
+sampling.  The constructor raises when a config asks for one of them.  The
+JAX package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
+barrier_every_groups, prefetch, fuse_track_map) are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -36,29 +43,21 @@ from nice_slam_torch.config import SlamSpecs, specs_from_config
 from nice_slam_torch.keyframes import KeyframeStore, add_keyframe, make_store
 from nice_slam_torch.mapping import mapping_step, stage_iters_of
 from nice_slam_torch.models.decoders import check_supported
+from nice_slam_torch.ops.tree import tree_map
 from nice_slam_torch.state import make_map_state
-from nice_slam_torch.tracking import track_frames_group
+from nice_slam_torch.tracking import track_step
+from nice_slam_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from nice_slam_torch.utils.datasets import get_dataset
 
 
 def check_slice(cfg: dict) -> None:
     """Raise for config options this slice of the port does not run."""
     missing = []
-    if cfg.get("sync_method", "strict") != "strict":
-        missing.append(f"sync_method={cfg['sync_method']!r} (only strict)")
-    if not cfg.get("nice", True):
-        missing.append("iMAP* mode (nice=False / --imap)")
     r, t, m = cfg["rendering"], cfg["tracking"], cfg["mapping"]
-    if r.get("N_importance", 0) > 0:
-        missing.append("rendering.N_importance > 0")
     if r.get("occupancy_guided", False):
         missing.append("rendering.occupancy_guided")
-    if not cfg.get("occupancy", True):
-        missing.append("density compositing (occupancy=False)")
     if t.get("pose_GN_iters", 0) > 0 or m.get("pose_GN_iters", 0) > 0:
         missing.append("Gauss-Newton pose refinement (pose_GN_iters > 0)")
-    if t.get("gt_camera", False):
-        missing.append("tracking.gt_camera")
     tpu = cfg.get("tpu", {})
     for knob in ("pipelined", "data_parallel", "grid_sharded", "multihost"):
         if tpu.get(knob):
@@ -91,11 +90,21 @@ class SlamEngine:
         m = cfg["mapping"]
         self.every_frame = m["every_frame"]
         self.keyframe_every = m["keyframe_every"]
+        self.ckpt_freq = m["ckpt_freq"]
         self.iters = m["iters"]
         self.iters_first = m["iters_first"]
         self.lr_factor = m["lr_factor"]
         self.lr_first_factor = m["lr_first_factor"]
         self.color_refine = m["color_refine"]
+        self.gt_camera = bool(cfg["tracking"]["gt_camera"])
+        # deterministic lag of the mapper behind the tracker, in frames
+        # (nice_slam_tpu/engine.py:104-115)
+        sync = cfg.get("sync_method", "strict")
+        self.map_lag = {"strict": 0,
+                        "loose": self.every_frame // 2,
+                        "free": self.every_frame}.get(sync, 0)
+        # under a lag: the frames a lagged event still needs
+        self._frame_cache = {}
         # per-event selected-window record (save_selected_keyframes_info,
         # reference Mapper.py:274-287): {event idx -> window frame ids}
         self.save_selected_kf = bool(
@@ -120,11 +129,13 @@ class SlamEngine:
         self.est_c2w_dev = torch.zeros(self.n_img, 4, 4, device=self.device)
         self.gt_c2w = np.zeros((self.n_img, 4, 4), np.float32)
         self.frames_done = 0
-        self.timings = {"track": 0.0, "map": 0.0, "io": 0.0}
+        self.timings = {"track": 0.0, "map": 0.0, "ckpt": 0.0, "io": 0.0}
 
     def _load_pretrained_decoders(self):
-        """Decoder weights from the repository's npz when present, else the
-        calibrated random init."""
+        """NICE decoder weights from the repository's npz when present, else
+        the calibrated random init.  iMAP* has no pretrained decoder."""
+        if not self.specs.model.nice:
+            return
         npz = self.cfg.get("pretrained_decoders", {}).get("tpu_npz")
         if npz and os.path.exists(npz):
             from nice_slam_torch.models.pretrain import load_npz_decoders
@@ -167,21 +178,38 @@ class SlamEngine:
         return torch.as_tensor(np.ascontiguousarray(a),
                                dtype=torch.float32).to(self.device)
 
-    def _load_frames(self, lo: int, hi: int):
-        """Frames lo..hi inclusive as stacked device tensors."""
+    def _load_frame(self, idx: int):
+        """Frame idx: colour and depth on the device, the GT pose on the
+        host."""
         t0 = time.perf_counter()
-        items = [self.dataset[i] for i in range(lo, hi + 1)]
-        colors = self._to_dev(np.stack([it[1] for it in items]))
-        depths = self._to_dev(np.stack([it[2] for it in items]))
-        gts = np.stack([np.asarray(it[3], np.float32) for it in items])
+        _, color, depth, gt_pose = self.dataset[idx]
+        out = (self._to_dev(color), self._to_dev(depth),
+               np.asarray(gt_pose, np.float32))
         self.timings["io"] += time.perf_counter() - t0
-        return colors, depths, gts
+        return out
 
-    @staticmethod
-    def group_end(cur: int, every_frame: int, n: int) -> int:
-        """Last frame of the group starting at `cur`: the next every_frame
-        boundary, capped at the final frame."""
-        return min(((cur - 1) // every_frame + 1) * every_frame, n - 1)
+    # -- tracking ----------------------------------------------------------
+
+    def _set_gt_pose(self, idx: int, gt_pose) -> None:
+        self.gt_c2w[idx] = gt_pose
+        self.est_c2w_dev[idx] = self._to_dev(self._safe_est_pose(gt_pose,
+                                                                 idx))
+
+    def track(self, idx: int, color, depth, gt_pose) -> None:
+        """Track one frame against the frozen map; frame 0 and
+        tracking.gt_camera take the GT pose and skip the optimisation."""
+        if idx == 0 or self.gt_camera:
+            self._set_gt_pose(idx, gt_pose)
+            return
+        self.gt_c2w[idx] = gt_pose
+        t0 = time.perf_counter()
+        s = self.specs
+        st = self.map_state
+        track_step(st.params, st.grids, self.bound, self.est_c2w_dev, idx,
+                   color, depth, s.camera, s.track, s.render, s.model,
+                   gen=self.gen)
+        self._sync()
+        self.timings["track"] += time.perf_counter() - t0
 
     # -- mapping -----------------------------------------------------------
 
@@ -207,7 +235,8 @@ class SlamEngine:
     def mapping_event(self, idx: int, color, depth, gt_pose,
                       first: bool = False) -> None:
         """One mapping wake-up (Mapper.py:542-657): the mapper (+BA,
-        keyframe insertion) and the coarse mapper."""
+        keyframe insertion) and the coarse mapper, then the checkpoint when
+        one is due."""
         t0 = time.perf_counter()
         final = idx == self.n_img - 1
         mapspec = self.specs.mapper
@@ -216,15 +245,18 @@ class SlamEngine:
         c_lr = self.lr_first_factor if first else self.lr_factor
         if first:
             outer, n_iters, lr_f = 1, self.iters_first, self.lr_first_factor
-        elif final and self.color_refine:
+        elif final and self.color_refine and mapspec.nice:
             # colour refinement (Mapper.py:579-586): window x2, colour stage
             # only, colour decoder frozen, no frustum selection, 5 passes
             outer, n_iters, lr_f = 5, self.iters, self.lr_factor
             mapspec = replace(mapspec, window_size=mapspec.window_size * 2,
                               middle_iter_ratio=0.0, fine_iter_ratio=0.0,
                               fix_color=True, frustum_selection=False)
-        else:
+        elif mapspec.nice:
             outer, n_iters, lr_f = 1, self.iters, self.lr_factor
+        else:
+            # iMAP*: three passes of iters // 3 (nice_slam_tpu/engine.py:654)
+            outer, n_iters, lr_f = 3, max(self.iters // 3, 1), self.lr_factor
 
         due = ((idx % self.keyframe_every == 0 or idx >= self.n_img - 2)
                and idx not in self.kf_frame_ids)
@@ -256,47 +288,111 @@ class SlamEngine:
         self._sync()
         self.timings["map"] += time.perf_counter() - t0
 
+        if (idx % self.ckpt_freq == 0 and idx > 0) or final:
+            # every frame up to idx is tracked by now; under strict sync
+            # the loop bumps frames_done only after this event
+            self.frames_done = max(self.frames_done, idx + 1)
+            t0 = time.perf_counter()
+            self.save(os.path.join(self.output, "ckpts", f"{idx:05d}.npz"))
+            self.timings["ckpt"] += time.perf_counter() - t0
+
     # -- main loop ---------------------------------------------------------
 
-    def run(self, n_frames: Optional[int] = None, progress: bool = False):
-        """Process frames [0, n) with the strict grouped schedule."""
+    def run(self, n_frames: Optional[int] = None, progress: bool = False,
+            start: Optional[int] = None):
+        """Process frames [start, n).  start defaults to frames_done, so a
+        resumed engine continues where its checkpoint left off."""
         n = min(n_frames or self.n_img, self.n_img)
-        s = self.specs
+        start = self.frames_done if start is None else start
+        if start >= n:
+            return self
         bar = None
         if progress:
             try:
                 from tqdm import tqdm
-                bar = tqdm(total=n, desc="slam")
+                bar = tqdm(total=n, initial=start, desc="slam")
             except ImportError:
                 pass
-        colors, depths, gts = self._load_frames(0, 0)
-        self.gt_c2w[0] = gts[0]
-        self.est_c2w_dev[0] = self._to_dev(self._safe_est_pose(gts[0], 0))
-        self.mapping_event(0, colors[0], depths[0], gts[0], first=True)
-        self.frames_done = 1
-        if bar:
-            bar.update(1)
-        cur = 1
-        while cur < n:
-            g_end = self.group_end(cur, self.every_frame, n)
-            colors, depths, gts = self._load_frames(cur, g_end)
-            self.gt_c2w[cur:g_end + 1] = gts
-            t0 = time.perf_counter()
-            st = self.map_state
-            track_frames_group(
-                st.params, st.grids, self.bound, self.est_c2w_dev, cur,
-                colors, depths, s.camera, s.track, s.render, s.model,
-                gen=self.gen)
-            self._sync()
-            self.timings["track"] += time.perf_counter() - t0
-            if g_end == n - 1 or g_end % self.every_frame == 0:
-                self.mapping_event(g_end, colors[-1], depths[-1], gts[-1])
-            self.frames_done = g_end + 1
+        for idx in range(start, n):
+            color, depth, gt_pose = self._load_frame(idx)
+            if self.map_lag > 0:
+                self._frame_cache[idx] = (color, depth, gt_pose)
+                for old in [k for k in self._frame_cache
+                            if k < idx - self.map_lag - 1]:
+                    del self._frame_cache[old]
             if bar:
-                bar.update(g_end + 1 - cur)
-            cur = g_end + 1
+                bar.update(1)
+            if idx == 0:
+                self._set_gt_pose(0, gt_pose)
+                self.mapping_event(0, color, depth, gt_pose, first=True)
+                continue
+            self.track(idx, color, depth, gt_pose)
+            midx = idx - self.map_lag
+            if idx == n - 1:
+                # the final frame always maps itself
+                self.mapping_event(idx, color, depth, gt_pose)
+            elif midx > 0 and midx % self.every_frame == 0:
+                # a lagged frame from before a resume point is gone: map
+                # the current frame in its place (same cadence)
+                mc, md, mg = self._frame_cache.get(midx,
+                                                   (color, depth, gt_pose))
+                self.mapping_event(midx, mc, md, mg)
+            self.frames_done = idx + 1
         if bar:
             bar.close()
+        return self
+
+    # -- checkpoints -------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the engine state in the JAX package's checkpoint format
+        (nice_slam_tpu/engine.py:1112-1139)."""
+        self._sync()
+        extra = {"kf_frame_ids": np.asarray(self.kf_frame_ids, np.int64)}
+        if self.selected_keyframes:
+            # one row per event, ragged-padded with -2 to the widest window
+            # (the colour refinement doubles it)
+            ev = sorted(self.selected_keyframes)
+            rows = [self.selected_keyframes[i].cpu().numpy().astype(np.int64)
+                    for i in ev]
+            mat = np.full((len(rows), max(r.shape[0] for r in rows)), -2,
+                          np.int64)
+            for r_i, r in enumerate(rows):
+                mat[r_i, :r.shape[0]] = r
+            extra["selkf_event_idx"] = np.asarray(ev, np.int64)
+            extra["selkf_frames"] = mat
+        save_checkpoint(path, self.map_state.params, self.map_state.grids,
+                        self.bound, self.est_c2w, self.gt_c2w, self.store,
+                        self.frames_done, extra=extra)
+
+    def resume(self, path: str):
+        """Load a checkpoint of either package (engine.py:1141-1167).  The
+        random stream is not saved: a resumed run continues the schedule,
+        not the draws."""
+        ck = load_checkpoint(path, self.map_state.params,
+                             self.map_state.grids)
+
+        def dev(a):
+            return torch.from_numpy(np.array(a)).to(self.device)
+
+        self.map_state.params = tree_map(dev, ck["params"])
+        self.map_state.grids = tree_map(dev, ck["grids"])
+        self.est_c2w_dev = dev(ck["est_c2w"]).float()
+        self.gt_c2w = np.array(ck["gt_c2w"], np.float32)
+        kf = ck["keyframes"]
+        if kf:
+            self.store = KeyframeStore(
+                colors=dev(kf["colors"]), depths=dev(kf["depths"]),
+                est_c2w=dev(kf["est_c2w"]), gt_c2w=dev(kf["gt_c2w"]),
+                frame_idx=dev(kf["frame_idx"]).long(),
+                count=int(kf["count"]))
+        extra = ck["extra"]
+        self.kf_frame_ids = [int(i) for i in extra["kf_frame_ids"]]
+        if "selkf_event_idx" in extra:
+            self.selected_keyframes = {
+                int(i): dev(row) for i, row in
+                zip(extra["selkf_event_idx"], extra["selkf_frames"])}
+        self.frames_done = ck["idx"]
         return self
 
     def ate(self):

@@ -37,7 +37,8 @@ class KeyframeStore:
         return self.colors.shape[0]
 
 
-def make_store(capacity: int, H: int, W: int, device="cpu") -> KeyframeStore:
+def make_store(capacity: int, H: int, W: int,
+               device="cuda") -> KeyframeStore:
     eye = torch.eye(4, device=device).expand(capacity, 4, 4).clone()
     return KeyframeStore(
         colors=torch.zeros(capacity, H, W, 3, dtype=torch.uint8,

@@ -11,6 +11,11 @@ the JAX package:
 - local BA optimises the window cameras with a per-slot LR mask (the
   oldest keyframe and invalid slots frozen; Mapper.py:346-363).
 
+In iMAP* mode there are no grids and no frustum masks: the one decoder
+trains at imap_decoders_lr under StepLR(200, 0.8) (Mapper.py:388-389),
+every stage takes the colour term, and a density regulation term keeps
+free space empty.
+
 Leaves whose learning rate is structurally zero are frozen: they get no
 gradient and no update.
 """
@@ -41,7 +46,7 @@ from nice_slam_torch.ops.se3 import (
     to_homogeneous,
 )
 from nice_slam_torch.ops.tree import tree_leaves, tree_map
-from nice_slam_torch.render import RenderSpec, render_rays
+from nice_slam_torch.render import RenderSpec, regulation_sigma, render_rays
 
 
 @dataclass(frozen=True)
@@ -78,6 +83,7 @@ class MapSpec:
     ba_cam_lr: float = 0.001
     nice: bool = True
     coarse_mapper: bool = False
+    imap_decoders_lr: float = 0.0002
     grad_clip: float = 0.0
     stage_lr: Tuple[Tuple[str, StageLR], ...] = tuple(
         sorted(DEFAULT_STAGE_LR.items()))
@@ -247,23 +253,35 @@ def _window_rays(window, cams, camera: Camera, pix_per_frame: int,
 
 def mapping_loss(tree, window, bound, camera: Camera, stage: str,
                  mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
-                 gen: Optional[torch.Generator] = None, pix=None):
+                 gen: Optional[torch.Generator] = None, pix=None,
+                 reg_u=None):
     """One mapping loss (Mapper.py:430-501): masked L1 depth + (colour
-    stage) L1 colour."""
+    stage, every stage in iMAP*) L1 colour; density mode (iMAP*) adds the
+    sigma regulation, whose jitter `reg_u` is drawn from `gen` unless
+    given."""
     params, grids, cams = tree["params"], tree["grids"], tree["cams"]
     n_pix = mapspec.pixels // window["colors"].shape[0]
     rays_o, rays_d, gt_d, gt_c, valid = _window_rays(window, cams, camera,
                                                      n_pix, gen, pix)
-    t_exit = ray_aabb_far(rays_o.detach(), rays_d.detach(), bound)
-    m = valid & (t_exit >= gt_d)
+    if mapspec.nice:
+        t_exit = ray_aabb_far(rays_o.detach(), rays_d.detach(), bound)
+        m = valid & (t_exit >= gt_d)
+    else:
+        m = valid
     depth, _, color, _ = render_rays(
         params, mspec, grids, bound, rays_o, rays_d, rspec, stage,
         gt_depth=None if mapspec.coarse_mapper else gt_d, gen=gen)
     dm = (gt_d > 0) & m
     loss = torch.sum(torch.abs(gt_d - depth) * dm)
-    if stage == "color":
+    if not mapspec.nice or stage == "color":
         loss = loss + mapspec.w_color_loss * torch.sum(
             torch.abs(gt_c - color) * m[:, None])
+    if not rspec.occupancy:
+        sigma = regulation_sigma(params, mspec, grids, bound, rays_o, rays_d,
+                                 gt_d, rspec.n_samples, stage, gen=gen,
+                                 u=reg_u)
+        sig_m = torch.repeat_interleave(m, rspec.n_samples)
+        loss = loss + 0.0005 * torch.sum(torch.abs(sigma) * sig_m)
     return loss
 
 
@@ -274,8 +292,11 @@ def _decoder_lr_tree(params, mapspec: MapSpec, dec_lr: float,
                      dec_lr_static: float):
     """Per-leaf LR for the decoders and the frozen tree (Python bools):
     in NICE mode only the fine (unless fixed) and colour (unless fixed)
-    decoders train (Mapper.py:335-344)."""
+    decoders train (Mapper.py:335-344); the iMAP* decoder always trains at
+    imap_decoders_lr."""
     def lr_for(name):
+        if not mapspec.nice:
+            return mapspec.imap_decoders_lr
         if name == "fine":
             return 0.0 if mapspec.fix_fine else dec_lr
         if name == "color":
@@ -285,6 +306,8 @@ def _decoder_lr_tree(params, mapspec: MapSpec, dec_lr: float,
         return 0.0
 
     def frozen_for(name):
+        if not mapspec.nice:
+            return False
         if name == "fine":
             return mapspec.fix_fine or dec_lr_static == 0.0
         if name == "color":
@@ -303,7 +326,17 @@ def _decoder_lr_tree(params, mapspec: MapSpec, dec_lr: float,
 def _lr_tree(tree, stage: str, mapspec: MapSpec, lr_factor: float,
              cam_lr_mask):
     """(lr tree, frozen tree) of one stage.  Frozen-ness comes from the
-    static stage table, so zero-lr leaves get no gradient at all."""
+    static stage table, so zero-lr leaves get no gradient at all.  iMAP*
+    has no grids and no stage table; its cameras are live when BA is on."""
+    if not mapspec.nice:
+        dec_lr, dec_frozen = _decoder_lr_tree(tree["params"], mapspec, 0.0,
+                                              1.0)
+        cam_lr = (mapspec.ba_cam_lr * cam_lr_mask if mapspec.ba
+                  else torch.zeros_like(cam_lr_mask))
+        return ({"params": dec_lr, "grids": {},
+                 "cams": cam_lr[:, None].expand(-1, 7)},
+                {"params": dec_frozen, "grids": {},
+                 "cams": not mapspec.ba})
     table = mapspec.stage_lr_table()[stage]
     grid_lrs = {"coarse": table.coarse, "middle": table.middle,
                 "fine": table.fine, "color": table.color}
@@ -319,6 +352,12 @@ def _lr_tree(tree, stage: str, mapspec: MapSpec, lr_factor: float,
     frozen = {"params": dec_frozen, "grids": grids_frozen,
               "cams": not cams_active}
     return lr, frozen
+
+
+def imap_lr_scale(step: int) -> float:
+    """iMAP*'s StepLR(200, 0.8) on the decoder learning rate at Adam step
+    `step` (counted from 0 within one mapping call; Mapper.py:388-389)."""
+    return 0.8 ** (step // 200)
 
 
 # ---------------------------------------------------------------------------
@@ -343,9 +382,9 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
     for stage, n_iters in stage_iters:
         lr_tree, frozen = _lr_tree(tree, stage, mapspec, lr_factor,
                                    cam_lr_mask)
-        # decoders only train in the colour stage
-        rspec_stage = dataclasses.replace(rspec,
-                                          train_decoders=(stage == "color"))
+        # NICE decoders only train in the colour stage
+        rspec_stage = dataclasses.replace(
+            rspec, train_decoders=(stage == "color" or not mapspec.nice))
         for _ in range(n_iters):
             tr = tree_map(lambda x, f: x if f else
                           x.detach().requires_grad_(True), tree, frozen)
@@ -367,7 +406,12 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                                     for x in tree_leaves(g) if x is not None))
                 scale = torch.clamp(mapspec.grad_clip / (gn + 1e-12), max=1.0)
                 g = tree_map(lambda x: None if x is None else x * scale, g)
-            tree, opt = adam_update(tree, g, opt, lr_tree, frozen=frozen)
+            lr_it = lr_tree
+            if not mapspec.nice:
+                scale = imap_lr_scale(opt.step)
+                lr_it = {**lr_tree, "params": tree_map(
+                    lambda lr: lr * scale, lr_tree["params"])}
+            tree, opt = adam_update(tree, g, opt, lr_it, frozen=frozen)
             losses.append(loss.detach())
             it_all += 1
     out = torch.stack(losses) if losses else torch.zeros(0)

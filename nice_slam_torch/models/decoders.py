@@ -13,6 +13,9 @@ dense layer is ``x @ w + b``.
   head's rgb with the occupancy of middle + fine.  The fine and colour
   stages run through the fused decode (ops/fused_decode.py), which on the
   card is the hand-written CUDA kernel pair.
+- iMAP* (src/conv_onet/config.py:28-32): one MLP `imap`, no grid feature,
+  hidden 256, 4 blocks, no skips, rgb + density out, in plain fp32
+  `torch.matmul` (no kernel: the TPU package decodes it outside Pallas).
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ class ModelSpec:
 
     def decoder_specs(self):
         if not self.nice:
-            raise NotImplementedError(
-                "iMAP* decoders are not in the PyTorch port yet")
+            return {"imap": DecoderSpec(name="imap", c_dim=0, hidden=256,
+                                        n_blocks=4, skips=(), color=True,
+                                        embed=self.pos_embedding_method)}
         specs = {
             "middle": DecoderSpec(name="middle", c_dim=self.c_dim,
                                   hidden=self.hidden,
@@ -78,11 +82,10 @@ class ModelSpec:
 
 
 def check_supported(spec: ModelSpec) -> None:
-    """The fused decode (and so this slice) takes NICE mode with 32-wide
-    features and hidden layers and the Fourier embedding."""
+    """In NICE mode the fused decode takes 32-wide features and hidden
+    layers and the Fourier embedding; iMAP* has no such constraint."""
     if not spec.nice:
-        raise NotImplementedError(
-            "iMAP* mode (nice=False) is not in the PyTorch port yet")
+        return
     if (spec.c_dim, spec.hidden, spec.pos_embedding_method) != (
             32, 32, "fourier"):
         raise NotImplementedError(
@@ -127,7 +130,7 @@ def _calibrate_head(out_params, spec: DecoderSpec):
 
 
 def init_decoder(gen: Optional[torch.Generator], spec: DecoderSpec,
-                 device="cpu"):
+                 device="cuda"):
     h = spec.hidden
     params = {}
     if spec.no_xyz:
@@ -138,21 +141,28 @@ def init_decoder(gen: Optional[torch.Generator], spec: DecoderSpec,
         params["out"] = _calibrate_head(_dense_init(
             gen, h, 4 if spec.color else 1, device, "linear"), spec)
         return params
-    emb = embedding_dim(spec.embed)
-    params["embed"] = init_fourier_embedding(gen, device=device)
+    emb = embedding_dim(spec.embed, spec.name)
+    if spec.embed == "fourier":
+        params["embed"] = init_fourier_embedding(gen, device=device)
+    elif spec.embed == "fc_relu":
+        params["embed"] = _dense_init(gen, 3, emb, device)
+    else:
+        params["embed"] = {}
     pts = []
     for i in range(spec.n_blocks):
         in_dim = emb if i == 0 else (h + emb if (i - 1) in spec.skips else h)
         pts.append(_dense_init(gen, in_dim, h, device))
     params["pts"] = pts
-    params["fc_c"] = [_torch_linear_init(gen, spec.c_dim, h, device)
-                      for _ in range(spec.n_blocks)]
+    if spec.c_dim != 0:
+        params["fc_c"] = [_torch_linear_init(gen, spec.c_dim, h, device)
+                          for _ in range(spec.n_blocks)]
     params["out"] = _calibrate_head(_dense_init(
         gen, h, 4 if spec.color else 1, device, "linear"), spec)
     return params
 
 
-def init_model(gen: Optional[torch.Generator], spec: ModelSpec, device="cpu"):
+def init_model(gen: Optional[torch.Generator], spec: ModelSpec,
+               device="cuda"):
     dspecs = spec.decoder_specs()
     return {name: init_decoder(gen, dspecs[name], device)
             for name in sorted(dspecs)}
@@ -168,15 +178,18 @@ def _dense(x, layer):
 def apply_mlp(params, spec: DecoderSpec, p: torch.Tensor, grids,
               bound) -> torch.Tensor:
     """Coordinate MLP with per-layer grid-feature injection (the middle
-    level; fine and colour run in the fused decode).
+    level; fine and colour run in the fused decode), or without a feature
+    (c_dim 0, the iMAP* decoder).
 
     p: (N, 3) world coords.  Returns (N, 4) if colour else (N,)."""
-    c = trilinear_interp(grids[spec.name], normalize_coords(p, bound))
-    e = apply_embedding(params["embed"], p, spec.embed)
+    if spec.c_dim != 0:
+        c = trilinear_interp(grids[spec.name], normalize_coords(p, bound))
+    e = apply_embedding(params["embed"], p, spec.embed, spec.name)
     h = e
     for i in range(spec.n_blocks):
         h = torch.relu(_dense(h, params["pts"][i]))
-        h = h + _dense(c, params["fc_c"][i])
+        if spec.c_dim != 0:
+            h = h + _dense(c, params["fc_c"][i])
         if i in spec.skips:
             h = torch.cat([e, h], dim=-1)
     out = _dense(h, params["out"])
@@ -222,6 +235,8 @@ def model_apply(params, spec: ModelSpec, grids, bound, p: torch.Tensor,
     gradient is wanted (frozen decoders)."""
     check_supported(spec)
     dspecs = spec.decoder_specs()
+    if not spec.nice:
+        return apply_mlp(params["imap"], dspecs["imap"], p, grids, bound)
     zeros3 = torch.zeros(p.shape[:-1] + (3,), dtype=p.dtype, device=p.device)
     if stage == "coarse":
         occ = apply_mlp_no_xyz(params["coarse"], dspecs["coarse"], p, grids,

@@ -1,5 +1,6 @@
-"""Depth sampling along rays: stratified bins and depth-guided surface
-samples (reference src/utils/Renderer.py:112-170).
+"""Depth sampling along rays: stratified bins, depth-guided surface
+samples (reference src/utils/Renderer.py:112-170) and hierarchical
+inverse-CDF resampling (src/common.py:19-63).
 
 The per-ray "depth hole" case is a `torch.where` select, so batch shapes
 never depend on the data.
@@ -51,3 +52,37 @@ def surface_zvals(gt_depth: torch.Tensor, n_surface: int,
     z_surf = 0.95 * d * (1.0 - t) + 1.05 * d * t
     z_hole = 0.001 * (1.0 - t) + max_depth * t
     return torch.where(d > 0, z_surf, z_hole.expand(z_surf.shape))
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n: int,
+               det: bool = False, gen: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Hierarchical inverse-CDF sampling (reference src/common.py:19-63).
+
+    bins: (B, M) interval midpoints; weights: (B, M-1) interior weights.
+    det=True places the n draws at linspace(0, 1, n); otherwise the
+    uniforms `u` (B, n) are drawn from `gen` unless passed in.
+    Returns (B, n)."""
+    weights = weights + 1e-5
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    shape = cdf.shape[:-1] + (n,)
+    if det:
+        u = torch.linspace(0.0, 1.0, n, dtype=cdf.dtype,
+                           device=cdf.device).expand(shape)
+    elif u is None:
+        u = torch.rand(shape, generator=gen, dtype=cdf.dtype,
+                       device=cdf.device)
+    u = u.contiguous()
+    inds = torch.searchsorted(cdf.contiguous(), u, right=True)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_lo = torch.gather(cdf, -1, below)
+    cdf_hi = torch.gather(cdf, -1, above)
+    bins_lo = torch.gather(bins, -1, below)
+    bins_hi = torch.gather(bins, -1, above)
+    denom = cdf_hi - cdf_lo
+    denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
+    t = (u - cdf_lo) / denom
+    return bins_lo + t * (bins_hi - bins_lo)

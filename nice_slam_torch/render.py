@@ -5,10 +5,11 @@ package:
   clamped to 1.2 * max depth (Renderer.py:88-111);
 - N_samples stratified bins + N_surface depth-guided samples, with the
   depth-hole uniform fallback as a per-ray `where` (Renderer.py:112-150);
-- merge by sort, decode all points in one batch, alpha-composite.
+- merge by sort, decode all points in one batch, alpha-composite;
+- optional N_importance inverse-CDF refinement (Renderer.py:181-196).
 
 Out-of-bound points get occupancy forced to +100 (an opaque wall at the
-AABB, Renderer.py:57).  N_importance resampling waits for the iMAP* slice.
+AABB, Renderer.py:57), in iMAP* mode too.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from nice_slam_torch.ops.composite import raw2outputs
 from nice_slam_torch.ops.rays import image_rays, ray_aabb_far
 from nice_slam_torch.ops.sampling import (
     perturb_zvals,
+    sample_pdf,
     stratified_zvals,
     surface_zvals,
 )
@@ -83,12 +85,10 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
 
     gt_depth=None (e.g. the coarse mapper) disables surface sampling and
     uses scalar near (reference Renderer.py:88-92).  `gen` feeds the
-    stratified jitter when rspec.perturb > 0.
+    stratified jitter when rspec.perturb > 0, and the importance draws
+    (det when perturb == 0).
 
     Returns (depth (N,), uncertainty (N,), color (N, 3), weights (N, S))."""
-    if rspec.n_importance > 0:
-        raise NotImplementedError(
-            "N_importance resampling is not in the PyTorch port yet")
     with_depth = gt_depth is not None and stage != "coarse"
     z_vals = _zvals(rays_o, rays_d, gt_depth if with_depth else None, bound,
                     rspec, with_depth, gen)
@@ -96,8 +96,34 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
     n, s, _ = pts.shape
     raw = eval_points(params, mspec, grids, bound, pts.reshape(-1, 3), stage,
                       train_decoders=rspec.train_decoders)
-    raw = raw.reshape(n, s, 4)
-    return raw2outputs(raw, z_vals, rays_d, rspec.occupancy)
+    out = raw2outputs(raw.reshape(n, s, 4), z_vals, rays_d, rspec.occupancy)
+    if rspec.n_importance > 0:
+        weights = out[3]
+        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        z_imp = sample_pdf(z_mid, weights[..., 1:-1], rspec.n_importance,
+                           det=rspec.perturb == 0.0, gen=gen).detach()
+        z_vals, _ = torch.sort(torch.cat([z_vals, z_imp], dim=-1), dim=-1)
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+        raw = eval_points(params, mspec, grids, bound, pts.reshape(-1, 3),
+                          stage, train_decoders=rspec.train_decoders)
+        out = raw2outputs(raw.reshape(n, s + rspec.n_importance, 4), z_vals,
+                          rays_d, rspec.occupancy)
+    return out
+
+
+def regulation_sigma(params, mspec: ModelSpec, grids, bound, rays_o, rays_d,
+                     gt_depth, n_samples: int, stage: str = "color",
+                     gen: Optional[torch.Generator] = None, u=None):
+    """iMAP* free-space regulation: the density at n_samples stratified
+    points on [0, 0.85 * depth] with jitter (reference Renderer.py:258-296).
+    The jitter's uniforms `u` (N, n_samples) come from `gen` unless passed
+    in.  Returns (N * n_samples,)."""
+    d = gt_depth[:, None]
+    z_vals = stratified_zvals(torch.zeros_like(d), d * 0.85, n_samples)
+    z_vals = perturb_zvals(z_vals, gen, u)
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    raw = eval_points(params, mspec, grids, bound, pts.reshape(-1, 3), stage)
+    return raw[:, 3]
 
 
 @torch.no_grad()

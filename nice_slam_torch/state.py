@@ -2,6 +2,7 @@
 
 Grids are [Nx, Ny, Nz, C] fp32 tensors (channels last, the JAX package's
 layout); the decoder params are the nested dicts of models/decoders.py.
+iMAP* keeps no grids.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ GRID_INIT_STD = {"coarse": 0.01, "middle": 0.01, "fine": 0.0001,
 
 
 def init_grids(gen: Optional[torch.Generator], bound, grid_len, c_dim: int,
-               coarse: bool, coarse_bound_enlarge: int = 2, device="cpu"):
+               coarse: bool, coarse_bound_enlarge: int = 2, device="cuda"):
     """Allocate the hierarchical grids, N(0, std) init with the reference's
     per-level stds (src/NICE_SLAM.py:223-247)."""
     grids = {}
@@ -51,10 +52,11 @@ class MapState:
 
 
 def make_map_state(gen: Optional[torch.Generator], spec: ModelSpec, bound,
-                   grid_len, bound_divisible: float, device="cpu"):
+                   grid_len, bound_divisible: float, device="cuda"):
     bound = pad_bound(bound, bound_divisible)
-    grids = init_grids(gen, bound, grid_len, spec.c_dim, spec.coarse,
-                       spec.coarse_bound_enlarge, device)
+    grids = (init_grids(gen, bound, grid_len, spec.c_dim, spec.coarse,
+                        spec.coarse_bound_enlarge, device) if spec.nice
+             else {})
     params = init_model(gen, spec, device)
     return MapState(params=params, grids=grids,
                     bound=torch.as_tensor(bound, dtype=torch.float32,

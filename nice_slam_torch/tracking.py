@@ -195,16 +195,3 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
         camera, tspec, rspec, mspec, gen=gen)
     est_c2w[idx] = to_homogeneous(cam_from_tensor(best_cam))
 
-
-def track_frames_group(params, grids, bound, est_c2w: torch.Tensor,
-                       idx0: int, gt_colors, gt_depths, camera: Camera,
-                       tspec: TrackSpec, rspec: RenderSpec, mspec: ModelSpec,
-                       gen: Optional[torch.Generator] = None):
-    """Track G consecutive frames idx0 .. idx0+G-1 against a frozen map,
-    each initialised from the pose just written for the one before (the
-    strict schedule: the mapper runs only at group boundaries).
-
-    gt_colors: (G, H, W, 3) fp32; gt_depths: (G, H, W)."""
-    for g in range(gt_colors.shape[0]):
-        track_step(params, grids, bound, est_c2w, idx0 + g, gt_colors[g],
-                   gt_depths[g], camera, tspec, rspec, mspec, gen=gen)

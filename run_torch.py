@@ -5,12 +5,17 @@ Usage:
     python run_torch.py configs/Synthetic/synthetic.yaml --frames 11
     python run_torch.py --synthetic 40           # built-in synthetic scene
     python run_torch.py <config> --device cpu    # plain PyTorch, no kernels
+    python run_torch.py <config> --imap          # iMAP* mode
+    python run_torch.py <config> --resume <output>/ckpts/00050.npz
+    python run_torch.py <config> --resume <output>   # its latest checkpoint
 
-This slice of the port runs strict NICE-SLAM (sync_method: strict, the
-grouped schedule) on one GPU, with the fused decode as CUDA kernels.  Not
-yet in the port: loose/free sync, iMAP* (--imap), meshing (--no-mesh is
-implied: no mesh is written), checkpoint save/resume, the visualizer and
-the parallel modes; a config that asks for one of them is refused.
+The port runs NICE-SLAM and iMAP* under strict, loose and free sync on one
+GPU, with the fused decode as CUDA kernels, and writes checkpoints
+(<output>/ckpts/{idx:05d}.npz, the JAX package's format: either package
+resumes the other's).  Not yet in the port: meshing (--no-mesh is implied:
+no mesh is written), the visualizer, the parallel modes, the Gauss-Newton
+pose polish and occupancy-guided sampling; a config that asks for one of
+them is refused.
 
 Prints a JSON summary (ate_rmse_m, ate_mean_m, frames, timings_s, ...)
 and writes <output>/ate.json and the estimated trajectory
@@ -27,10 +32,10 @@ import time
 
 def main():
     ap = argparse.ArgumentParser(
-        description="nice-slam PyTorch port runner (strict NICE-SLAM; "
-                    "not yet: loose/free sync, --imap, meshing, "
-                    "checkpoint/resume, visualizer, parallel modes; "
-                    "--no-mesh is implied)")
+        description="nice-slam PyTorch port runner (NICE-SLAM and iMAP*, "
+                    "strict/loose/free sync, checkpoint and resume; not "
+                    "yet: meshing, visualizer, parallel modes; --no-mesh "
+                    "is implied)")
     ap.add_argument("config", nargs="?", default=None,
                     help="scene config yaml")
     ap.add_argument("--input_folder", type=str, default=None,
@@ -38,7 +43,11 @@ def main():
     ap.add_argument("--output", type=str, default=None,
                     help="overrides the output folder in the config")
     ap.add_argument("--imap", action="store_true",
-                    help="iMAP* mode: not in this slice of the port (refused)")
+                    help="iMAP* mode (one density MLP, no grids)")
+    ap.add_argument("--resume", type=str, default=None, metavar="CKPT",
+                    help="resume from a checkpoint .npz of either package, "
+                         "or from the latest one in an output directory "
+                         "(its ckpts/) or a ckpts directory")
     ap.add_argument("--synthetic", type=int, default=None, metavar="N",
                     help="run on the built-in synthetic scene with N frames")
     ap.add_argument("--frames", type=int, default=None,
@@ -55,10 +64,8 @@ def main():
 
     from nice_slam_torch.config import load_config
     from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.utils.checkpoint import latest_checkpoint
 
-    if args.imap:
-        raise SystemExit("iMAP* mode is not in this slice of the PyTorch "
-                         "port; use run.py")
     overrides = {}
     if args.synthetic is not None:
         if args.config is None:
@@ -75,8 +82,17 @@ def main():
     if args.output:
         overrides.setdefault("data", {})["output"] = args.output
 
-    cfg = load_config(args.config, overrides=overrides)
+    cfg = load_config(args.config, nice=not args.imap, overrides=overrides)
     eng = SlamEngine(cfg, device=args.device)
+    if args.resume:
+        ckpt = args.resume
+        if os.path.isdir(ckpt):
+            ckpt = (latest_checkpoint(os.path.join(ckpt, "ckpts"))
+                    or latest_checkpoint(ckpt))
+            if ckpt is None:
+                ap.error(f"no checkpoint under {args.resume}")
+        eng.resume(ckpt)
+        print(f"resumed from {ckpt} at frame {eng.frames_done}")
     t0 = time.perf_counter()
     eng.run(n_frames=args.frames, progress=True)
     wall = time.perf_counter() - t0

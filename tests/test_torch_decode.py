@@ -35,7 +35,7 @@ def weights():
                           jax_init_model(jax.random.PRNGKey(0),
                                          nice_model_spec()))
     ws_j = [np.asarray(w) for w in jfd.pack_nice_weights(params)]
-    ws_t = list(fd.pack_nice_weights(params_from_jax(params)))
+    ws_t = list(fd.pack_nice_weights(params_from_jax(params, device="cpu")))
     return params, ws_j, ws_t
 
 
@@ -132,9 +132,9 @@ def test_model_apply_matches_jax(stage):
                             fused=False)
     gg_j = jax.grad(f)(grids)
     gt = {k: v.clone().requires_grad_(True)
-          for k, v in params_from_jax(grids).items()}
-    out_t = model_apply(params_from_jax(params), ModelSpec(), gt,
-                        torch.tensor(bound), torch.tensor(p), stage)
+          for k, v in params_from_jax(grids, device="cpu").items()}
+    out_t = model_apply(params_from_jax(params, device="cpu"), ModelSpec(),
+                        gt, torch.tensor(bound), torch.tensor(p), stage)
     used = [k for k in gt if k in {"coarse": ["coarse"],
                                    "middle": ["middle"],
                                    "fine": ["middle", "fine"],
@@ -150,6 +150,6 @@ def test_model_apply_matches_jax(stage):
 def test_convert_roundtrip():
     params = jax.tree.map(np.asarray, jax_init_model(jax.random.PRNGKey(1),
                                                      nice_model_spec()))
-    back = params_to_numpy(params_from_jax(params))
+    back = params_to_numpy(params_from_jax(params, device="cpu"))
     for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(back)):
         np.testing.assert_array_equal(a, b)

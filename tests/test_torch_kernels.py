@@ -30,7 +30,8 @@ def n(x):
 
 @pytest.fixture(scope="module")
 def weights():
-    params = init_model(torch.Generator().manual_seed(0), ModelSpec())
+    params = init_model(torch.Generator().manual_seed(0), ModelSpec(),
+                        device="cpu")
     return list(fd.pack_nice_weights(params))
 
 

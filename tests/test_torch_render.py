@@ -70,11 +70,11 @@ def test_render_rays_matches_jax(scene, stage, with_depth):
     gg_j, go_j, gd_j = jax.grad(f, argnums=(0, 1, 2))(grids, o, d)
 
     gt_t = {k: v.clone().requires_grad_(True)
-            for k, v in params_from_jax(grids).items()}
+            for k, v in params_from_jax(grids, device="cpu").items()}
     o_t = torch.tensor(o, requires_grad=True)
     d_t = torch.tensor(d, requires_grad=True)
-    out_t = render_rays(params_from_jax(params), ModelSpec(), gt_t,
-                        torch.tensor(bound), o_t, d_t, rs_t, stage,
+    out_t = render_rays(params_from_jax(params, device="cpu"), ModelSpec(),
+                        gt_t, torch.tensor(bound), o_t, d_t, rs_t, stage,
                         gt_depth=None if gt is None else torch.tensor(gt))
     for a, b in zip(out_t, out_j):
         np.testing.assert_allclose(n(a), np.asarray(b), **TOL)
@@ -98,8 +98,9 @@ def test_eval_points_outside_bound(scene):
                  np.float32)
     out_j = jax_eval_points(params, nice_model_spec(), grids, bound, p,
                             "color")
-    out_t = eval_points(params_from_jax(params), ModelSpec(),
-                        params_from_jax(grids), torch.tensor(bound),
+    out_t = eval_points(params_from_jax(params, device="cpu"), ModelSpec(),
+                        params_from_jax(grids, device="cpu"),
+                        torch.tensor(bound),
                         torch.tensor(p), "color")
     np.testing.assert_allclose(n(out_t), np.asarray(out_j), **TOL)
     assert float(out_t[1, 3]) == 100.0 and float(out_t[2, 3]) == 100.0

@@ -77,7 +77,8 @@ def test_tracking_loss_and_camera_gradient(world):
         key, world["jcam"], tj, world["rj"], nice_model_spec())
     c = t(cam).requires_grad_(True)
     loss_t = tracking.tracking_loss(
-        c, params_from_jax(world["params"]), params_from_jax(world["grids"]),
+        c, params_from_jax(world["params"], device="cpu"),
+        params_from_jax(world["grids"], device="cpu"),
         t(world["bound"]), t(color), t(depth), world["tcam"], tt,
         world["rt"], ModelSpec(), pix=(t(i), t(j)))
     (g_t,) = torch.autograd.grad(loss_t, c)
@@ -95,7 +96,7 @@ def test_masked_median_lower_middle():
 
 def _stores(world, n_kf=4, capacity=6):
     js = jkf.make_store(capacity, CAM["H"], CAM["W"])
-    ts = keyframes.make_store(capacity, CAM["H"], CAM["W"])
+    ts = keyframes.make_store(capacity, CAM["H"], CAM["W"], device="cpu")
     for f in range(n_kf):
         _, color, depth, pose = world["frames"][f]
         js = jkf.add_keyframe(js, jnp.asarray(color), jnp.asarray(depth),
@@ -144,7 +145,8 @@ def test_prepare_mapping_matches_jax(world):
         key, js, jnp.asarray(color), jnp.asarray(depth), jnp.asarray(pose),
         world["grids"], world["bound"], world["jcam"], mj, True)
     win_t, masks_t, cams_t, lr_t = mapping.prepare_mapping(
-        ts, t(color), t(depth), t(pose), params_from_jax(world["grids"]),
+        ts, t(color), t(depth), t(pose),
+        params_from_jax(world["grids"], device="cpu"),
         t(world["bound"]), world["tcam"], mapping.MapSpec(window_size=5),
         True, sel_draws={"pix": (t(i), t(j)), "scores_u": t(u)})
     valid = np.asarray(win_j["valid"])
@@ -191,8 +193,8 @@ def test_mapping_loss_and_adam_step(world, stage):
     mt = mapping.MapSpec(pixels=120, coarse_mapper=stage == "coarse")
     pix = 120 // 3
     cam_lr = np.array([0.0, 1.0, 1.0], np.float32)
-    params_t = params_from_jax(world["params"])
-    grids_t = params_from_jax(world["grids"])
+    params_t = params_from_jax(world["params"], device="cpu")
+    grids_t = params_from_jax(world["grids"], device="cpu")
     tree_t = {"params": params_t, "grids": grids_t, "cams": t(cams)}
     _, frozen = mapping._lr_tree(tree_t, stage, mt, 1.0, t(cam_lr))
 
@@ -233,7 +235,7 @@ def test_mapping_loss_and_adam_step(world, stage):
         nice_model_spec(), ba=True)
     pt, gt_, ct, _ = mapping.map_optimize(
         params_t, grids_t, t(world["bound"]), wt, t(cams),
-        params_from_jax(masks_j), t(cam_lr), 1.0, world["tcam"],
+        params_from_jax(masks_j, device="cpu"), t(cam_lr), 1.0, world["tcam"],
         ((stage, 1),), mt, world["rt"], ModelSpec(), ba=True,
         pixels=[draws])
     before = tree_leaves({"params": params_t, "grids": grids_t,

@@ -33,9 +33,10 @@ def engines(tmp_path_factory):
     np.testing.assert_allclose(eng_t.bound.numpy(),
                                np.asarray(eng_j.map_state.bound))
     eng_t.map_state.params = params_from_jax(
-        jax.tree.map(np.asarray, eng_j.map_state.params))
+        jax.tree.map(np.asarray, eng_j.map_state.params), device="cpu")
     eng_t.map_state.grids = params_from_jax(
-        {k: np.asarray(v) for k, v in eng_j.map_state.grids.items()})
+        {k: np.asarray(v) for k, v in eng_j.map_state.grids.items()},
+        device="cpu")
     eng_j.run()
     eng_t.run()
     return eng_j, eng_t
