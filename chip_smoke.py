@@ -65,9 +65,28 @@
    iters as 3 passes of 20, iters_first 500).  Fails unless K1 and K2 never
    launch (iMAP* decodes in plain fp32 torch.matmul) and the ATE is finite
    and under 0.5 m.
-Phases 6-9 each run in a device memory freed of the earlier phases'
-engines and print their wall time, frames/s, ATE, peak device memory and
-launch counts.
+10. Mesh (run right after phase 3, on its trained engine):
+   utils/mesher.engine_mesher_hook at the config's meshing.resolution
+   (256): the occupancy of 256^3 points in chunks of 65,536 through K1
+   (fine stage), the seen mask, the host marching tetrahedra (C++, built
+   with g++), the hull and component cleaning, the vertex colours through
+   K1 (colour stage) and the PLY file.  Fails unless mesh/final_mesh.ply
+   holds V > 0 vertices and T > 0 triangles in the padded mesh bound, K1
+   launched 256 times in the fine stage at 65,536 points and
+   ceil(V / 65,536) times in the colour stage, K2 never, and the colours
+   read back.  Prints the wall time of each part, the peak device memory,
+   V, T and K1's launches by kind; K1 is timed at the mesh's shapes as in
+   phase 5.
+11. Repeat: the strict path at full width for 6 frames (events 0 and 5)
+   twice in one process, from the same seed: the trajectories, the four
+   grids and the decoders must be bit-equal (the grid backward sums in a
+   fixed order).  Prints both ATEs and the grid backward's scatter
+   (ops/grid.scatter_rows: sort, segment sum) timed against the
+   index_add_ it replaced, at the mapping shape (48,000 points x 8
+   corners into the middle and fine grids).
+Phases 6-9 and 11 each run in a device memory freed of the earlier
+phases' engines and print their wall time, frames/s, ATE, peak device
+memory and launch counts.
 
 The last two lines are a JSON object of the kernels and the contract line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -201,6 +220,23 @@ def relu_margin(torch, fd, with_color, p, cm, cf, cc, ws):
     return torch.stack(mins).amin(0)
 
 
+def check_fwd(torch, fd, ws, n, with_color, inputs):
+    """K1 through its wrapper against the plain version on the same
+    inputs (p, c_mid, c_fine, c_color); returns the max abs error."""
+    p, cm, cf, cc = inputs
+    cc_in = cc if with_color else cm
+    with torch.no_grad():
+        out = fd.fused_nice_decode(with_color, False, p, cm, cf, cc_in, *ws)
+        torch.cuda.synchronize()
+        ref = fd.reference_nice_decode(with_color, p, cm, cf, cc_in, *ws)
+    e = float((out - ref).abs().max())
+    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+    fail_if(not math.isfinite(e) or e > tol,
+            f"K1 n={n} {'color' if with_color else 'fine'}: max abs err "
+            f"{e} > {tol}")
+    return e
+
+
 LIVE_SETS = (("none", 0), ("color", 4), ("all", 7))
 CHECK_N = (9600, 48000, 700)
 
@@ -217,18 +253,8 @@ def check_kernels(torch, fd, ws, dev, log):
                 train = live != 0
                 p, cm, cf, cc, go = make_inputs(torch, n, seed, dev)
                 cc_in = cc if with_color else cm
-                # forward through the wrapper (kernel) and the oracle
-                with torch.no_grad():
-                    out = fd.fused_nice_decode(with_color, train, p, cm, cf,
-                                               cc_in, *ws)
-                    torch.cuda.synchronize()
-                    ref = fd.reference_nice_decode(with_color, p, cm, cf,
-                                                   cc_in, *ws)
-                e = float((out - ref).abs().max())
-                tol = 1e-4 * max(1.0, float(ref.abs().max()))
-                fail_if(not math.isfinite(e) or e > tol,
-                        f"K1 n={n} {stage}: max abs err {e} > {tol}")
-                err_f = max(err_f, e)
+                err_f = max(err_f, check_fwd(torch, fd, ws, n, with_color,
+                                             (p, cm, cf, cc)))
 
                 # backward through the wrapper (kernel) and autograd of
                 # the oracle; decoder d's weights require a gradient when
@@ -600,6 +626,128 @@ def run_imap(torch, fd, log, n_frames=5):
 
 
 # ---------------------------------------------------------------------------
+# Phases 10-11: mesh, repeat
+
+def run_mesh(torch, fd, eng, log):
+    """engine_mesher_hook on the trained main-path engine; returns the
+    mesh phase's result dict."""
+    import numpy as np
+
+    from nice_slam_torch.utils.mesher import engine_mesher_hook
+    from nice_slam_torch.utils.plyio import read_ply
+
+    res_m = eng.cfg["meshing"]["resolution"]
+    chunk = 65536
+    before = dict(eng.timings)
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fd.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine_mesher_hook(eng, eng.n_img - 1, True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fd.launch_counts()
+    kinds = fd.fwd_launch_kinds()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    path = os.path.join(eng.output, "mesh", "final_mesh.ply")
+    fail_if(not os.path.exists(path), f"mesh: {path} not written")
+    verts, tris, colors = read_ply(path)
+    n_v, n_t = len(verts), len(tris)
+    parts = {k[5:]: eng.timings[k] - before.get(k, 0.0)
+             for k in eng.timings if k.startswith("mesh_")}
+    want = {f"fine n={chunk}": -(-res_m ** 3 // chunk)}
+    for lo in range(0, n_v, chunk):
+        key = f"color n={min(chunk, n_v - lo)}"
+        want[key] = want.get(key, 0) + 1
+    res = {"path": "mesh", "wall_s": wall, "parts_s": parts,
+           "peak_mib": peak, "vertices": n_v, "triangles": n_t,
+           "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
+           "k1_by_kind": kinds, "k1_schedule": want}
+    log("mesh: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(n_v == 0 or n_t == 0, f"mesh: V={n_v}, T={n_t}")
+    fail_if(kinds != want, f"mesh: K1 launches {kinds}, schedule {want}")
+    fail_if(res["k2"] != 0, f"mesh: K2 launched {res['k2']} times")
+    mc = np.asarray(eng.cfg["mapping"]["marching_cubes_bound"])
+    fail_if(not bool((verts >= mc[:, 0] - 0.05 - 1e-4).all()
+                     and (verts <= mc[:, 1] + 0.05 + 1e-4).all()),
+            "mesh: vertices outside the padded mesh bound")
+    fail_if(colors is None or colors.shape != (n_v, 3)
+            or int(tris.min()) < 0 or int(tris.max()) >= n_v,
+            "mesh: colours or triangle indices out of range")
+    return res
+
+
+def time_scatter(torch, log, grid_shape, n):
+    """The grid backward's scatter of 8 n corner rows into a grid of
+    grid_shape (C = 32 channels), at uniform random points: the fixed-order
+    scatter_rows against torch.zeros + index_add_ (atomics), which it
+    replaced; both allocate their output."""
+    from nice_slam_torch.ops.grid import _cell, _corner_rows, scatter_rows
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    p_nor = (torch.rand(n, 3, generator=g) * 2 - 1).to(dev)
+    shape = tuple(grid_shape) + (HID,)
+    i0, i1, _, _ = _cell(shape, p_nor)
+    rows = _corner_rows(shape, i0, i1).reshape(-1)
+    vals = torch.randn(8 * n, HID, generator=g).to(dev)
+    n_rows = shape[0] * shape[1] * shape[2]
+    with torch.no_grad():
+        a = scatter_rows(rows, vals, n_rows)
+        b = torch.zeros(n_rows, HID, device=dev).index_add_(0, rows, vals)
+        err = float((a - b).abs().max())
+        res = {"grid": list(grid_shape), "points": n,
+               "scatter_rows_ms": cuda_time_ms(
+                   torch, lambda: scatter_rows(rows, vals, n_rows)),
+               "index_add_ms": cuda_time_ms(
+                   torch, lambda: torch.zeros(n_rows, HID, device=dev)
+                   .index_add_(0, rows, vals)),
+               "max_abs_diff": err}
+    log("scatter: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(not err <= 1e-4, f"scatter: differs from index_add_ by {err}")
+    return res
+
+
+def run_repeat(torch, fd, log, n_frames=6):
+    """The strict path twice from the same seed: bit-equal states."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.ops.tree import tree_leaves
+
+    runs = []
+    for k in range(2):
+        cfg = load_config(SYN_CFG, overrides={
+            "synthetic": {"n_frames": n_frames},
+            "data": {"output": os.path.join(REPO, "output",
+                                            f"chip_smoke_repeat{k}")}})
+        eng = SlamEngine(cfg, device="cuda")
+        res = _drive(torch, fd, eng, log, f"repeat{k}", n_frames)
+        _check_lagged(cfg, res, n_frames, 0, 0, 0.25)
+        st = eng.map_state
+        runs.append((res, eng.est_c2w_dev.clone(),
+                     {k_: v.clone() for k_, v in st.grids.items()},
+                     [x.clone() for x in tree_leaves(st.params)]))
+        del eng, st
+    (r0, c0, g0, p0), (r1, c1, g1, p1) = runs
+    differ = ([] if torch.equal(c0, c1) else ["est_c2w"]) + [
+        f"grids/{k}" for k in g0 if not torch.equal(g0[k], g1[k])]
+    if len(p0) != len(p1) or not all(torch.equal(a, b)
+                                     for a, b in zip(p0, p1)):
+        differ.append("params")
+    log(f"repeat: ATE {r0['ate_rmse_m']!r} and {r1['ate_rmse_m']!r}; "
+        f"{len(g0)} grids; differ: {differ or 'none'}")
+    fail_if(len(g0) != 4, f"repeat: {len(g0)} grids, want 4")
+    fail_if(bool(differ), f"repeat: two runs differ at {differ}")
+    scatter = [time_scatter(torch, log, tuple(g0[name].shape[:3]), 48000)
+               for name in ("middle", "fine")]
+    del runs, c0, c1, g0, g1, p0, p1
+    return {"path": "repeat", "ate_rmse_m": [r0["ate_rmse_m"],
+                                             r1["ate_rmse_m"]],
+            "wall_s": [r0["wall_s"], r1["wall_s"]], "k1": r0["k1"],
+            "k2": r0["k2"], "scatter": scatter}
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: timing
 
 def cuda_time_ms(torch, fn, warmup=3, reps=9, inner=10):
@@ -733,11 +881,26 @@ def main() -> int:
     err_f, err_b = check_kernels(torch, fd, ws, dev, log)
 
     counts, fwd_kinds, kinds, eng = run_main_path(torch, fd, log)
+    mesh = run_mesh(torch, fd, eng, log)
+    # K1 at the mesh's shapes against the plain version
+    for kind in mesh["k1_by_kind"]:
+        stage, n = kind.split(" n=")
+        e = check_fwd(torch, fd, ws, int(n), stage == "color",
+                      make_inputs(torch, int(n), 77, dev)[:4])
+        log(f"kernel check K1 {kind} (mesh): ok (fwd err {e:.3g})")
+        err_f = max(err_f, e)
     profile_window(torch, eng, log)
 
-    # K1 at the main path's three shapes
-    fwd_shapes = [time_fwd(torch, fd, ws, dev, n, wc, log)
-                  for n, wc in ((48000, True), (48000, False), (9600, True))]
+    # K1 at the main path's three shapes, then at the mesh's
+    fwd_shapes = []
+    for path, launches in (
+            ("strict", {k: fwd_kinds[k] for k in (
+                "color n=48000", "fine n=48000", "color n=9600")}),
+            ("mesh", mesh["k1_by_kind"])):
+        for kind, count in launches.items():
+            stage, n = kind.split(" n=")
+            r = time_fwd(torch, fd, ws, dev, int(n), stage == "color", log)
+            fwd_shapes.append({**r, "path": path, "launches": count})
     k1 = fwd_shapes[0]
     # K2 at the main path's four shapes, then the shape of the timing
     # before its redesign (48,000 colour, all three decoders live)
@@ -753,7 +916,9 @@ def main() -> int:
     free, _ = run_lagged(torch, fd, log, "free", 12)
     resumed = run_resume(torch, fd, log, loose_cfg, 11)
     imap = run_imap(torch, fd, log)
-    by_path = {r["path"]: r for r in (loose, free, resumed, imap)}
+    repeat = run_repeat(torch, fd, log)
+    by_path = {r["path"]: r for r in (loose, free, resumed, imap, mesh,
+                                      repeat)}
 
     def paths(key):
         return {"strict": counts[key],
@@ -781,6 +946,7 @@ def main() -> int:
          "launches_by_kind": kinds,
          "launches_by_path": paths("fused_decode_bwd"), "shapes": shapes},
     ]
+    log(f"grid scatter: {json.dumps(repeat['scatter'])}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,12 +20,14 @@ local BA starts once more than four keyframes exist.  iMAP* mode
 has no colour refinement and no pretrained decoders.  Checkpoints
 (<output>/ckpts/{idx:05d}.npz, the JAX package's format) are written every
 ckpt_freq frames and at the last frame; `resume()` continues from one.
-The trajectory, the map and the keyframe store stay on the device.
+A `mesher_hook` (utils/mesher.engine_mesher_hook) runs after the
+checkpoint every mesh_freq frames and at the last frame.  The trajectory,
+the map and the keyframe store stay on the device.
 
-Not in this slice (the JAX package has them): meshing, the visualizer,
-the parallel modes, the Gauss-Newton pose polish and occupancy-guided
-sampling.  The constructor raises when a config asks for one of them.  The
-JAX package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
+Not in this slice (the JAX package has them): the visualizer, the
+parallel modes, the Gauss-Newton pose polish and occupancy-guided
+sampling.  The constructor raises when a config asks for one of them
+(`check_slice`).  The JAX package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
 barrier_every_groups, prefetch, fuse_track_map) are accepted and ignored.
 """
 
@@ -34,7 +36,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import replace
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -42,7 +44,6 @@ import torch
 from nice_slam_torch.config import SlamSpecs, specs_from_config
 from nice_slam_torch.keyframes import KeyframeStore, add_keyframe, make_store
 from nice_slam_torch.mapping import mapping_step, stage_iters_of
-from nice_slam_torch.models.decoders import check_supported
 from nice_slam_torch.ops.tree import tree_map
 from nice_slam_torch.state import make_map_state
 from nice_slam_torch.tracking import track_step
@@ -69,7 +70,12 @@ def check_slice(cfg: dict) -> None:
 
 class SlamEngine:
     def __init__(self, cfg: dict, dataset=None, output: Optional[str] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda",
+                 mesher_hook: Optional[Callable] = None):
+        """Raises for the options `check_slice` names; every model width
+        and embedding runs.  mesher_hook(engine, idx, final) runs after a
+        mapping event's checkpoint every mesh_freq frames and at the last
+        frame."""
         check_slice(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -81,7 +87,6 @@ class SlamEngine:
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.specs: SlamSpecs = specs_from_config(cfg)
-        check_supported(self.specs.model)
         self.dataset = dataset if dataset is not None else get_dataset(cfg)
         self.n_img = len(self.dataset)
         self.output = output or cfg["data"]["output"]
@@ -91,6 +96,8 @@ class SlamEngine:
         self.every_frame = m["every_frame"]
         self.keyframe_every = m["keyframe_every"]
         self.ckpt_freq = m["ckpt_freq"]
+        self.mesh_freq = m["mesh_freq"]
+        self.mesher_hook = mesher_hook
         self.iters = m["iters"]
         self.iters_first = m["iters_first"]
         self.lr_factor = m["lr_factor"]
@@ -295,6 +302,9 @@ class SlamEngine:
             t0 = time.perf_counter()
             self.save(os.path.join(self.output, "ckpts", f"{idx:05d}.npz"))
             self.timings["ckpt"] += time.perf_counter() - t0
+        if self.mesher_hook is not None and (
+                (idx % self.mesh_freq == 0 and idx > 0) or final):
+            self.mesher_hook(self, idx, final)
 
     # -- main loop ---------------------------------------------------------
 

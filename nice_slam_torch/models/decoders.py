@@ -10,9 +10,11 @@ dense layer is ``x @ w + b``.
   of the feature after block 2 (the coarse level).
 - `model_apply` stage dispatch (decoder.py:312-342): coarse/middle ->
   occupancy only; fine -> middle + fine occupancy; colour -> the colour
-  head's rgb with the occupancy of middle + fine.  The fine and colour
-  stages run through the fused decode (ops/fused_decode.py), which on the
-  card is the hand-written CUDA kernel pair.
+  head's rgb with the occupancy of middle + fine.  At the default widths
+  (`fused_route`) the fine and colour stages run through the fused decode
+  (ops/fused_decode.py), which on the card is the hand-written CUDA kernel
+  pair; other widths and embeddings run the same stages as plain
+  per-decoder MLPs, as the JAX package does outside its kernel.
 - iMAP* (src/conv_onet/config.py:28-32): one MLP `imap`, no grid feature,
   hidden 256, 4 blocks, no skips, rgb + density out, in plain fp32
   `torch.matmul` (no kernel: the TPU package decodes it outside Pallas).
@@ -79,19 +81,6 @@ class ModelSpec:
             specs["coarse"] = DecoderSpec(name="coarse", c_dim=self.c_dim,
                                           hidden=self.hidden, no_xyz=True)
         return specs
-
-
-def check_supported(spec: ModelSpec) -> None:
-    """In NICE mode the fused decode takes 32-wide features and hidden
-    layers and the Fourier embedding; iMAP* has no such constraint."""
-    if not spec.nice:
-        return
-    if (spec.c_dim, spec.hidden, spec.pos_embedding_method) != (
-            32, 32, "fourier"):
-        raise NotImplementedError(
-            "the fused decode kernel takes c_dim=32, hidden_size=32 and the "
-            f"fourier embedding; got c_dim={spec.c_dim}, "
-            f"hidden={spec.hidden}, embedding={spec.pos_embedding_method}")
 
 
 # ---------------------------------------------------------------------------
@@ -175,15 +164,12 @@ def _dense(x, layer):
     return x @ layer["w"] + layer["b"]
 
 
-def apply_mlp(params, spec: DecoderSpec, p: torch.Tensor, grids,
-              bound) -> torch.Tensor:
-    """Coordinate MLP with per-layer grid-feature injection (the middle
-    level; fine and colour run in the fused decode), or without a feature
-    (c_dim 0, the iMAP* decoder).
+def apply_mlp(params, spec: DecoderSpec, p: torch.Tensor,
+              c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Coordinate MLP with per-layer injection of the grid feature c
+    (N, spec.c_dim), or without a feature (c_dim 0, the iMAP* decoder).
 
     p: (N, 3) world coords.  Returns (N, 4) if colour else (N,)."""
-    if spec.c_dim != 0:
-        c = trilinear_interp(grids[spec.name], normalize_coords(p, bound))
     e = apply_embedding(params["embed"], p, spec.embed, spec.name)
     h = e
     for i in range(spec.n_blocks):
@@ -196,11 +182,9 @@ def apply_mlp(params, spec: DecoderSpec, p: torch.Tensor, grids,
     return out if spec.color else out[..., 0]
 
 
-def apply_mlp_no_xyz(params, spec: DecoderSpec, p: torch.Tensor, grids,
-                     bound) -> torch.Tensor:
-    """Feature-only MLP (coarse level); `bound` is the enlarged coarse
-    bound (reference NICE_SLAM.py:157)."""
-    c = trilinear_interp(grids[spec.name], normalize_coords(p, bound))
+def apply_mlp_no_xyz(params, spec: DecoderSpec,
+                     c: torch.Tensor) -> torch.Tensor:
+    """Feature-only MLP (the coarse level) of the feature c (N, c_dim)."""
     h = c
     for i in range(spec.n_blocks):
         h = torch.relu(_dense(h, params["pts"][i]))
@@ -210,20 +194,41 @@ def apply_mlp_no_xyz(params, spec: DecoderSpec, p: torch.Tensor, grids,
     return out if spec.color else out[..., 0]
 
 
-def _fused_apply(params, grids, bound, p, stage: str,
+def fused_route(spec: ModelSpec) -> bool:
+    """Whether the fine and colour stages run the fused decode: at the
+    widths its kernels take (c_dim 32, hidden 32, the Fourier embedding),
+    as the JAX package's `_use_fused` decides (nice_slam_tpu/models/
+    decoders.py:332-361).  Every other width or embedding runs the unfused
+    composition on every device.  A function of the spec alone."""
+    return spec.nice and (spec.c_dim, spec.hidden,
+                          spec.pos_embedding_method) == (32, 32, "fourier")
+
+
+def _fused_apply(params, p, c_mid, c_fine, c_color, with_color: bool,
                  train_decoders: bool) -> torch.Tensor:
-    """Fine/colour-stage decode: features gathered here, the two or three
-    MLPs and the occupancy sum in the fused decode."""
-    p_nor = normalize_coords(p, bound)
-    c_mid = trilinear_interp(grids["middle"], p_nor)
-    c_fine = trilinear_interp(grids["fine"], p_nor)
-    with_color = stage == "color"
+    """Fine/colour-stage decode: the two or three MLPs and the occupancy sum
+    in the fused decode (on the card its kernels)."""
     # the fine stage does not read c_color: pass c_mid in its place
-    c_color = (trilinear_interp(grids["color"], p_nor) if with_color
-               else c_mid)
     return fused_nice_decode(with_color, train_decoders, p.contiguous(),
-                             c_mid, c_fine, c_color,
+                             c_mid, c_fine,
+                             c_color if with_color else c_mid,
                              *pack_nice_weights(params))
+
+
+def _unfused_apply(params, dspecs, p, c_mid, c_fine, c_color,
+                   with_color: bool) -> torch.Tensor:
+    """The same stages as plain per-decoder MLPs (JAX model_apply_feats,
+    nice_slam_tpu/models/decoders.py:303-328): the fine decoder reads
+    [c_fine, stop_grad(c_mid)], occupancy = middle + fine, the colour head
+    gives the rgb."""
+    c_full = torch.cat([c_fine, c_mid.detach()], dim=-1)
+    occ = (apply_mlp(params["fine"], dspecs["fine"], p, c_full)
+           + apply_mlp(params["middle"], dspecs["middle"], p, c_mid))
+    if not with_color:
+        rgb = torch.zeros(p.shape[:-1] + (3,), dtype=p.dtype, device=p.device)
+    else:
+        rgb = apply_mlp(params["color"], dspecs["color"], p, c_color)[..., :3]
+    return torch.cat([rgb, occ[..., None]], dim=-1)
 
 
 def model_apply(params, spec: ModelSpec, grids, bound, p: torch.Tensor,
@@ -233,18 +238,27 @@ def model_apply(params, spec: ModelSpec, grids, bound, p: torch.Tensor,
 
     train_decoders=False tells the fused decode that no decoder weight
     gradient is wanted (frozen decoders)."""
-    check_supported(spec)
     dspecs = spec.decoder_specs()
     if not spec.nice:
-        return apply_mlp(params["imap"], dspecs["imap"], p, grids, bound)
+        return apply_mlp(params["imap"], dspecs["imap"], p)
     zeros3 = torch.zeros(p.shape[:-1] + (3,), dtype=p.dtype, device=p.device)
     if stage == "coarse":
-        occ = apply_mlp_no_xyz(params["coarse"], dspecs["coarse"], p, grids,
-                               bound * spec.coarse_bound_enlarge)
+        c = trilinear_interp(grids["coarse"], normalize_coords(
+            p, bound * spec.coarse_bound_enlarge))
+        occ = apply_mlp_no_xyz(params["coarse"], dspecs["coarse"], c)
         return torch.cat([zeros3, occ[..., None]], dim=-1)
+    p_nor = normalize_coords(p, bound)
+    c_mid = trilinear_interp(grids["middle"], p_nor)
     if stage == "middle":
-        occ = apply_mlp(params["middle"], dspecs["middle"], p, grids, bound)
+        occ = apply_mlp(params["middle"], dspecs["middle"], p, c_mid)
         return torch.cat([zeros3, occ[..., None]], dim=-1)
-    if stage in ("fine", "color"):
-        return _fused_apply(params, grids, bound, p, stage, train_decoders)
-    raise ValueError(f"unknown stage {stage}")
+    if stage not in ("fine", "color"):
+        raise ValueError(f"unknown stage {stage}")
+    with_color = stage == "color"
+    c_fine = trilinear_interp(grids["fine"], p_nor)
+    c_color = trilinear_interp(grids["color"], p_nor) if with_color else None
+    if fused_route(spec):
+        return _fused_apply(params, p, c_mid, c_fine, c_color, with_color,
+                            train_decoders)
+    return _unfused_apply(params, dspecs, p, c_mid, c_fine, c_color,
+                          with_color)

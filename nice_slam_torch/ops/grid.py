@@ -8,9 +8,10 @@ src/conv_onet/models/decoder.py:168-175).
 
 `trilinear_interp` is a `torch.autograd.Function`: the forward gathers the
 8 corner rows, the backward scatters the 8 weighted cotangent rows into
-the grid with `index_add_` and takes the gradient with respect to the
+the grid (`scatter_rows`) and takes the gradient with respect to the
 points from the fp32 corners.  On the H100 both run as PyTorch's own
-gather/scatter; the JAX package also leaves them to XLA (no Pallas).
+gather/sort/segment sum; the JAX package also leaves them to XLA (no
+Pallas).
 """
 
 from __future__ import annotations
@@ -66,6 +67,34 @@ def _corner_rows(grid_shape, i0, i1):
                         for a in (0, 1) for b in (0, 1) for c in (0, 1)])
 
 
+def scatter_rows(rows: torch.Tensor, vals: torch.Tensor, n_rows: int,
+                 block: int = 64) -> torch.Tensor:
+    """(n_rows, C) sums of the rows of vals (M, C) by their target row
+    (M,), in a fixed order, so the result repeats bit for bit on every
+    device (`index_add_` sums with atomics on CUDA, in an order that
+    changes from run to run).  The targets are sorted stably; each row's
+    run is summed in pieces of at most `block` entries in their original
+    order, then the pieces in order.  Rows near the surface take thousands
+    of entries, and one sequential sum over a whole run made the segment
+    sum the slowest kernel of the mapping step."""
+    m = rows.shape[0]
+    dev = rows.device
+    sorted_rows, perm = torch.sort(rows, stable=True)
+    starts = torch.searchsorted(sorted_rows,
+                                torch.arange(n_rows + 1, device=dev))
+    # piece boundaries: every row start and every block-th entry
+    bounds, _ = torch.sort(torch.cat(
+        [starts[:-1], torch.arange(0, m, block, device=dev)]))
+    pieces = torch.segment_reduce(
+        vals[perm], "sum", offsets=torch.cat([bounds, starts[-1:]]), axis=0)
+    # row r's pieces start at the first bound equal to its start (empty
+    # pieces between equal bounds add zero wherever they fall)
+    first = torch.searchsorted(bounds, starts[:-1])
+    n_pieces = torch.full((1,), bounds.shape[0], device=dev)
+    return torch.segment_reduce(pieces, "sum",
+                                offsets=torch.cat([first, n_pieces]), axis=0)
+
+
 class _TrilinearInterp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, grid: torch.Tensor, p_nor: torch.Tensor):
@@ -98,10 +127,8 @@ class _TrilinearInterp(torch.autograd.Function):
             vals = torch.stack([g * (wx[a] * wy[b] * wz[cc])
                                 for a in (0, 1) for b in (0, 1)
                                 for cc in (0, 1)])
-            d_flat = torch.zeros(nx * ny * nz, C, dtype=g.dtype,
-                                 device=g.device)
-            d_flat.index_add_(0, rows.reshape(-1), vals.reshape(-1, C))
-            d_grid = d_flat.reshape(nx, ny, nz, C)
+            d_grid = scatter_rows(rows.reshape(-1), vals.reshape(-1, C),
+                                  nx * ny * nz).reshape(nx, ny, nz, C)
         if ctx.needs_input_grad[1]:
             flat = grid.reshape(nx * ny * nz, C)
             c = flat[rows.reshape(-1)].reshape(8, -1, C)

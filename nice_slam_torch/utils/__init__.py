@@ -1,1 +1,2 @@
-"""Host-side helpers (numpy): datasets, the synthetic scene, ATE."""
+"""Host-side helpers: datasets, the synthetic scene, ATE, checkpoints,
+PLY files and the mesher."""

@@ -8,14 +8,17 @@ Usage:
     python run_torch.py <config> --imap          # iMAP* mode
     python run_torch.py <config> --resume <output>/ckpts/00050.npz
     python run_torch.py <config> --resume <output>   # its latest checkpoint
+    python run_torch.py <config> --no-mesh       # write no mesh
 
 The port runs NICE-SLAM and iMAP* under strict, loose and free sync on one
-GPU, with the fused decode as CUDA kernels, and writes checkpoints
+GPU, with the fused decode as CUDA kernels, writes checkpoints
 (<output>/ckpts/{idx:05d}.npz, the JAX package's format: either package
-resumes the other's).  Not yet in the port: meshing (--no-mesh is implied:
-no mesh is written), the visualizer, the parallel modes, the Gauss-Newton
-pose polish and occupancy-guided sampling; a config that asks for one of
-them is refused.
+resumes the other's) and meshes (<output>/mesh/{idx:05d}_mesh.ply every
+mapping.mesh_freq frames and final_mesh.ply at the last frame; the
+marching tetrahedra are host C++, built with g++ at first use).  Not yet
+in the port: the visualizer, the parallel modes, the Gauss-Newton pose
+polish and occupancy-guided sampling; a config that asks for one of them
+is refused.
 
 Prints a JSON summary (ate_rmse_m, ate_mean_m, frames, timings_s, ...)
 and writes <output>/ate.json and the estimated trajectory
@@ -33,9 +36,8 @@ import time
 def main():
     ap = argparse.ArgumentParser(
         description="nice-slam PyTorch port runner (NICE-SLAM and iMAP*, "
-                    "strict/loose/free sync, checkpoint and resume; not "
-                    "yet: meshing, visualizer, parallel modes; --no-mesh "
-                    "is implied)")
+                    "strict/loose/free sync, checkpoint and resume, "
+                    "meshing; not yet: visualizer, parallel modes)")
     ap.add_argument("config", nargs="?", default=None,
                     help="scene config yaml")
     ap.add_argument("--input_folder", type=str, default=None,
@@ -58,8 +60,7 @@ def main():
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     ap.add_argument("--no-mesh", action="store_true",
-                    help="accepted for run.py compatibility; the port does "
-                         "not mesh yet")
+                    help="skip mesh extraction")
     args = ap.parse_args()
 
     from nice_slam_torch.config import load_config
@@ -83,7 +84,11 @@ def main():
         overrides.setdefault("data", {})["output"] = args.output
 
     cfg = load_config(args.config, nice=not args.imap, overrides=overrides)
-    eng = SlamEngine(cfg, device=args.device)
+    mesher_hook = None
+    if not args.no_mesh:
+        from nice_slam_torch.utils.mesher import engine_mesher_hook
+        mesher_hook = engine_mesher_hook
+    eng = SlamEngine(cfg, device=args.device, mesher_hook=mesher_hook)
     if args.resume:
         ckpt = args.resume
         if os.path.isdir(ckpt):

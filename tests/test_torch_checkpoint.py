@@ -186,7 +186,8 @@ def test_same_keys_dtypes_shapes(tmp_path, nice):
 def test_run_torch_resume_and_imap(tmp_path):
     """run_torch.py on the CPU: a 3-frame run writes ckpts/00002.npz
     (ckpt_freq 2), --resume <output> continues from it to the 4th frame,
-    and --imap runs iMAP* mode."""
+    the last, and writes its final mesh (meshing is on by default; a
+    16^3 volume here), and --imap runs iMAP* mode."""
     import json
     import os
     import subprocess
@@ -209,6 +210,7 @@ def test_run_torch_resume_and_imap(tmp_path):
             "mapping": {"iters_first": 6, "iters": 3, "pixels": 60,
                         "ckpt_freq": 2},
             "rendering": {"N_samples": 8, "N_surface": 4},
+            "meshing": {"resolution": 16},
             "data": {"output": out}}, f)
 
     def run(*args):
@@ -225,4 +227,5 @@ def test_run_torch_resume_and_imap(tmp_path):
     # an output directory resumes from its latest checkpoint
     assert run("--resume", out)["frames"] == 4
     assert os.path.exists(os.path.join(out, "ckpts", "00003.npz"))
+    assert os.path.exists(os.path.join(out, "mesh", "final_mesh.ply"))
     assert run("--imap", "--frames", "2")["frames"] == 2

@@ -54,7 +54,8 @@ def test_specs_from_synthetic_config():
 def test_port_imports_without_jax():
     """Every module of nice_slam_torch (and run_torch.py, chip_smoke.py)
     imports with jax and nice_slam_tpu poisoned in sys.modules, among them
-    the checkpoint and iMAP* modules; an iMAP* and a loose engine then
+    the checkpoint, iMAP* and mesher modules (the host library is not
+    built at import); an iMAP* and a loose engine then
     build, save a checkpoint and resume from it on the CPU the same way."""
     code = textwrap.dedent("""
         import importlib, os, pkgutil, sys, tempfile
@@ -65,7 +66,8 @@ def test_port_imports_without_jax():
                                        "nice_slam_torch."):
             importlib.import_module(m.name)
         for name in ("utils.checkpoint", "models.embedding", "ops.sampling",
-                     "ops.composite", "render", "mapping", "engine"):
+                     "ops.composite", "render", "mapping", "engine",
+                     "native", "utils.plyio", "utils.mesher"):
             assert "nice_slam_torch." + name in sys.modules, name
         import runpy
         runpy.run_path("run_torch.py", run_name="not_main")
@@ -96,8 +98,9 @@ def test_port_imports_without_jax():
 def test_unsupported_options_raise():
     """Occupancy-guided sampling, the Gauss-Newton polish and the parallel
     modes are refused; loose/free sync (the Demo config's loose among
-    them), iMAP*, N_importance, density compositing and gt_camera are
-    accepted."""
+    them), iMAP*, N_importance, density compositing, gt_camera and NICE
+    widths and embeddings the fused decode does not take are accepted, by
+    check_slice and by the engine's constructor."""
     from nice_slam_torch.engine import check_slice
 
     for ov in ({"rendering": {"occupancy_guided": True}},
@@ -108,8 +111,17 @@ def test_unsupported_options_raise():
             check_slice(load_config(overrides=ov))
     for ov in ({"sync_method": "loose"}, {"sync_method": "free"},
                {"rendering": {"N_importance": 4}}, {"occupancy": False},
-               {"tracking": {"gt_camera": True}}):
+               {"tracking": {"gt_camera": True}},
+               {"model": {"c_dim": 16, "hidden_size": 64}},
+               {"model": {"pos_embedding_method": "nerf"}}):
         check_slice(load_config(overrides=ov))
+    from nice_slam_torch.engine import SlamEngine
+
+    tiny = {"synthetic": {"n_frames": 2}, "dataset": "synthetic",
+            "cam": {"H": 12, "W": 16, "fx": 12.0, "fy": 12.0, "cx": 7.5,
+                    "cy": 5.5, "crop_edge": 0},
+            "model": {"c_dim": 16, "hidden_size": 64}}
+    SlamEngine(load_config(overrides=tiny), device="cpu")
     check_slice(load_config(nice=False))
     check_slice(load_config(os.path.join(REPO, "configs", "Demo",
                                          "demo.yaml")))

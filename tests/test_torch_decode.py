@@ -19,7 +19,11 @@ from nice_slam_tpu.ops.pallas import fused_decode as jfd  # noqa: E402
 from nice_slam_tpu.state import make_map_state as jax_make_map_state  # noqa: E402
 
 from nice_slam_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
-from nice_slam_torch.models.decoders import ModelSpec, model_apply  # noqa: E402
+from nice_slam_torch.models.decoders import (  # noqa: E402
+    ModelSpec,
+    fused_route,
+    model_apply,
+)
 from nice_slam_torch.ops import fused_decode as fd  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -147,9 +151,89 @@ def test_model_apply_matches_jax(stage):
         np.testing.assert_allclose(n(a), np.asarray(gg_j[k]), **TOL)
 
 
+@pytest.mark.parametrize("stage", ["fine", "color"])
+@pytest.mark.parametrize("width", [(16, 64, "fourier"), (32, 32, "nerf")],
+                         ids=["c16_h64_fourier", "c32_h32_nerf"])
+def test_model_apply_other_widths_match_jax(width, stage):
+    """At widths or embeddings the fused decode does not take, model_apply
+    runs the unfused composition (on every device; here the CPU): its
+    output and its gradients with respect to the points, every grid and
+    every decoder weight against JAX model_apply on the same weights and
+    grids.  atol 1e-5 (rtol 1e-5 where weight gradients reach O(1))."""
+    c_dim, hidden, emb = width
+    spec_j = nice_model_spec(c_dim=c_dim, hidden=hidden,
+                             pos_embedding_method=emb)
+    spec = ModelSpec(c_dim=c_dim, hidden=hidden, pos_embedding_method=emb)
+    assert not fused_route(spec) and fused_route(ModelSpec())
+    st = jax_make_map_state(jax.random.PRNGKey(6), spec_j,
+                            [[-1.0, 2.0], [-1.0, 1.5], [-0.5, 2.0]],
+                            {"coarse": 1.0, "middle": 0.32, "fine": 0.16,
+                             "color": 0.16}, 0.32)
+    params = jax.tree.map(np.asarray, st.params)
+    grids = {k: np.asarray(v) for k, v in st.grids.items()}
+    bound = np.asarray(st.bound)
+    rng = np.random.RandomState(7)
+    p = rng.uniform(bound[:, 0], bound[:, 1], (96, 3)).astype(np.float32)
+    w = rng.randn(96, 4).astype(np.float32)
+
+    def f(params_, grids_, p_):
+        return jnp.sum(jax_model_apply(params_, spec_j, grids_, bound, p_,
+                                       stage, fused=False) * w)
+
+    out_j = jax_model_apply(params, spec_j, grids, bound, p, stage,
+                            fused=False)
+    gp_j, gg_j, gpt_j = jax.grad(f, argnums=(0, 1, 2))(params, grids, p)
+    pt = jax.tree.map(lambda a: torch.tensor(a, requires_grad=True), params)
+    gt = {k: torch.tensor(v, requires_grad=True) for k, v in grids.items()}
+    ptt = torch.tensor(p, requires_grad=True)
+    out_t = model_apply(pt, spec, gt, torch.tensor(bound), ptt, stage)
+    leaves_j = jax.tree.leaves(gp_j)
+    leaves_t = jax.tree.leaves(pt)
+    used = ["middle", "fine"] + (["color"] if stage == "color" else [])
+    got = torch.autograd.grad((out_t * torch.tensor(w)).sum(),
+                              leaves_t + [gt[k] for k in used] + [ptt],
+                              allow_unused=True)
+    tol = dict(atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(n(out_t), np.asarray(out_j), **tol)
+    for a, b in zip(got[:len(leaves_t)], leaves_j):
+        a = np.zeros_like(b) if a is None else n(a)
+        np.testing.assert_allclose(a, np.asarray(b), **tol)
+    for k, a in zip(used, got[len(leaves_t):-1]):
+        np.testing.assert_allclose(n(a), np.asarray(gg_j[k]), **tol)
+    np.testing.assert_allclose(n(got[-1]), np.asarray(gpt_j), **tol)
+
+
 def test_convert_roundtrip():
     params = jax.tree.map(np.asarray, jax_init_model(jax.random.PRNGKey(1),
                                                      nice_model_spec()))
     back = params_to_numpy(params_from_jax(params, device="cpu"))
     for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(back)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_engine_runs_at_other_width(tmp_path):
+    """A 5-frame NICE run of the port's engine on the CPU at c_dim 16,
+    hidden 64 (the decoders keep their random init: the repository's
+    pretrained weights are width 32), without the coarse level, whose
+    feature-only MLP takes c_dim == hidden in both packages as in the
+    reference: every pose finite, ATE finite."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+
+    cfg = load_config(overrides={
+        "dataset": "synthetic", "synthetic": {"n_frames": 5},
+        "model": {"c_dim": 16, "hidden_size": 64}, "coarse": False,
+        "cam": {"H": 30, "W": 40, "fx": 30.0, "fy": 30.0, "cx": 19.5,
+                "cy": 14.5, "crop_edge": 0},
+        "mapping": {"bound": [[-0.5, 4.5], [-0.5, 3.5], [-0.5, 4.5]],
+                    "every_frame": 2, "iters_first": 20, "iters": 6,
+                    "pixels": 120, "keyframe_every": 2},
+        "tracking": {"iters": 4, "pixels": 60, "ignore_edge_W": 2,
+                     "ignore_edge_H": 2},
+        "rendering": {"N_samples": 8, "N_surface": 4}})
+    eng = SlamEngine(cfg, output=str(tmp_path), device="cpu")
+    assert eng.map_state.grids["fine"].shape[-1] == 16
+    eng.run()
+    assert eng.frames_done == 5
+    assert np.isfinite(eng.est_c2w).all()
+    assert np.isfinite(eng.ate()["rmse"])

@@ -519,3 +519,26 @@ def test_engine_main_path_on_cuda(cuda_device):
     assert counts["fused_decode_fwd"] > 0 and counts["fused_decode_bwd"] > 0
     assert np.isfinite(eng.est_c2w).all()
     assert eng.ate()["rmse"] < 0.25
+
+
+@pytest.mark.cuda
+def test_grid_backward_repeats_on_cuda(cuda_device):
+    """The grid backward's fixed-order scatter on the card, at the mapping
+    shape (48,000 points x 8 corners into a fine grid of the synthetic
+    scene's size): 20 runs give bit-equal grid gradients."""
+    from nice_slam_torch.ops.grid import trilinear_interp
+
+    gen = torch.Generator().manual_seed(3)
+    grid = (torch.randn(32, 26, 32, 32, generator=gen) * 0.01).to(
+        cuda_device)
+    p = (torch.rand(48000, 3, generator=gen) * 2.0 - 1.0).to(cuda_device)
+    cot = torch.randn(48000, 32, generator=gen).to(cuda_device)
+
+    def run():
+        g = grid.clone().requires_grad_(True)
+        return torch.autograd.grad((trilinear_interp(g, p) * cot).sum(),
+                                   g)[0]
+
+    first = run()
+    for _ in range(19):
+        assert torch.equal(run(), first)
