@@ -21,6 +21,10 @@
    with the cotangent of the points that have a pre-activation within
    1e-4 of zero set to zero in both runs (one flipped ReLU moves a whole
    sum).  The reported max_abs_err of K2 is over the other points.
+   Then the new paths' shapes: K1 at the occupancy proxy's node count
+   (fine, the refresh), K1 and K2 at 4,096 fine with the middle and fine
+   decoders live (pretraining) and at 96,000 colour without weight
+   gradients (the colour refinement's Gauss-Newton).
    Also prints K1's and each K2 variant's registers, spill bytes and
    resident blocks per SM (CUDA runtime).
 3. Main path: SlamEngine on configs/Synthetic/synthetic.yaml at its full
@@ -30,10 +34,13 @@
    and its colour refinement runs).  Decoders come from the repository's
    pretrained/decoders_tpu.npz as the config says; the grids are random
    from the config's seed.  Fails unless the kernel launch counts match
-   the schedule (K1 also by kind: stage and points) and the ATE is finite
-   and under 0.25 m.
-4. Profile: torch.profiler over one more tracked frame and mapping event
-   of the trained engine gives the device busy share and the top kernels.
+   the schedule (K1 also by kind: stage and points), the ATE is finite
+   and under 0.25 m and stats() holds one record of finite tracking
+   losses per tracked frame.
+4. Profile: utils/profiling.torch_trace (torch.profiler, Chrome trace
+   written to output/chip_smoke_profile/trace.json) over one more tracked
+   frame and mapping event of the trained engine gives the device busy
+   share and the top kernels.
 5. Timing phase: K1 at the main path's three shapes (48,000 colour,
    48,000 fine, 9,600 colour); K2 at the main path's four shapes (48,000
    colour with the colour decoder live; 48,000 colour, 48,000 fine and
@@ -45,7 +52,8 @@
    cores' 67 TFLOP/s) and the design's own (products of width 32 on the
    tensor cores at 495/3 TFLOP/s for 3xTF32, the rest at 67 TFLOP/s);
    each bound is the larger of operations and bytes.  There is no single PyTorch call that
-   computes the fused decode, so library_ms is null.
+   computes the fused decode, so library_ms is null.  After phase 14,
+   the same for the new paths' shapes (phase 2's last list).
 6. Loose: the main path's config with sync_method loose (lag 2), 11
    frames and mapping.ckpt_freq 5: events 0, then 5 (fired after tracking
    frame 7), then the final event 10.  Fails unless each event fires at
@@ -84,7 +92,37 @@
    (ops/grid.scatter_rows: sort, segment sum) timed against the
    index_add_ it replaced, at the mapping shape (48,000 points x 8
    corners into the middle and fine grids).
-Phases 6-9 and 11 each run in a device memory freed of the earlier
+12. Gauss-Newton with local BA: strict, 13 frames, mapping.every_frame
+   and keyframe_every 2, tracking.pose_GN_iters 2 (1,000 rays) and
+   mapping.pose_GN_iters 2 (200 rays per window frame).  Local BA runs
+   once more than four keyframes exist: at event 10 and in the five
+   passes of the colour refinement at 12.  Fails unless BA ran at those
+   events, the launches equal the schedule (each GN iteration adds K1 x2,
+   K2 x1: the Jacobian's forward and backward and the candidate's SSE),
+   the ATE is finite and under 0.25 m, and at the first tracked frame H
+   and b through the kernels match the plain route's (reverse mode
+   through reference_nice_decode) on the card: relative Frobenius error
+   <= 1e-3 over the rays whose Jacobian rows agree, at most
+   max(2, rays / 1000) rows differing by a ReLU flip.  Prints the share of
+   GN steps the guard accepted and GN's share of track and map time.
+13. Occupancy-guided: strict, 11 frames, rendering.occupancy_guided.
+   Fails unless the proxy is refreshed after each NICE mapping pass (7:
+   events 0 and 5 and the refinement's five passes; min < 0.5 after the
+   first), K1 launches once at the proxy's node count (fine) per refresh,
+   the ATE is finite and under 0.3 m (the JAX package's bound for this
+   mode; the strict ATE of phase 3 printed beside it), and the grids,
+   occ_proxy among them, are bit-equal after a save and a load into a
+   fresh engine.
+14. Pretraining: pretrain_decoders_synthetic on the card, 100 steps of
+   4,096 points: fails unless K1 and K2 launch once per step (fine stage,
+   weight gradients), only the middle and fine decoders change and the
+   last loss is below the first.  Then nice_slam_torch/tools/
+   pretrain_decoders.py for 3 scenes x 80 steps at 8,192 points into
+   output/chip_smoke_pretrain/decoders.npz; a fresh strict engine must
+   read that file's arrays exactly, and a reference-format coarse.pt /
+   middle_fine.pt pair built from them must load onto the card equal.
+   Prints ms per step.
+Phases 6-9 and 11-14 each run in a device memory freed of the earlier
 phases' engines and print their wall time, frames/s, ATE, peak device
 memory and launch counts.
 
@@ -241,99 +279,109 @@ LIVE_SETS = (("none", 0), ("color", 4), ("all", 7))
 CHECK_N = (9600, 48000, 700)
 
 
-def check_kernels(torch, fd, ws, dev, log):
-    """Returns (max abs err of K1, max abs err of K2)."""
+def check_case(torch, fd, ws, dev, log, n, with_color, live_name, live,
+               seed, bwd=True):
+    """K1 (and with bwd K2) on one shape and live set against the plain
+    version; returns (max abs err of K1, of K2 on the steady points)."""
+    stage = "color" if with_color else "fine"
+    train = live != 0
+    p, cm, cf, cc, go = make_inputs(torch, n, seed, dev)
+    cc_in = cc if with_color else cm
+    err_f = check_fwd(torch, fd, ws, n, with_color, (p, cm, cf, cc))
+    err_b = 0.0
+    if not bwd:
+        log(f"kernel check n={n} stage={stage}: ok (fwd err {err_f:.3g})")
+        return err_f, err_b
+
+    # backward through the wrapper (kernel) and autograd of the oracle;
+    # decoder d's weights require a gradient when bit d of `live` is set
+    def grads(fn, cot):
+        xs = [t.clone().requires_grad_(True) for t in (p, cm, cf, cc_in)]
+        wr = [w.clone().requires_grad_(
+            bool(live >> (k // fd.N_PER_DEC) & 1))
+            for k, w in enumerate(ws)]
+        o = fn(with_color, xs[0], xs[1], xs[2], xs[3], wr)
+        want = xs + [w for w in wr if w.requires_grad]
+        got = list(torch.autograd.grad((o * cot).sum(), want,
+                                       allow_unused=True))
+        return got[:4] + [got.pop(4) if w.requires_grad else None
+                          for w in wr]
+
+    def kern(c, a, b, d, e_, w):
+        return fd.fused_nice_decode(c, train, a, b, d, e_, *w)
+
+    def plain(c, a, b, d, e_, w):
+        return fd.reference_nice_decode(c, a, b, d, e_, *w)
+
+    with torch.no_grad():
+        # points with every ReLU pre-activation >= 1e-4 from 0
+        steady = relu_margin(torch, fd, with_color, p, cm, cf, cc,
+                             ws) >= 1e-4
+    gk = grads(kern, go)
+    torch.cuda.synchronize()
+    gr = grads(plain, go)
+    names = ["dp", "dc_mid", "dc_fine"] + (["dc_color"] if with_color
+                                           else [])
+    for k, name in enumerate(names):
+        a, b = gk[k], gr[k]
+        err_b = max(err_b, float((a - b)[steady].abs().max()))
+        bad = ~torch.isclose(a, b, rtol=1e-3, atol=1e-4)
+        rows = bad.any(dim=1).nonzero().flatten()
+        if rows.numel() == 0:
+            continue
+        unexplained = int(steady[rows].sum())
+        fail_if(unexplained > 0 or rows.numel() > max(2, n // 1000),
+                f"K2 n={n} {stage} live={live_name}: {name} misses at "
+                f"{rows.numel()} points ({unexplained} without a ReLU near "
+                f"zero), max abs err {float((a - b).abs().max())}")
+        log(f"  K2 n={n} {stage} {name}: {rows.numel()} points differ by "
+            "a ReLU flip (pre-activation < 1e-4)")
+    for k in range(len(ws)):
+        if not live >> (k // fd.N_PER_DEC) & 1:
+            fail_if(gk[4 + k] is not None,
+                    f"K2 n={n} {stage} live={live_name}: frozen weight {k} "
+                    "got a gradient")
+    if train:
+        # weight gradients sum over all points, so a flipped ReLU moves
+        # whole sums: compare them on the points whose pre-activations all
+        # lie >= 1e-4 from zero (the others' cotangent zeroed in both runs)
+        go_s = go * steady[:, None]
+        gk = grads(kern, go_s)
+        torch.cuda.synchronize()
+        gr = grads(plain, go_s)
+        for k in range(len(ws)):
+            if not live >> (k // fd.N_PER_DEC) & 1:
+                continue
+            a, b = gk[4 + k], gr[4 + k]
+            b = torch.zeros_like(ws[k]) if b is None else b
+            a = torch.zeros_like(ws[k]) if a is None else a
+            nb, na = float(b.norm()), float(a.norm())
+            if nb == 0.0:
+                fail_if(na != 0.0, f"K2 n={n} {stage}: weight grad {k} "
+                        f"should be 0, norm {na}")
+                continue
+            cos = float((a * b).sum()) / max(na * nb, 1e-30)
+            fail_if(cos <= 0.9999 or abs(na / nb - 1) > 1e-3,
+                    f"K2 n={n} {stage} live={live_name}: weight grad {k} "
+                    f"cosine {cos} norm ratio {na / nb}")
+    log(f"kernel check n={n} stage={stage} live={live_name}: ok "
+        f"(fwd err {err_f:.3g}, bwd err {err_b:.3g})")
+    return err_f, err_b
+
+
+def check_kernels(torch, fd, ws, dev, log, extra=()):
+    """Every shape of CHECK_N in both stages with every live set of
+    LIVE_SETS, then the `extra` cases (n, with_color, live name, live,
+    bwd).  Returns (max abs err of K1, max abs err of K2)."""
+    cases = [(n, stage == "color", live_name, live, True)
+             for n in CHECK_N for stage in ("fine", "color")
+             for live_name, live in LIVE_SETS] + list(extra)
     err_f = err_b = 0.0
-    seed = 0
-    for n in CHECK_N:
-        for stage in ("fine", "color"):
-            with_color = stage == "color"
-            for live_name, live in LIVE_SETS:
-                seed += 1
-                train = live != 0
-                p, cm, cf, cc, go = make_inputs(torch, n, seed, dev)
-                cc_in = cc if with_color else cm
-                err_f = max(err_f, check_fwd(torch, fd, ws, n, with_color,
-                                             (p, cm, cf, cc)))
-
-                # backward through the wrapper (kernel) and autograd of
-                # the oracle; decoder d's weights require a gradient when
-                # bit d of `live` is set
-                def grads(fn, cot):
-                    xs = [t.clone().requires_grad_(True)
-                          for t in (p, cm, cf, cc_in)]
-                    wr = [w.clone().requires_grad_(
-                        bool(live >> (k // fd.N_PER_DEC) & 1))
-                        for k, w in enumerate(ws)]
-                    o = fn(with_color, xs[0], xs[1], xs[2], xs[3], wr)
-                    want = xs + [w for w in wr if w.requires_grad]
-                    got = list(torch.autograd.grad((o * cot).sum(), want,
-                                                   allow_unused=True))
-                    return got[:4] + [got.pop(4) if w.requires_grad else None
-                                      for w in wr]
-
-                def kern(c, a, b, d, e_, w):
-                    return fd.fused_nice_decode(c, train, a, b, d, e_, *w)
-
-                def plain(c, a, b, d, e_, w):
-                    return fd.reference_nice_decode(c, a, b, d, e_, *w)
-
-                with torch.no_grad():
-                    # points with every ReLU pre-activation >= 1e-4 from 0
-                    steady = relu_margin(torch, fd, with_color, p, cm, cf,
-                                         cc, ws) >= 1e-4
-                gk = grads(kern, go)
-                torch.cuda.synchronize()
-                gr = grads(plain, go)
-                names = ["dp", "dc_mid", "dc_fine"] + (
-                    ["dc_color"] if with_color else [])
-                for k, name in enumerate(names):
-                    a, b = gk[k], gr[k]
-                    err_b = max(err_b, float((a - b)[steady].abs().max()))
-                    bad = ~torch.isclose(a, b, rtol=1e-3, atol=1e-4)
-                    rows = bad.any(dim=1).nonzero().flatten()
-                    if rows.numel() == 0:
-                        continue
-                    unexplained = int(steady[rows].sum())
-                    fail_if(unexplained > 0
-                            or rows.numel() > max(2, n // 1000),
-                            f"K2 n={n} {stage} live={live_name}: {name} "
-                            f"misses at {rows.numel()} points "
-                            f"({unexplained} without a ReLU near zero), max "
-                            f"abs err {float((a - b).abs().max())}")
-                    log(f"  K2 n={n} {stage} {name}: {rows.numel()} points "
-                        "differ by a ReLU flip (pre-activation < 1e-4)")
-                for k in range(len(ws)):
-                    if not live >> (k // fd.N_PER_DEC) & 1:
-                        fail_if(gk[4 + k] is not None,
-                                f"K2 n={n} {stage} live={live_name}: frozen "
-                                f"weight {k} got a gradient")
-                if train:
-                    # weight gradients sum over all points, so a flipped
-                    # ReLU moves whole sums: compare them on the points
-                    # whose pre-activations all lie >= 1e-4 from zero (the
-                    # others' cotangent zeroed in both runs)
-                    go_s = go * steady[:, None]
-                    gk = grads(kern, go_s)
-                    torch.cuda.synchronize()
-                    gr = grads(plain, go_s)
-                    for k in range(len(ws)):
-                        if not live >> (k // fd.N_PER_DEC) & 1:
-                            continue
-                        a, b = gk[4 + k], gr[4 + k]
-                        b = torch.zeros_like(ws[k]) if b is None else b
-                        a = torch.zeros_like(ws[k]) if a is None else a
-                        nb, na = float(b.norm()), float(a.norm())
-                        if nb == 0.0:
-                            fail_if(na != 0.0, f"K2 n={n} {stage}: weight "
-                                    f"grad {k} should be 0, norm {na}")
-                            continue
-                        cos = float((a * b).sum()) / max(na * nb, 1e-30)
-                        fail_if(cos <= 0.9999 or abs(na / nb - 1) > 1e-3,
-                                f"K2 n={n} {stage} live={live_name}: weight "
-                                f"grad {k} cosine {cos} norm ratio {na / nb}")
-                log(f"kernel check n={n} stage={stage} live={live_name}: ok "
-                    f"(fwd err {err_f:.3g}, bwd err {err_b:.3g})")
+    for seed, case in enumerate(cases, start=1):
+        n, with_color, live_name, live, bwd = case
+        ef, eb = check_case(torch, fd, ws, dev, log, n, with_color,
+                            live_name, live, seed, bwd)
+        err_f, err_b = max(err_f, ef), max(err_b, eb)
     return err_f, err_b
 
 
@@ -441,7 +489,15 @@ def run_main_path(torch, fd, log):
             "launch counts differ from the schedule")
     fail_if(not math.isfinite(ate) or ate > 0.25,
             f"ATE {ate} not finite or above 0.25 m")
-    return counts, fwd_kinds, kinds, eng
+    recs = eng.stats()
+    log(f"main path stats(): {len(recs)} records, first {recs[:1]}, last "
+        f"{recs[-1:]}")
+    fail_if([r["idx"] for r in recs] != list(range(1, n_frames)),
+            "stats(): not one record per tracked frame")
+    fail_if(not all(math.isfinite(r[k]) for r in recs
+                    for k in ("first_loss", "last_loss", "best_loss")),
+            "stats(): a tracking loss is not finite")
+    return counts, fwd_kinds, kinds, eng, ate
 
 
 def profile_window(torch, eng, log):
@@ -450,17 +506,17 @@ def profile_window(torch, eng, log):
     (the last frame again).  The profiler adds host time, so the idle
     share it gives is an upper bound."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from nice_slam_torch.tracking import track_step
+    from nice_slam_torch.utils.profiling import torch_trace
 
     s = eng.specs
     idx = eng.n_img - 1
     color, depth, _ = eng._load_frame(idx)
     st = eng.map_state
+    logdir = os.path.join(REPO, "output", "chip_smoke_profile")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_trace(logdir) as prof:
         t0 = time.perf_counter()
         track_step(st.params, st.grids, eng.bound, eng.est_c2w_dev, idx,
                    color, depth, s.camera, s.track, s.render, s.model,
@@ -469,6 +525,10 @@ def profile_window(torch, eng, log):
                  False, record=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    trace = os.path.join(logdir, "trace.json")
+    fail_if(not os.path.exists(trace), f"profile: {trace} not written")
+    log(f"profile: torch_trace wrote {trace} "
+        f"({os.path.getsize(trace) / 2**20:.1f} MiB)")
     # kernel rows only: an operator's row repeats its kernels' time
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
@@ -748,6 +808,383 @@ def run_repeat(torch, fd, log, n_frames=6):
 
 
 # ---------------------------------------------------------------------------
+# Phases 12-14: Gauss-Newton with BA, occupancy-guided, pretraining
+
+def ba_events(cfg, n_img: int, events):
+    """The mapping events at which local BA runs: more than four keyframes
+    before the event; keyframes are inserted at events on the
+    keyframe_every cadence and at the last two frames."""
+    m = cfg["mapping"]
+    kf, out = 0, []
+    for idx in events:
+        if kf > 4 and m["BA"]:
+            out.append(idx)
+        if idx % m["keyframe_every"] == 0 or idx >= n_img - 2:
+            kf += 1
+    return out
+
+
+def gn_launches(cfg, n_img: int, tracked, ba_at):
+    """The Gauss-Newton share of the fused-decode launches: per GN
+    iteration one forward and one backward for the Jacobian and one
+    forward for the candidate's SSE, at Wn x pixels x samples points
+    (tracking: a one-frame window of tracking.pose_GN_pixels; mapping:
+    the BA window of mapping.pose_GN_pixels per frame, doubled with five
+    passes at the colour refinement).  Returns (K1, K2, K1 by kind)."""
+    m, t, r = cfg["mapping"], cfg["tracking"], cfg["rendering"]
+    per_ray = r["N_samples"] + r["N_surface"]
+    runs = [(1, t["pose_GN_pixels"], t["pose_GN_iters"])
+            for _ in tracked]
+    for idx in ba_at:
+        refine = idx == n_img - 1 and m["color_refine"]
+        wn = m["mapping_window_size"] * (2 if refine else 1)
+        runs += [(wn, m.get("pose_GN_pixels", 200),
+                  m["pose_GN_iters"])] * (5 if refine else 1)
+    k1 = k2 = 0
+    kinds = {}
+    for wn, pix, iters in runs:
+        key = f"color n={wn * pix * per_ray}"
+        kinds[key] = kinds.get(key, 0) + 2 * iters
+        k1, k2 = k1 + 2 * iters, k2 + iters
+    return k1, k2, kinds
+
+
+def _merge_kinds(a: dict, b: dict) -> dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+def check_gn_system(torch, fd, args, log):
+    """H and b of one GN system through the kernels against the plain
+    route (reverse mode through reference_nice_decode) on the same rays.
+    Tolerance: relative Frobenius error <= 1e-3 over H and over b, from
+    the rays whose Jacobian rows agree (rtol 1e-3, atol 1e-4 of the
+    largest entry); at most max(2, rays / 1000) rays may differ, by a
+    ReLU that flips between the two summation orders (fault 5).  The
+    check's own launches are taken out of the counts."""
+    from nice_slam_torch.models import decoders
+    from nice_slam_torch.parallel import schur_ba
+
+    (params, grids, bound, window, cams, _lr, camera, rspec, mspec, pix_n,
+     _damping) = args[:11]
+    saved = (fd.FusedNiceDecode.fwd_launches, fd.FusedNiceDecode.bwd_launches,
+             dict(fd.FusedNiceDecode.fwd_kinds),
+             dict(fd.FusedNiceDecode.bwd_kinds))
+    gen = torch.Generator(device=cams.device).manual_seed(12)
+    pix = schur_ba.window_pixels(gen, cams.shape[0], pix_n, camera,
+                                 cams.device)
+    jac = {}
+    for route in ("kernel", "plain"):
+        orig = decoders.fused_nice_decode
+        if route == "plain":
+            decoders.fused_nice_decode = (
+                lambda wc, _tw, p, cm, cf, cc, *ws:
+                fd.reference_nice_decode(wc, p, cm, cf, cc, *ws))
+        try:
+            jac[route] = schur_ba.pose_jacobian(params, grids, bound, window,
+                                                cams, camera, rspec, mspec,
+                                                pix)
+        finally:
+            decoders.fused_nice_decode = orig
+    torch.cuda.synchronize()
+    (fd.FusedNiceDecode.fwd_launches, fd.FusedNiceDecode.bwd_launches,
+     fd.FusedNiceDecode.fwd_kinds, fd.FusedNiceDecode.bwd_kinds) = saved
+    (Jk, rk), (Jp, rp) = jac["kernel"], jac["plain"]
+    scale = float(Jp.abs().max())
+    agree = torch.isclose(Jk, Jp, rtol=1e-3, atol=1e-4 * scale).all(-1) \
+        & torch.isclose(rk, rp, rtol=1e-3, atol=1e-4 * float(
+            rp.abs().max())) & torch.isfinite(Jk).all(-1)
+    n_rays = agree.numel()
+    flips = int((~agree).sum())
+    a = agree.to(Jk.dtype)[..., None]
+
+    def system(J, r):
+        J = J * a
+        return (J.transpose(1, 2) @ J, (J.transpose(1, 2) @ (r[..., None] * a))[..., 0])
+
+    (Hk, bk), (Hp, bp) = system(Jk, rk), system(Jp, rp)
+    eh = float((Hk - Hp).norm() / Hp.norm())
+    eb = float((bk - bp).norm() / bp.norm())
+    log(f"gn: H/b check at frame 1 ({n_rays} rays): kernel vs plain "
+        f"relative error H {eh:.3g}, b {eb:.3g}; {flips} rays differ "
+        f"(ReLU flips allowed: {max(2, n_rays // 1000)})")
+    fail_if(flips > max(2, n_rays // 1000),
+            f"gn: {flips} of {n_rays} Jacobian rows differ")
+    fail_if(not (eh <= 1e-3 and eb <= 1e-3),
+            f"gn: H/b relative error {eh}, {eb} > 1e-3")
+    return max(eh, eb)
+
+
+def run_gn(torch, fd, log, n_frames=13):
+    """Phase 12: strict, GN in tracking and mapping, BA on from event 10."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.parallel import schur_ba
+
+    cfg = load_config(SYN_CFG, overrides={
+        "synthetic": {"n_frames": n_frames},
+        "mapping": {"every_frame": 2, "keyframe_every": 2,
+                    "pose_GN_iters": 2},
+        "tracking": {"pose_GN_iters": 2},
+        "data": {"output": os.path.join(REPO, "output", "chip_smoke_gn")}})
+    eng = SlamEngine(cfg, device="cuda")
+    ba_calls, gn = [], []
+    check = {}
+    orig_map, orig_iter = eng._map, schur_ba.gn_iteration
+
+    def _map(idx, color, depth, mapspec, *a, **k):
+        if not mapspec.coarse_mapper:
+            ba_calls.append((idx, bool(a[2])))
+        return orig_map(idx, color, depth, mapspec, *a, **k)
+
+    def gn_iteration(*a, **k):
+        if not check:
+            t0 = time.perf_counter()
+            check["err"] = check_gn_system(torch, fd, a, log)
+            check["s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_iter(*a, **k)
+        torch.cuda.synchronize()
+        gn.append({"wn": int(a[4].shape[0]), "s": time.perf_counter() - t0,
+                   "accepted": int(out[2].sum()),
+                   "live": int((a[5] > 0).sum())})
+        return out
+
+    eng._map = _map
+    schur_ba.gn_iteration = gn_iteration
+    try:
+        res = _drive(torch, fd, eng, log, "gn", n_frames)
+    finally:
+        schur_ba.gn_iteration = orig_iter
+    kinds_f, kinds_b = fd.fwd_launch_kinds(), fd.bwd_launch_kinds()
+    res.update({"k1_by_kind": kinds_f, "k2_by_kind": kinds_b})
+    # the H/b check ran inside the first tracked frame: not the path's time
+    res["wall_s"] -= check["s"]
+    res["frames_per_s"] = res["frames"] / res["wall_s"]
+    m = cfg["mapping"]
+    events = map_events(n_frames, m["every_frame"], 0)
+    want_ba = ba_events(cfg, n_frames, events)
+    got_ba = sorted({i for i, b in ba_calls if b})
+    tracked = range(1, n_frames)
+    base_f, base_b, base_k = expected_launches(cfg, n_frames, events=events)
+    gn_f, gn_b, gn_k = gn_launches(cfg, n_frames, tracked, want_ba)
+    want_k = _merge_kinds(base_k, gn_k)
+    gn_track = sum(g["s"] for g in gn if g["wn"] == 1)
+    gn_map = sum(g["s"] for g in gn if g["wn"] > 1)
+    timings = res["timings"]
+    res.update({
+        "ba_events": got_ba, "ba_passes": sum(b for _, b in ba_calls),
+        "gn_iterations": {"track": sum(g["wn"] == 1 for g in gn),
+                          "map": sum(g["wn"] > 1 for g in gn)},
+        "gn_accepted_share": (sum(g["accepted"] for g in gn)
+                              / max(sum(g["live"] for g in gn), 1)),
+        "gn_share_of_track": gn_track / (timings["track"] - check["s"]),
+        "gn_share_of_map": gn_map / timings["map"],
+        "hb_rel_err": check["err"],
+        "schedule": {"k1": base_f + gn_f, "k2": base_b + gn_b,
+                     "gn_k1": gn_f, "gn_k2": gn_b}})
+    log(f"gn: BA at events {got_ba} (schedule {want_ba}), "
+        f"{res['ba_passes']} BA passes; GN iterations "
+        f"{res['gn_iterations']}, accepted share "
+        f"{res['gn_accepted_share']:.4f}, share of track time "
+        f"{res['gn_share_of_track']:.4f}, of map time "
+        f"{res['gn_share_of_map']:.4f}; launches K1 {res['k1']} = "
+        f"{base_f} + GN {gn_f}, K2 {res['k2']} = {base_b} + GN {gn_b} "
+        f"(GN: per iteration K1 x2, K2 x1); K1 by kind {kinds_f} (schedule "
+        f"{want_k}); K2 by kind {kinds_b}; wall without the check "
+        f"{res['wall_s']:.3f} s")
+    fail_if(got_ba != want_ba, f"gn: BA at {got_ba}, schedule {want_ba}")
+    fail_if((res["k1"], res["k2"]) != (base_f + gn_f, base_b + gn_b)
+            or kinds_f != want_k, "gn: launches differ from the schedule")
+    r = cfg["rendering"]
+    refine_n = (2 * m["mapping_window_size"] * m.get("pose_GN_pixels", 200)
+                * (r["N_samples"] + r["N_surface"]))
+    fail_if(kinds_b.get(f"color no-wgrad n={refine_n}", 0)
+            != 5 * m["pose_GN_iters"],
+            "gn: K2 launches at the colour refinement's GN shape")
+    ate = res["ate_rmse_m"]
+    fail_if(not math.isfinite(ate) or ate > 0.25,
+            f"gn: ATE {ate} not finite or above 0.25 m")
+    return res
+
+
+def run_occ(torch, fd, log, strict_ate, n_frames=11):
+    """Phase 13: strict, occupancy-guided sampling."""
+    from nice_slam_torch import mapping
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+
+    cfg = load_config(SYN_CFG, overrides={
+        "synthetic": {"n_frames": n_frames},
+        "rendering": {"occupancy_guided": True},
+        "data": {"output": os.path.join(REPO, "output", "chip_smoke_occ")}})
+    eng = SlamEngine(cfg, device="cuda")
+    shape = tuple(eng.map_state.grids["occ_proxy"].shape[:3])
+    nodes = shape[0] * shape[1] * shape[2]
+    refreshed = []
+    orig = mapping.refresh_occ_proxy
+
+    def refresh(*a, **k):
+        out = orig(*a, **k)
+        refreshed.append(float(out.min()))
+        return out
+
+    mapping.refresh_occ_proxy = refresh
+    try:
+        res = _drive(torch, fd, eng, log, "occ", n_frames)
+    finally:
+        mapping.refresh_occ_proxy = orig
+    kinds = fd.fwd_launch_kinds()
+    res.update({"k1_by_kind": kinds, "k2_by_kind": fd.bwd_launch_kinds()})
+    m = cfg["mapping"]
+    events = map_events(n_frames, m["every_frame"], 0)
+    # one refresh per NICE mapping pass: the colour refinement has five
+    passes = sum(5 if i == n_frames - 1 and m["color_refine"] else 1
+                 for i in events)
+    base_f, base_b, base_k = expected_launches(cfg, n_frames, events=events)
+    want_k = _merge_kinds(base_k, {f"fine n={nodes}": passes})
+    res.update({"proxy_shape": list(shape), "refreshes": len(refreshed),
+                "proxy_min_after_each": refreshed,
+                "strict_ate_rmse_m": strict_ate})
+    log(f"occ: proxy {shape} ({nodes} nodes), {len(refreshed)} refreshes "
+        f"(schedule {passes}), min after each {refreshed}; K1 by kind "
+        f"{kinds} (schedule {want_k}); ATE {res['ate_rmse_m']} m against "
+        f"strict {strict_ate} m")
+    fail_if(len(refreshed) != passes or not refreshed[0] < 0.5,
+            "occ: the proxy was not refreshed as scheduled")
+    fail_if((res["k1"], res["k2"]) != (base_f + passes, base_b)
+            or kinds != want_k, "occ: launches differ from the schedule")
+    ate = res["ate_rmse_m"]
+    fail_if(not math.isfinite(ate) or ate > 0.3,
+            f"occ: ATE {ate} not finite or above 0.3 m")
+    p = os.path.join(eng.output, "occ_resume.npz")
+    eng.save(p)
+    back = SlamEngine(cfg, device="cuda").resume(p)
+    differ = [k for k, v in eng.map_state.grids.items()
+              if not torch.equal(v, back.map_state.grids[k])]
+    fail_if(set(back.map_state.grids) != set(eng.map_state.grids)
+            or bool(differ), f"occ: grids after save/load differ: {differ}")
+    log(f"occ: save/load: {len(eng.map_state.grids)} grids bit-equal, "
+        "occ_proxy among them")
+    return res
+
+
+def _reference_state(dec: dict, prefix: str) -> dict:
+    """A decoder of the port as the reference's state_dict entries
+    (nn.Linear weights (out, in))."""
+    sd = {}
+    for i, layer in enumerate(dec["pts"]):
+        sd[f"{prefix}pts_linears.{i}.weight"] = layer["w"].T.contiguous()
+        sd[f"{prefix}pts_linears.{i}.bias"] = layer["b"]
+    for i, layer in enumerate(dec.get("fc_c", [])):
+        sd[f"{prefix}fc_c.{i}.weight"] = layer["w"].T.contiguous()
+        sd[f"{prefix}fc_c.{i}.bias"] = layer["b"]
+    sd[f"{prefix}output_linear.weight"] = dec["out"]["w"].T.contiguous()
+    sd[f"{prefix}output_linear.bias"] = dec["out"]["b"]
+    if "B" in dec.get("embed", {}):
+        sd[f"{prefix}embedder._B"] = dec["embed"]["B"]
+    return {k: v.cpu() for k, v in sd.items()}
+
+
+def run_pretrain(torch, fd, log, dev, steps=100, batch=4096):
+    """Phase 14: pretraining on the card, the ported tool, and the npz and
+    .pt decoder sources of a fresh engine."""
+    import numpy as np
+
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.models.decoders import ModelSpec, init_model
+    from nice_slam_torch.models.pretrain import pretrain_decoders_synthetic
+    from nice_slam_torch.ops.tree import tree_leaves
+    from nice_slam_torch.tools import pretrain_decoders as tool
+    from nice_slam_torch.utils.checkpoint import _flatten
+
+    out_dir = os.path.join(REPO, "output", "chip_smoke_pretrain")
+    os.makedirs(out_dir, exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    params = init_model(gen, ModelSpec(), device=dev)
+    before = {k: [x.clone() for x in tree_leaves(v)]
+              for k, v in params.items()}
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fd.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, losses = pretrain_decoders_synthetic(
+        gen, params, ModelSpec(), tool.BOUND, steps=steps, batch=batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fd.launch_counts()
+    kinds_f, kinds_b = fd.fwd_launch_kinds(), fd.bwd_launch_kinds()
+    changed = {k: any(not torch.equal(a, b) for a, b in
+                      zip(before[k], tree_leaves(out[k]))) for k in before}
+    losses = losses.tolist()
+    res = {"path": "pretrain", "wall_s": wall, "steps": steps,
+           "batch": batch, "ms_per_step": 1e3 * wall / steps,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "decoders_changed": changed, "k1_by_kind": kinds_f,
+           "k2_by_kind": kinds_b}
+    log("pretrain: " + ", ".join(f"{k} {v}" for k, v in res.items())
+        + f"; K1 by kind {kinds_f}; K2 by kind {kinds_b}")
+    fail_if(kinds_f != {f"fine n={batch}": steps}
+            or kinds_b != {f"fine wgrad n={batch}": steps},
+            "pretrain: launches differ from one K1 and one K2 per step")
+    fail_if(changed != {"coarse": False, "middle": True, "fine": True,
+                        "color": False},
+            f"pretrain: decoders trained {changed}, want middle and fine")
+    fail_if(not losses[-1] < losses[0], "pretrain: the loss did not fall")
+
+    # the ported tool, into a file of its own
+    npz = os.path.join(out_dir, "decoders.npz")
+    t0 = time.perf_counter()
+    tool.main(["--scenes", "3", "--steps", "80", "--batch", "8192",
+               "--out", npz, "--report_every", "1", "--device", str(dev)])
+    res["tool_wall_s"] = time.perf_counter() - t0
+    res["tool_ms_per_step"] = 1e3 * res["tool_wall_s"] / (3 * 80)
+    with np.load(npz) as z:
+        saved = {k: z[k] for k in z.files}
+    cfg = load_config(SYN_CFG, overrides={
+        "synthetic": {"n_frames": 2},
+        "pretrained_decoders": {"tpu_npz": npz},
+        "data": {"output": os.path.join(out_dir, "engine")}})
+    eng = SlamEngine(cfg, device="cuda")
+    now = {}
+    _flatten(eng.map_state.params, "params", now)
+    differ = [k for k in saved if not np.array_equal(now[k], saved[k])]
+    fail_if(set(now) != set(saved) or bool(differ),
+            f"pretrain: the engine's decoders differ from the npz: {differ}")
+    # a reference-format .pt pair of those decoders, read by a fresh engine
+    src = eng.map_state.params
+    pts = (os.path.join(out_dir, "coarse.pt"),
+           os.path.join(out_dir, "middle_fine.pt"))
+    torch.save({"model": _reference_state(src["coarse"], "decoder.")},
+               pts[0])
+    torch.save({"model": {**_reference_state(src["middle"],
+                                             "decoder.coarse."),
+                          **_reference_state(src["fine"], "decoder.fine.")}},
+               pts[1])
+    cfg["pretrained_decoders"] = {"tpu_npz": os.path.join(out_dir, "none"),
+                                  "coarse": pts[0], "middle_fine": pts[1]}
+    eng_pt = SlamEngine(cfg, device="cuda")
+    got = {}
+    _flatten(eng_pt.map_state.params, "params", got)
+    differ = [k for k in now if not k.startswith("params/color/")
+              and not np.array_equal(got[k], now[k])]
+    fail_if(set(got) != set(now) or bool(differ)
+            or not all(x.device.type == dev.type
+                       for x in tree_leaves(eng_pt.map_state.params)),
+            f"pretrain: .pt decoders differ from their source: {differ}")
+    log(f"pretrain: tool {3 * 80} steps in {res['tool_wall_s']:.3f} s "
+        f"({res['tool_ms_per_step']:.3f} ms/step); the engine read its "
+        f"npz ({len(saved)} arrays) and the .pt pair made from it, equal")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: timing
 
 def cuda_time_ms(torch, fn, warmup=3, reps=9, inner=10):
@@ -878,9 +1315,25 @@ def main() -> int:
         os.path.join(REPO, "pretrained", "decoders_tpu.npz"),
         init_model(torch.Generator(device=dev).manual_seed(0), ModelSpec(),
                    device=dev)))]
-    err_f, err_b = check_kernels(torch, fd, ws, dev, log)
+    # the new paths' shapes: the occupancy proxy's refresh (the middle
+    # grid's nodes, fine), pretraining (4,096 fine, middle and fine
+    # live) and the GN of the colour refinement (10 x 200 x 48 colour)
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.ops.grid import grid_shape_for_bound
+    from nice_slam_torch.state import pad_bound
 
-    counts, fwd_kinds, kinds, eng = run_main_path(torch, fd, log)
+    syn = load_config(SYN_CFG)
+    n_proxy = math.prod(grid_shape_for_bound(
+        pad_bound(syn["mapping"]["bound"],
+                  syn["grid_len"]["bound_divisible"]),
+        syn["grid_len"]["middle"]))
+    err_f, err_b = check_kernels(
+        torch, fd, ws, dev, log,
+        extra=((n_proxy, False, "none", 0, False),
+               (4096, False, "middle+fine", 3, True),
+               (96000, True, "none", 0, True)))
+
+    counts, fwd_kinds, kinds, eng, strict_ate = run_main_path(torch, fd, log)
     mesh = run_mesh(torch, fd, eng, log)
     # K1 at the mesh's shapes against the plain version
     for kind in mesh["k1_by_kind"]:
@@ -908,7 +1361,7 @@ def main() -> int:
               for n, wc, live in ((48000, True, 4), (48000, True, 0),
                                   (48000, False, 0), (9600, True, 0),
                                   (48000, True, 7))]
-    k2 = shapes[-1]
+    k2 = shapes[4]
     # the strict engine is done with: later phases start without it
     del eng
 
@@ -917,8 +1370,27 @@ def main() -> int:
     resumed = run_resume(torch, fd, log, loose_cfg, 11)
     imap = run_imap(torch, fd, log)
     repeat = run_repeat(torch, fd, log)
+    gn = run_gn(torch, fd, log)
+    occ = run_occ(torch, fd, log, strict_ate)
+    pre = run_pretrain(torch, fd, log, dev)
     by_path = {r["path"]: r for r in (loose, free, resumed, imap, mesh,
-                                      repeat)}
+                                      repeat, gn, occ, pre)}
+
+    # phase 5 continued: K1 and K2 at the new paths' shapes
+    for path, kind in (("occ", f"fine n={n_proxy}"),
+                       ("pretrain", "fine n=4096"),
+                       ("gn", "color n=96000")):
+        stage, n = kind.split(" n=")
+        r = time_fwd(torch, fd, ws, dev, int(n), stage == "color", log)
+        fwd_shapes.append({**r, "path": path, "launches":
+                           by_path[path]["k1_by_kind"].get(kind, 0)})
+    for path, kind, wc, live in (
+            ("pretrain", "fine wgrad n=4096", False, 3),
+            ("gn", "color no-wgrad n=96000", True, 0)):
+        n = int(kind.split(" n=")[1])
+        r = time_bwd(torch, fd, ws, dev, n, wc, live, log)
+        shapes.append({**r, "path": path, "launches":
+                       by_path[path]["k2_by_kind"].get(kind, 0)})
 
     def paths(key):
         return {"strict": counts[key],

@@ -69,7 +69,7 @@ DEFAULTS: Dict[str, Any] = {
         "const_speed_assumption": True,
         "init_select": True,
         "init_select_margin": 3.0,
-        # Gauss-Newton pose polish: not in the port; its engine rejects > 0
+        # Gauss-Newton pose polish (parallel/schur_ba.py), off by default
         "pose_GN_iters": 0,
         "pose_GN_pixels": 1000,
         "pose_GN_damping": 1.0e-3,
@@ -137,7 +137,8 @@ DEFAULTS: Dict[str, Any] = {
         "N_importance": 0,
         "lindisp": False,
         "perturb": 0.0,
-        # occupancy-guided sampling: not in the port; its engine rejects True
+        # occupancy-guided sampling (ops/sampling.occ_guided_zvals), off
+        # by default: the JAX package measured it as worse than uniform
         "occupancy_guided": False,
     },
     "data": {"dim": 3, "input_folder": None, "output": "output/run"},
@@ -260,6 +261,7 @@ def specs_from_config(cfg: dict) -> SlamSpecs:
         n_samples=r["N_samples"], n_surface=r["N_surface"],
         n_importance=r["N_importance"], lindisp=r["lindisp"],
         perturb=r["perturb"], occupancy=bool(cfg["occupancy"]),
+        occ_guided=bool(r.get("occupancy_guided", False)),
     )
     t = cfg["tracking"]
     track = TrackSpec(
@@ -270,7 +272,10 @@ def specs_from_config(cfg: dict) -> SlamSpecs:
         use_color=t["use_color_in_tracking"],
         const_speed=t["const_speed_assumption"],
         init_select=t["init_select"],
-        init_select_margin=t["init_select_margin"], nice=nice,
+        init_select_margin=t["init_select_margin"],
+        gn_iters=t.get("pose_GN_iters", 0),
+        gn_pixels=t.get("pose_GN_pixels", 1000),
+        gn_damping=t.get("pose_GN_damping", 1e-3), nice=nice,
     )
     m = cfg["mapping"]
     stage_lr = tuple(sorted(
@@ -291,6 +296,9 @@ def specs_from_config(cfg: dict) -> SlamSpecs:
         keyframe_every=m["keyframe_every"],
         ba=m["BA"], ba_cam_lr=m["BA_cam_lr"], nice=nice,
         coarse_mapper=False, imap_decoders_lr=m["imap_decoders_lr"],
+        pose_gn_iters=m.get("pose_GN_iters", 0),
+        pose_gn_pixels=m.get("pose_GN_pixels", 200),
+        pose_gn_damping=m.get("pose_GN_damping", 1e-3),
         stage_lr=stage_lr,
     )
     coarse_mapper = None
@@ -298,6 +306,7 @@ def specs_from_config(cfg: dict) -> SlamSpecs:
         # coarse mapper: global selection, no BA, coarse stage only
         # (reference Mapper.py:78-80, 403-404, 602-603)
         coarse_mapper = replace(mapper, coarse_mapper=True,
-                                keyframe_selection="global", ba=False)
+                                keyframe_selection="global", ba=False,
+                                pose_gn_iters=0)
     return SlamSpecs(camera=camera, model=model, render=render, track=track,
                      mapper=mapper, coarse_mapper=coarse_mapper)

@@ -15,26 +15,33 @@ every mode; it is the JAX package's per-frame loop, whose event sequence
 its grouped loop reproduces.
 
 Keyframes are inserted every keyframe_every frames and at the last two;
-local BA starts once more than four keyframes exist.  iMAP* mode
+local BA starts once more than four keyframes exist (with
+mapping.pose_GN_iters > 0 it ends with Gauss-Newton steps on the window
+cameras; tracking.pose_GN_iters polishes each tracked pose the same way).
+An occupancy-guided run (rendering.occupancy_guided) keeps an occupancy
+proxy among its grids, refreshed after each NICE mapping pass.  iMAP* mode
 (`nice: False`) runs each non-first event as three passes of iters // 3,
-has no colour refinement and no pretrained decoders.  Checkpoints
+has no colour refinement and no pretrained decoders.  NICE decoders come
+from the repository's npz, else from the reference's ConvONet .pt files
+(pretrained_decoders.coarse / middle_fine), else keep their random init.
+`stats()` gives each tracked frame's first, last and best tracking loss.
+Checkpoints
 (<output>/ckpts/{idx:05d}.npz, the JAX package's format) are written every
 ckpt_freq frames and at the last frame; `resume()` continues from one.
 A `mesher_hook` (utils/mesher.engine_mesher_hook) runs after the
 checkpoint every mesh_freq frames and at the last frame.  The trajectory,
 the map and the keyframe store stay on the device.
 
-Not in this slice (the JAX package has them): the visualizer, the
-parallel modes, the Gauss-Newton pose polish and occupancy-guided
-sampling.  The constructor raises when a config asks for one of them
-(`check_slice`).  The JAX package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
-barrier_every_groups, prefetch, fuse_track_map) are accepted and ignored.
+Not in the port (the JAX package has them): the visualizer and the
+parallel modes.  The constructor raises when a config asks for a parallel
+mode (`check_slice`).  The JAX package's TPU dispatch knobs
+(tpu.grouped_tracking, fuse_lagged, barrier_every_groups, prefetch,
+fuse_track_map) are accepted and ignored.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import replace
 from typing import Callable, Optional
 
@@ -49,16 +56,13 @@ from nice_slam_torch.state import make_map_state
 from nice_slam_torch.tracking import track_step
 from nice_slam_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from nice_slam_torch.utils.datasets import get_dataset
+from nice_slam_torch.utils.profiling import StageTimer
 
 
 def check_slice(cfg: dict) -> None:
-    """Raise for config options this slice of the port does not run."""
+    """Raise for config options the port does not run: the parallel
+    modes."""
     missing = []
-    r, t, m = cfg["rendering"], cfg["tracking"], cfg["mapping"]
-    if r.get("occupancy_guided", False):
-        missing.append("rendering.occupancy_guided")
-    if t.get("pose_GN_iters", 0) > 0 or m.get("pose_GN_iters", 0) > 0:
-        missing.append("Gauss-Newton pose refinement (pose_GN_iters > 0)")
     tpu = cfg.get("tpu", {})
     for knob in ("pipelined", "data_parallel", "grid_sharded", "multihost"):
         if tpu.get(knob):
@@ -122,7 +126,8 @@ class SlamEngine:
         self.gen.manual_seed(int(cfg["tpu"]["seed"]))
         self.map_state = make_map_state(
             self.gen, self.specs.model, m["bound"], cfg["grid_len"],
-            cfg["grid_len"]["bound_divisible"], device=self.device)
+            cfg["grid_len"]["bound_divisible"],
+            occ_guided=self.specs.render.occ_guided, device=self.device)
         self._load_pretrained_decoders()
 
         cap = cfg["tpu"].get("keyframe_capacity") or (
@@ -136,20 +141,39 @@ class SlamEngine:
         self.est_c2w_dev = torch.zeros(self.n_img, 4, 4, device=self.device)
         self.gt_c2w = np.zeros((self.n_img, 4, 4), np.float32)
         self.frames_done = 0
-        self.timings = {"track": 0.0, "map": 0.0, "ckpt": 0.0, "io": 0.0}
+        # host seconds by stage (the mesher hook adds its parts)
+        self.timer = StageTimer()
+        self.timings = self.timer.totals
+        self.timings.update(track=0.0, map=0.0, ckpt=0.0, io=0.0)
+        # per tracked frame: {"idx", "losses"} with the [first, last, best]
+        # loss tensor on the device until stats() reads them
+        self.tracking_stats: list = []
 
     def _load_pretrained_decoders(self):
-        """NICE decoder weights from the repository's npz when present, else
-        the calibrated random init.  iMAP* has no pretrained decoder."""
+        """NICE decoder weights, in the JAX package's order of sources
+        (nice_slam_tpu/engine.py:206-226): the repository's npz when
+        present, else the reference's ConvONet checkpoints
+        (pretrained_decoders.coarse / middle_fine), else the calibrated
+        random init.  iMAP* has no pretrained decoder."""
         if not self.specs.model.nice:
             return
-        npz = self.cfg.get("pretrained_decoders", {}).get("tpu_npz")
+        pt = self.cfg.get("pretrained_decoders", {})
+        npz = pt.get("tpu_npz")
         if npz and os.path.exists(npz):
             from nice_slam_torch.models.pretrain import load_npz_decoders
             self.map_state.params = load_npz_decoders(
                 npz, self.map_state.params)
             if self.verbose:
                 print(f"loaded pretrained decoders from {npz}")
+            return
+        coarse_p, mf_p = pt.get("coarse"), pt.get("middle_fine")
+        if ((coarse_p and os.path.exists(coarse_p))
+                or (mf_p and os.path.exists(mf_p))):
+            from nice_slam_torch.models.pretrain import (
+                load_pretrained_decoders,
+            )
+            self.map_state.params = load_pretrained_decoders(
+                self.map_state.params, self.specs.model, coarse_p, mf_p)
         else:
             print(f"warning: no pretrained decoders at {npz!r}; the "
                   "decoders keep their random init")
@@ -188,12 +212,10 @@ class SlamEngine:
     def _load_frame(self, idx: int):
         """Frame idx: colour and depth on the device, the GT pose on the
         host."""
-        t0 = time.perf_counter()
-        _, color, depth, gt_pose = self.dataset[idx]
-        out = (self._to_dev(color), self._to_dev(depth),
-               np.asarray(gt_pose, np.float32))
-        self.timings["io"] += time.perf_counter() - t0
-        return out
+        with self.timer.time("io"):
+            _, color, depth, gt_pose = self.dataset[idx]
+            return (self._to_dev(color), self._to_dev(depth),
+                    np.asarray(gt_pose, np.float32))
 
     # -- tracking ----------------------------------------------------------
 
@@ -209,14 +231,26 @@ class SlamEngine:
             self._set_gt_pose(idx, gt_pose)
             return
         self.gt_c2w[idx] = gt_pose
-        t0 = time.perf_counter()
         s = self.specs
         st = self.map_state
-        track_step(st.params, st.grids, self.bound, self.est_c2w_dev, idx,
-                   color, depth, s.camera, s.track, s.render, s.model,
-                   gen=self.gen)
-        self._sync()
-        self.timings["track"] += time.perf_counter() - t0
+        with self.timer.time("track"):
+            losses = track_step(st.params, st.grids, self.bound,
+                                self.est_c2w_dev, idx, color, depth,
+                                s.camera, s.track, s.render, s.model,
+                                gen=self.gen)
+            self._sync()
+        self.tracking_stats.append({"idx": idx, "losses": losses})
+
+    def stats(self) -> list:
+        """One record per tracked frame, {"idx", "first_loss",
+        "last_loss", "best_loss"} (the JAX package's engine.py:284-313);
+        the losses still on the device come over in one transfer."""
+        pending = [s for s in self.tracking_stats if "losses" in s]
+        if pending:
+            vals = torch.stack([s.pop("losses") for s in pending]).cpu()
+            for s, v in zip(pending, vals.tolist()):
+                s.update(first_loss=v[0], last_loss=v[1], best_loss=v[2])
+        return self.tracking_stats
 
     # -- mapping -----------------------------------------------------------
 
@@ -244,7 +278,6 @@ class SlamEngine:
         """One mapping wake-up (Mapper.py:542-657): the mapper (+BA,
         keyframe insertion) and the coarse mapper, then the checkpoint when
         one is due."""
-        t0 = time.perf_counter()
         final = idx == self.n_img - 1
         mapspec = self.specs.mapper
         coarse = self.specs.coarse_mapper
@@ -274,34 +307,35 @@ class SlamEngine:
                   "tpu.keyframe_capacity")
             self._warned_kf_capacity = True
         ba = len(self.kf_frame_ids) > 4 and mapspec.ba
-        if outer == 1:
-            self._map(idx, color, depth, mapspec, n_iters, lr_f, ba,
-                      insert_kf=want_insert, gt_pose=gt_pose,
-                      coarse_spec=coarse, coarse_iters=c_iters,
-                      coarse_lr_factor=c_lr)
-        else:
-            for _ in range(outer):
-                self._map(idx, color, depth, mapspec, n_iters, lr_f, ba)
-            # then keyframe insertion and the coarse mapper, in the order
-            # of the single-pass event
+        with self.timer.time("map"):
+            if outer == 1:
+                self._map(idx, color, depth, mapspec, n_iters, lr_f, ba,
+                          insert_kf=want_insert, gt_pose=gt_pose,
+                          coarse_spec=coarse, coarse_iters=c_iters,
+                          coarse_lr_factor=c_lr)
+            else:
+                for _ in range(outer):
+                    self._map(idx, color, depth, mapspec, n_iters, lr_f, ba)
+                # then keyframe insertion and the coarse mapper, in the order
+                # of the single-pass event
+                if want_insert:
+                    add_keyframe(self.store, color, depth,
+                                 self.est_c2w_dev[idx],
+                                 self._to_dev(gt_pose), idx)
+                if coarse is not None:
+                    self._map(idx, color, depth, coarse, c_iters, c_lr, False,
+                              record=False)
             if want_insert:
-                add_keyframe(self.store, color, depth, self.est_c2w_dev[idx],
-                             self._to_dev(gt_pose), idx)
-            if coarse is not None:
-                self._map(idx, color, depth, coarse, c_iters, c_lr, False,
-                          record=False)
-        if want_insert:
-            self.kf_frame_ids.append(idx)
-        self._sync()
-        self.timings["map"] += time.perf_counter() - t0
+                self.kf_frame_ids.append(idx)
+            self._sync()
 
         if (idx % self.ckpt_freq == 0 and idx > 0) or final:
             # every frame up to idx is tracked by now; under strict sync
             # the loop bumps frames_done only after this event
             self.frames_done = max(self.frames_done, idx + 1)
-            t0 = time.perf_counter()
-            self.save(os.path.join(self.output, "ckpts", f"{idx:05d}.npz"))
-            self.timings["ckpt"] += time.perf_counter() - t0
+            with self.timer.time("ckpt"):
+                self.save(os.path.join(self.output, "ckpts",
+                                       f"{idx:05d}.npz"))
         if self.mesher_hook is not None and (
                 (idx % self.mesh_freq == 0 and idx > 0) or final):
             self.mesher_hook(self, idx, final)

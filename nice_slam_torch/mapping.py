@@ -9,7 +9,11 @@ the JAX package:
 - frustum feature selection (Mapper.py:93-164) is a voxel mask multiplied
   into the grid gradients: invisible features get exactly zero update;
 - local BA optimises the window cameras with a per-slot LR mask (the
-  oldest keyframe and invalid slots frozen; Mapper.py:346-363).
+  oldest keyframe and invalid slots frozen; Mapper.py:346-363), and with
+  pose_gn_iters > 0 the staged Adam is followed by guarded Gauss-Newton
+  steps on those cameras (parallel/schur_ba.py);
+- an occupancy-guided run refreshes its occupancy proxy after each NICE
+  mapping pass that is not the coarse mapper's (`refresh_occ_proxy`).
 
 In iMAP* mode there are no grids and no frustum masks: the one decoder
 trains at imap_decoders_lr under StepLR(200, 0.8) (Mapper.py:388-389),
@@ -17,7 +21,8 @@ every stage takes the colour term, and a density regulation term keeps
 free space empty.
 
 Leaves whose learning rate is structurally zero are frozen: they get no
-gradient and no update.
+gradient and no update; so is every grid without a learning rate, such
+as the occupancy proxy.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from nice_slam_torch.keyframes import (
     select_keyframes_global,
     select_keyframes_overlap,
 )
-from nice_slam_torch.models.decoders import ModelSpec
+from nice_slam_torch.models.decoders import ModelSpec, model_apply
 from nice_slam_torch.ops.optim import adam_init, adam_update
 from nice_slam_torch.ops.rays import ray_aabb_far
 from nice_slam_torch.ops.se3 import (
@@ -46,6 +51,7 @@ from nice_slam_torch.ops.se3 import (
     to_homogeneous,
 )
 from nice_slam_torch.ops.tree import tree_leaves, tree_map
+from nice_slam_torch.parallel import schur_ba
 from nice_slam_torch.render import RenderSpec, regulation_sigma, render_rays
 
 
@@ -85,6 +91,11 @@ class MapSpec:
     coarse_mapper: bool = False
     imap_decoders_lr: float = 0.0002
     grad_clip: float = 0.0
+    # Gauss-Newton refinement of the BA window cameras after the staged
+    # Adam (mapping.pose_GN_*; NICE mode with BA on); off by default
+    pose_gn_iters: int = 0
+    pose_gn_pixels: int = 200
+    pose_gn_damping: float = 1e-3
     stage_lr: Tuple[Tuple[str, StageLR], ...] = tuple(
         sorted(DEFAULT_STAGE_LR.items()))
 
@@ -159,12 +170,13 @@ def frustum_mask(bound, shape, c2w, depth, camera: Camera) -> torch.Tensor:
 def grid_masks(grids, bound, c2w, depth, camera: Camera, enabled: bool,
                names=None):
     """Frustum masks (Nx, Ny, Nz, 1) for the grids in `names` (default all);
-    coarse is always fully optimisable (Mapper.py:113-115)."""
+    coarse is always fully optimisable (Mapper.py:113-115), and the
+    occupancy proxy, which never trains, takes no frustum test."""
     masks = {}
     for name, g in grids.items():
         if names is not None and name not in names:
             continue
-        if not enabled or name == "coarse":
+        if not enabled or name in ("coarse", "occ_proxy"):
             masks[name] = torch.ones(g.shape[:3] + (1,), dtype=g.dtype,
                                      device=g.device)
         else:
@@ -370,7 +382,10 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                  pixels=None):
     """Run the staged mapping optimisation.  Adam is fresh per call and its
     moments persist across the stages.  `pixels` optionally gives every
-    iteration's window draws, in order.
+    iteration's window draws, in order.  With BA on, NICE mode and
+    mapspec.pose_gn_iters > 0, the window cameras then take that many
+    guarded Gauss-Newton steps with the map frozen (nice_slam_tpu/
+    mapping.py:388-395).
 
     Returns (params, grids, cams, losses (n_iters,))."""
     tree = {"params": params, "grids": grids, "cams": cams0.detach()}
@@ -415,6 +430,13 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
             losses.append(loss.detach())
             it_all += 1
     out = torch.stack(losses) if losses else torch.zeros(0)
+    if ba and mapspec.pose_gn_iters > 0 and mapspec.nice:
+        tree["cams"] = schur_ba.schur_pose_refine(
+            tree["params"], tree["grids"], bound, window, tree["cams"],
+            cam_lr_mask, camera,
+            dataclasses.replace(rspec, train_decoders=False), mspec,
+            mapspec.pose_gn_iters, mapspec.pose_gn_pixels,
+            mapspec.pose_gn_damping, gen=gen)
     return tree["params"], tree["grids"], tree["cams"], out
 
 
@@ -458,7 +480,8 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
                  coarse_spec: Optional[MapSpec] = None,
                  coarse_stage_iters=(), coarse_lr_factor: float = 1.0):
     """One mapping event in the reference's order: the mapping optimisation
-    (+BA) -> keyframe insertion (insert_kf) -> the coarse mapper
+    (+BA) -> the occupancy proxy's refresh (occupancy-guided runs) ->
+    keyframe insertion (insert_kf) -> the coarse mapper
     (coarse_spec; the reference's third process, NICE_SLAM.py:278-286),
     which sees the post-BA poses and the new keyframe.
 
@@ -466,6 +489,9 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
     params, grids, losses, sel_frames = _one_map_optimize(
         params, grids, bound, store, est_c2w, idx, color, depth, lr_factor,
         camera, stage_iters, mapspec, rspec, mspec, ba, gen)
+    if mapspec.nice and not mapspec.coarse_mapper and "occ_proxy" in grids:
+        grids = dict(grids)
+        grids["occ_proxy"] = refresh_occ_proxy(params, grids, bound, mspec)
     if insert_kf:
         add_keyframe(store, color, depth, est_c2w[idx], gt_pose, idx)
     if coarse_spec is not None:
@@ -474,3 +500,16 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
             coarse_lr_factor, camera, coarse_stage_iters, coarse_spec,
             rspec, mspec, False, gen)
     return params, grids, losses, sel_frames
+
+
+@torch.no_grad()
+def refresh_occ_proxy(params, grids, bound, mspec: ModelSpec):
+    """The occupancy proxy decoded anew at its grid nodes (the positions its
+    own trilinear reads interpolate between) from the current map: the
+    fine stage's middle + fine occupancy o, stored as sigmoid(10 o), in
+    one decode (nice_slam_tpu/mapping.py:709-722)."""
+    shape = tuple(grids["occ_proxy"].shape[:3])
+    pts = grid_node_points(bound, shape)
+    raw = model_apply(params, mspec, grids, bound, pts, "fine",
+                      train_decoders=False)
+    return torch.sigmoid(10.0 * raw[..., 3]).reshape(shape + (1,))

@@ -6,7 +6,10 @@ package:
 - N_samples stratified bins + N_surface depth-guided samples, with the
   depth-hole uniform fallback as a per-ray `where` (Renderer.py:112-150);
 - merge by sort, decode all points in one batch, alpha-composite;
-- optional N_importance inverse-CDF refinement (Renderer.py:181-196).
+- optional N_importance inverse-CDF refinement (Renderer.py:181-196);
+- optional occupancy-guided placement of the stratified samples
+  (`RenderSpec.occ_guided`, the grid `occ_proxy`; the JAX package's
+  render.py:85-92), for every stage but coarse.
 
 Out-of-bound points get occupancy forced to +100 (an opaque wall at the
 AABB, Renderer.py:57), in iMAP* mode too.
@@ -23,6 +26,7 @@ from nice_slam_torch.models.decoders import ModelSpec, model_apply
 from nice_slam_torch.ops.composite import raw2outputs
 from nice_slam_torch.ops.rays import image_rays, ray_aabb_far
 from nice_slam_torch.ops.sampling import (
+    occ_guided_zvals,
     perturb_zvals,
     sample_pdf,
     stratified_zvals,
@@ -38,6 +42,9 @@ class RenderSpec:
     lindisp: bool = False
     perturb: float = 0.0
     occupancy: bool = True
+    # occupancy-guided stratified sampling (ops/sampling.occ_guided_zvals):
+    # the same n_samples, moved to where grids["occ_proxy"] is high
+    occ_guided: bool = False
     # False: no decoder weight gradient is wanted (tracking, and mapping
     # stages whose decoders are frozen); the fused decode skips that work
     train_decoders: bool = True
@@ -55,23 +62,35 @@ def eval_points(params, mspec: ModelSpec, grids, bound, p: torch.Tensor,
 
 
 def _zvals(rays_o, rays_d, gt_depth, bound, rspec: RenderSpec,
-           with_depth: bool, gen: Optional[torch.Generator] = None):
-    """Sample depths along each ray.  Returns (N, S) sorted z values."""
+           with_depth: bool, gen: Optional[torch.Generator] = None,
+           occ_proxy=None, max_depth=None):
+    """Sample depths along each ray.  Returns (N, S) sorted z values.
+    max_depth: the sensor depth that caps far and spans the depth-hole
+    samples, a scalar or (N, 1) (default the batch's max)."""
     far_bb = ray_aabb_far(rays_o.detach(), rays_d.detach(),
                           bound)[:, None] + 0.01
     if with_depth:
         d = gt_depth[:, None]
         near = d * 0.01
-        max_d = torch.max(gt_depth)
+        max_d = torch.max(gt_depth) if max_depth is None else max_depth
         far = torch.minimum(torch.clamp(far_bb, min=0.0), max_d * 1.2)
     else:
         near = torch.full_like(far_bb, 0.01)
         far = far_bb
-    z_vals = stratified_zvals(near, far, rspec.n_samples, rspec.lindisp)
+    if occ_proxy is not None:
+        if rspec.lindisp:
+            raise ValueError(
+                "occ_guided sampling builds linear-in-depth probe bins and "
+                "does not support lindisp=True; set occupancy_guided=False "
+                "or lindisp=False")
+        z_vals = occ_guided_zvals(rays_o, rays_d, near, far, occ_proxy,
+                                  bound, rspec.n_samples)
+    else:
+        z_vals = stratified_zvals(near, far, rspec.n_samples, rspec.lindisp)
     if rspec.perturb > 0.0:
         z_vals = perturb_zvals(z_vals, gen)
     if with_depth and rspec.n_surface > 0:
-        z_surf = surface_zvals(gt_depth, rspec.n_surface, torch.max(gt_depth))
+        z_surf = surface_zvals(gt_depth, rspec.n_surface, max_d)
         z_vals, _ = torch.sort(torch.cat([z_vals, z_surf], dim=-1), dim=-1)
     return z_vals
 
@@ -80,18 +99,22 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
                 rays_o: torch.Tensor, rays_d: torch.Tensor,
                 rspec: RenderSpec, stage: str,
                 gt_depth: Optional[torch.Tensor] = None,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None, max_depth=None):
     """Render a batch of rays.
 
     gt_depth=None (e.g. the coarse mapper) disables surface sampling and
     uses scalar near (reference Renderer.py:88-92).  `gen` feeds the
     stratified jitter when rspec.perturb > 0, and the importance draws
-    (det when perturb == 0).
+    (det when perturb == 0).  max_depth (scalar or (N, 1)) replaces the
+    batch's max sensor depth, so rays of several frames render in one
+    batch as each frame's alone would (parallel/schur_ba.py).
 
     Returns (depth (N,), uncertainty (N,), color (N, 3), weights (N, S))."""
     with_depth = gt_depth is not None and stage != "coarse"
+    occ_proxy = (grids.get("occ_proxy")
+                 if rspec.occ_guided and stage != "coarse" else None)
     z_vals = _zvals(rays_o, rays_d, gt_depth if with_depth else None, bound,
-                    rspec, with_depth, gen)
+                    rspec, with_depth, gen, occ_proxy, max_depth)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     n, s, _ = pts.shape
     raw = eval_points(params, mspec, grids, bound, pts.reshape(-1, 3), stage,

@@ -2,7 +2,9 @@
 
 Grids are [Nx, Ny, Nz, C] fp32 tensors (channels last, the JAX package's
 layout); the decoder params are the nested dicts of models/decoders.py.
-iMAP* keeps no grids.
+iMAP* keeps no grids.  An occupancy-guided NICE run also keeps the
+occupancy proxy `occ_proxy` among the grids: never trained, refreshed by
+each mapping event (mapping.refresh_occ_proxy).
 """
 
 from __future__ import annotations
@@ -52,11 +54,18 @@ class MapState:
 
 
 def make_map_state(gen: Optional[torch.Generator], spec: ModelSpec, bound,
-                   grid_len, bound_divisible: float, device="cuda"):
+                   grid_len, bound_divisible: float, occ_guided: bool = False,
+                   device="cuda"):
     bound = pad_bound(bound, bound_divisible)
     grids = (init_grids(gen, bound, grid_len, spec.c_dim, spec.coarse,
                         spec.coarse_bound_enlarge, device) if spec.nice
              else {})
+    if occ_guided and spec.nice:
+        # the occupancy proxy of occupancy-guided sampling (render.py) at
+        # the middle grid's resolution, all ones (uniform sampling until
+        # the first mapping event refreshes it; nice_slam_tpu/state.py:61-72)
+        nx, ny, nz = grid_shape_for_bound(bound, grid_len["middle"], 1)
+        grids["occ_proxy"] = torch.ones(nx, ny, nz, 1, device=device)
     params = init_model(gen, spec, device)
     return MapState(params=params, grids=grids,
                     bound=torch.as_tensor(bound, dtype=torch.float32,

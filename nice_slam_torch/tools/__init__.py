@@ -1,1 +1,2 @@
-"""Measurement tools of the port that run on a GPU."""
+"""Tools of the port: measurements on the GPU (decode_ablation,
+scatter_bench) and decoder pretraining (pretrain_decoders)."""

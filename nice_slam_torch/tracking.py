@@ -4,7 +4,8 @@ step sampling pixels, rendering, and taking the robust depth (+ colour)
 loss; the camera kept is the post-step camera of the lowest pre-step loss.
 The ray/AABB prefilter (Tracker.py:93-104) is a loss mask, so shapes do
 not depend on the data.  The selection stays on the device (no host sync
-per iteration).
+per iteration).  With gn_iters > 0 the kept camera then takes that many
+guarded Gauss-Newton steps (parallel/schur_ba.py, a one-frame window).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from nice_slam_torch.ops.se3 import (
     tensor_from_cam,
     to_homogeneous,
 )
+from nice_slam_torch.parallel import schur_ba
 from nice_slam_torch.render import RenderSpec, render_rays
 
 
@@ -49,6 +51,12 @@ class TrackSpec:
     # measured rationale of the asymmetric margin and the 1 cm floor
     init_select: bool = True
     init_select_margin: float = 3.0
+    # Gauss-Newton polish of the tracked pose (tracking.pose_GN_*):
+    # gn_iters guarded steps on gn_pixels rays over the whole image; off
+    # by default (the JAX package measured it as negative for ATE)
+    gn_iters: int = 0
+    gn_pixels: int = 1000
+    gn_damping: float = 1e-3
     nice: bool = True
 
 
@@ -126,8 +134,8 @@ def tracking_depth_median(cam, params, grids, bound, gt_depth,
 def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
                 camera: Camera, tspec: TrackSpec, rspec: RenderSpec,
                 mspec: ModelSpec, gen: Optional[torch.Generator] = None):
-    """Optimise one frame's camera.  Returns (best_cam, best_loss), both on
-    the device.
+    """Optimise one frame's camera.  Returns (best_cam, first_loss,
+    last_loss, best_loss), all on the device.
 
     The candidate kept is the post-step camera whose pre-step loss was
     minimal (Tracker.py:232-247).  The decoders are frozen, so the fused
@@ -144,6 +152,7 @@ def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
     opt = adam_init(cam)
     best_cam = cam
     best_loss = torch.tensor(float("inf"), device=dev)
+    losses = []
     for _ in range(tspec.iters):
         c = cam.clone().requires_grad_(True)
         loss = tracking_loss(c, params, grids, bound, gt_color, gt_depth,
@@ -154,8 +163,11 @@ def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
         better = loss < best_loss
         best_cam = torch.where(better, new_cam, best_cam)
         best_loss = torch.where(better, loss, best_loss)
+        losses.append(loss)
         cam = new_cam
-    return best_cam, best_loss
+    if not losses:
+        return best_cam, best_loss, best_loss, best_loss
+    return best_cam, losses[0], losses[-1], best_loss
 
 
 def const_speed_init(pre_c2w, pre_pre_c2w):
@@ -170,7 +182,8 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
                rspec: RenderSpec, mspec: ModelSpec,
                gen: Optional[torch.Generator] = None):
     """Track frame `idx` from the poses already in est_c2w (n, 4, 4) and
-    write its pose there."""
+    write its pose there.  Returns the device tensor [first, last, best]
+    of the tracking losses."""
     pre = est_c2w[idx - 1]
     init_c2w = pre
     if tspec.const_speed and idx >= 2:
@@ -190,8 +203,21 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
             keep = med_cs <= tspec.init_select_margin * torch.clamp(
                 med_pre, min=0.01)
             init_c2w = torch.where(keep, init_c2w, pre)
-    best_cam, _ = track_frame(
+    best_cam, first, last, best = track_frame(
         params, grids, bound, tensor_from_cam(init_c2w), gt_color, gt_depth,
         camera, tspec, rspec, mspec, gen=gen)
+    if tspec.gn_iters > 0:
+        # the polish of nice_slam_tpu/tracking.py:333-346: a one-frame
+        # window over the whole image, the map frozen
+        dev = best_cam.device
+        window = {"depths": gt_depth[None],
+                  "valid": torch.ones(1, dtype=torch.bool, device=dev)}
+        cams = schur_ba.schur_pose_refine(
+            params, grids, bound, window, best_cam[None],
+            torch.ones(1, device=dev), camera,
+            dataclasses.replace(rspec, train_decoders=False), mspec,
+            tspec.gn_iters, tspec.gn_pixels, tspec.gn_damping, gen=gen)
+        best_cam = cams[0]
     est_c2w[idx] = to_homogeneous(cam_from_tensor(best_cam))
+    return torch.stack([first, last, best])
 

@@ -13,9 +13,12 @@ so a checkpoint from either package resumes in the other:
     extra/<name>                    kf_frame_ids, selkf_event_idx,
                                     selkf_frames (int64)
 
-<path> joins dict keys (sorted) and list indices with '/'.  On load, keys
-the template lacks (e.g. grids/occ_proxy from an occupancy-guided run)
-are ignored.
+<path> joins dict keys (sorted) and list indices with '/'.  An
+occupancy-guided run's file also holds grids/occ_proxy ((Nx, Ny, Nz, 1)
+fp32, as the JAX package writes it).  On load the file's grids must be
+the template's: a proxy the engine would not keep, or one it lacks,
+raises (a resume that dropped or invented the proxy would give another
+result).
 """
 
 from __future__ import annotations
@@ -89,6 +92,13 @@ def load_checkpoint(path: str, params_template, grids_template):
     extra."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
+    names = {k[len("grids/"):] for k in flat if k.startswith("grids/")}
+    if names != set(grids_template):
+        raise ValueError(
+            f"{path}: the checkpoint's grids {sorted(names)} are not the "
+            f"engine's {sorted(grids_template)} (an occupancy-guided run's "
+            "grids/occ_proxy resumes only with rendering.occupancy_guided "
+            "on, and needs it)")
     return {
         "bound": flat["bound"],
         "est_c2w": flat["est_c2w"],

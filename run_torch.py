@@ -9,16 +9,21 @@ Usage:
     python run_torch.py <config> --resume <output>/ckpts/00050.npz
     python run_torch.py <config> --resume <output>   # its latest checkpoint
     python run_torch.py <config> --no-mesh       # write no mesh
+    python run_torch.py <config> --profile LOGDIR  # LOGDIR/trace.json
 
 The port runs NICE-SLAM and iMAP* under strict, loose and free sync on one
 GPU, with the fused decode as CUDA kernels, writes checkpoints
 (<output>/ckpts/{idx:05d}.npz, the JAX package's format: either package
 resumes the other's) and meshes (<output>/mesh/{idx:05d}_mesh.ply every
 mapping.mesh_freq frames and final_mesh.ply at the last frame; the
-marching tetrahedra are host C++, built with g++ at first use).  Not yet
-in the port: the visualizer, the parallel modes, the Gauss-Newton pose
-polish and occupancy-guided sampling; a config that asks for one of them
-is refused.
+marching tetrahedra are host C++, built with g++ at first use).  The
+config's Gauss-Newton pose refinement (tracking / mapping.pose_GN_iters),
+occupancy-guided sampling (rendering.occupancy_guided) and the
+reference's .pt decoders (pretrained_decoders.coarse / middle_fine, read
+when the repository's npz is absent) run too.  Not in the port: the
+visualizer and the parallel modes; a config that asks for a parallel
+mode is refused.  --profile writes a torch.profiler Chrome trace of the
+run.
 
 Prints a JSON summary (ate_rmse_m, ate_mean_m, frames, timings_s, ...)
 and writes <output>/ate.json and the estimated trajectory
@@ -37,7 +42,8 @@ def main():
     ap = argparse.ArgumentParser(
         description="nice-slam PyTorch port runner (NICE-SLAM and iMAP*, "
                     "strict/loose/free sync, checkpoint and resume, "
-                    "meshing; not yet: visualizer, parallel modes)")
+                    "meshing, Gauss-Newton poses, occupancy-guided "
+                    "sampling; not yet: visualizer, parallel modes)")
     ap.add_argument("config", nargs="?", default=None,
                     help="scene config yaml")
     ap.add_argument("--input_folder", type=str, default=None,
@@ -61,6 +67,9 @@ def main():
                          "PyTorch versions of the kernels)")
     ap.add_argument("--no-mesh", action="store_true",
                     help="skip mesh extraction")
+    ap.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
+                    help="write a torch.profiler Chrome trace of the run to "
+                         "LOGDIR/trace.json")
     args = ap.parse_args()
 
     from nice_slam_torch.config import load_config
@@ -98,8 +107,11 @@ def main():
                 ap.error(f"no checkpoint under {args.resume}")
         eng.resume(ckpt)
         print(f"resumed from {ckpt} at frame {eng.frames_done}")
+    from nice_slam_torch.utils.profiling import torch_trace
+
     t0 = time.perf_counter()
-    eng.run(n_frames=args.frames, progress=True)
+    with torch_trace(args.profile):
+        eng.run(n_frames=args.frames, progress=True)
     wall = time.perf_counter() - t0
 
     stats = eng.ate()

@@ -85,8 +85,7 @@ def _arrays(eng):
            "kf_frame_ids": np.asarray(eng.kf_frame_ids, np.int64),
            "frames_done": np.asarray(eng.frames_done)}
     _flatten(eng.map_state.params, "params", out)
-    _flatten({k: v for k, v in eng.map_state.grids.items()
-              if k != "occ_proxy"}, "grids", out)
+    _flatten(eng.map_state.grids, "grids", out)
     _flatten(store_arrays(eng.store) if isinstance(eng, SlamEngine)
              else eng.store._asdict(), "store", out)
     # selected-keyframe rows as saved: padded with -2 to the widest
@@ -139,15 +138,24 @@ def test_port_roundtrip(tmp_path):
 def test_jax_checkpoint_resumes_in_port(tmp_path, nice):
     """A JAX-saved checkpoint resumes in the port with every array equal.
     The NICE run is occupancy-guided, so its file holds grids/occ_proxy,
-    which the port's template lacks and ignores."""
+    which an occupancy-guided port engine loads with the other grids; an
+    engine without the proxy refuses the file."""
     ov = {"rendering": {**TEST_CFG["rendering"], "occupancy_guided": True}
           } if nice else {}
     j = _state(_jax(nice, tmp_path / "j", **ov))
+    if nice:
+        # a proxy away from its all-ones init
+        j.map_state.grids = {**j.map_state.grids, "occ_proxy": jnp.asarray(
+            np.random.RandomState(3).rand(
+                *j.map_state.grids["occ_proxy"].shape), jnp.float32)}
     p = str(tmp_path / "j.npz")
     j.save(p)
     assert ("grids/occ_proxy" in _npz(p)) == nice
-    t = _port(nice, tmp_path / "t").resume(p)
+    t = _port(nice, tmp_path / "t", **ov).resume(p)
     _assert_same_state(j, t)
+    if nice:
+        with pytest.raises(ValueError, match="occ_proxy"):
+            _port(nice, tmp_path / "u").resume(p)
 
 
 @pytest.mark.parametrize("nice", [True, False], ids=["nice", "imap"])
@@ -187,7 +195,8 @@ def test_run_torch_resume_and_imap(tmp_path):
     """run_torch.py on the CPU: a 3-frame run writes ckpts/00002.npz
     (ckpt_freq 2), --resume <output> continues from it to the 4th frame,
     the last, and writes its final mesh (meshing is on by default; a
-    16^3 volume here), and --imap runs iMAP* mode."""
+    16^3 volume here), and --imap runs iMAP* mode, with --profile writing
+    its torch.profiler trace."""
     import json
     import os
     import subprocess
@@ -228,4 +237,7 @@ def test_run_torch_resume_and_imap(tmp_path):
     assert run("--resume", out)["frames"] == 4
     assert os.path.exists(os.path.join(out, "ckpts", "00003.npz"))
     assert os.path.exists(os.path.join(out, "mesh", "final_mesh.ply"))
-    assert run("--imap", "--frames", "2")["frames"] == 2
+    trace = str(tmp_path / "trace")
+    assert run("--imap", "--frames", "2", "--profile", trace)["frames"] == 2
+    with open(os.path.join(trace, "trace.json")) as f:
+        assert json.load(f)["traceEvents"]

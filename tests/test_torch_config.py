@@ -56,7 +56,8 @@ def test_port_imports_without_jax():
     imports with jax and nice_slam_tpu poisoned in sys.modules, among them
     the checkpoint, iMAP* and mesher modules (the host library is not
     built at import); an iMAP* and a loose engine then
-    build, save a checkpoint and resume from it on the CPU the same way."""
+    build, save a checkpoint and resume from it on the CPU the same way,
+    as do the Gauss-Newton, occupancy-guided and pretraining modules."""
     code = textwrap.dedent("""
         import importlib, os, pkgutil, sys, tempfile
         for name in ("jax", "jaxlib", "nice_slam_tpu"):
@@ -67,7 +68,9 @@ def test_port_imports_without_jax():
             importlib.import_module(m.name)
         for name in ("utils.checkpoint", "models.embedding", "ops.sampling",
                      "ops.composite", "render", "mapping", "engine",
-                     "native", "utils.plyio", "utils.mesher"):
+                     "native", "utils.plyio", "utils.mesher",
+                     "parallel.schur_ba", "models.pretrain",
+                     "tools.pretrain_decoders", "utils.profiling"):
             assert "nice_slam_torch." + name in sys.modules, name
         import runpy
         runpy.run_path("run_torch.py", run_name="not_main")
@@ -96,20 +99,22 @@ def test_port_imports_without_jax():
 
 
 def test_unsupported_options_raise():
-    """Occupancy-guided sampling, the Gauss-Newton polish and the parallel
-    modes are refused; loose/free sync (the Demo config's loose among
-    them), iMAP*, N_importance, density compositing, gt_camera and NICE
-    widths and embeddings the fused decode does not take are accepted, by
-    check_slice and by the engine's constructor."""
+    """Only the parallel modes are refused; occupancy-guided sampling, the
+    Gauss-Newton polish (tracking and mapping), loose/free sync (the Demo
+    config's loose among them), iMAP*, N_importance, density compositing,
+    gt_camera and NICE widths and embeddings the fused decode does not
+    take are accepted, by check_slice and by the engine's constructor
+    (which reads the GN and occupancy-guided options into its specs)."""
     from nice_slam_torch.engine import check_slice
 
-    for ov in ({"rendering": {"occupancy_guided": True}},
-               {"tracking": {"pose_GN_iters": 2}},
-               {"mapping": {"pose_GN_iters": 2}},
-               {"tpu": {"pipelined": True}}, {"tpu": {"data_parallel": True}}):
+    for ov in ({"tpu": {"pipelined": True}}, {"tpu": {"data_parallel": True}},
+               {"tpu": {"grid_sharded": True}}, {"tpu": {"multihost": True}}):
         with pytest.raises(NotImplementedError):
             check_slice(load_config(overrides=ov))
     for ov in ({"sync_method": "loose"}, {"sync_method": "free"},
+               {"rendering": {"occupancy_guided": True}},
+               {"tracking": {"pose_GN_iters": 2}},
+               {"mapping": {"pose_GN_iters": 2}},
                {"rendering": {"N_importance": 4}}, {"occupancy": False},
                {"tracking": {"gt_camera": True}},
                {"model": {"c_dim": 16, "hidden_size": 64}},
@@ -122,6 +127,15 @@ def test_unsupported_options_raise():
                     "cy": 5.5, "crop_edge": 0},
             "model": {"c_dim": 16, "hidden_size": 64}}
     SlamEngine(load_config(overrides=tiny), device="cpu")
+    eng = SlamEngine(load_config(overrides={
+        **tiny, "rendering": {"occupancy_guided": True},
+        "tracking": {"pose_GN_iters": 2, "pose_GN_pixels": 30},
+        "mapping": {"pose_GN_iters": 3}}), device="cpu")
+    s = eng.specs
+    assert (s.track.gn_iters, s.track.gn_pixels) == (2, 30)
+    assert (s.mapper.pose_gn_iters, s.mapper.pose_gn_pixels) == (3, 200)
+    assert s.coarse_mapper.pose_gn_iters == 0 and s.render.occ_guided
+    assert eng.map_state.grids["occ_proxy"].shape[-1] == 1
     check_slice(load_config(nice=False))
     check_slice(load_config(os.path.join(REPO, "configs", "Demo",
                                          "demo.yaml")))

@@ -5,7 +5,9 @@ carried across) as a JAX run of the same config.
 The two packages draw different random streams (pixels, selections), so
 this compares results, not bits: both ATEs < 0.25 m and within 0.05 m of
 each other, the port's rendered depth at frame 0 within 0.15 m (median),
-and the port's selected keyframe windows at the events {0, 4, 8}."""
+and the port's selected keyframe windows at the events {0, 4, 8}; the
+run records of `stats()` (one per tracked frame, the JAX engine's keys,
+finite losses, best <= first)."""
 
 import numpy as np
 import pytest
@@ -81,3 +83,17 @@ def test_selected_keyframe_windows(engines):
         assert (valid <= idx).all(), (idx, row)
         for f in valid:
             assert f == idx or f in eng.kf_frame_ids, (idx, row)
+
+
+def test_stats_records_match_jax(engines):
+    eng_j, eng_t = engines
+    rec_j, rec_t = eng_j.stats(), eng_t.stats()
+    assert [r["idx"] for r in rec_t] == [r["idx"] for r in rec_j] \
+        == list(range(1, 9))
+    assert [list(r) for r in rec_t] == [list(r) for r in rec_j]
+    for r in rec_t:
+        v = [r["first_loss"], r["last_loss"], r["best_loss"]]
+        assert all(isinstance(x, float) and np.isfinite(x) for x in v), r
+        assert r["best_loss"] <= r["first_loss"], r
+    # a second read returns the same records
+    assert eng_t.stats() == rec_t
