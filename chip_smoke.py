@@ -122,7 +122,41 @@
    read that file's arrays exactly, and a reference-format coarse.pt /
    middle_fine.pt pair built from them must load onto the card equal.
    Prints ms per step.
-Phases 6-9 and 11-14 each run in a device memory freed of the earlier
+15. Data-parallel: two ranks on cuda:0 over gloo through run_torch.py's
+   local launch (tpu.data_parallel, mesh_shape [2]), strict, full width
+   (1,000 px a rank, so 2,000 a mapping step), 6 frames (events 0 and 5).
+   Fails unless the ranks' trajectories, grids and decoders are bit-equal
+   (digests in their summaries), each rank's K1/K2 launches equal the
+   single-rank schedule, the ATE is finite and under 0.25 m and only
+   rank 0 wrote ckpts/.  Then one mapping call (middle, fine and colour
+   iterations, BA and a Gauss-Newton iteration) on given pixels by two
+   ranks (this script started with --dp-rank) against this process on
+   the union: every iteration's all-reduced loss and gradients, the
+   Gauss-Newton system, the updated decoders, grids and cameras within a
+   relative Frobenius error of 1e-5, the GN guard's sums (taken at the
+   candidate cameras, which carry the solve's rounding) within 1e-4 (one
+   GN iteration: see dp_setup).  Prints the all_reduce's bytes per iteration by stage, its
+   share of map time and the backend.
+16. Pipelined: parallel/pipelined.py's engine in its one-device mode,
+   strict, 11 frames.  Fails unless the events and snapshots come in the
+   JAX package's pipelined order (one event of lag), the launches equal
+   the schedule, the ATE is finite and under 0.35 m (the JAX package's
+   bound for a lagged run) and, at every event, the tracker's snapshot
+   and trajectory share no storage with the mapper's map, trajectory and
+   keyframe store.
+17. Reconstruction evaluation (host only): phase 10's final_mesh.ply
+   against the synthetic scene's ground-truth mesh (its room, spheres and
+   box through the port's marching tetrahedra at 2 cm, a fixture of the
+   smoke) culled with phase 3's GT trajectory by nice_slam_torch/tools/
+   cull_mesh.py: accuracy, completion and completion ratio at 200,000
+   samples and depth L1 over 50 views (the reference's 1,000 cut to 50
+   for time).  Fails unless every metric is finite, the GT mesh scored
+   against itself gives a depth L1 of 0 and an accuracy and completion
+   under twice the sampling floor, and the rasterizer's library equals
+   its numpy oracle on one view (10,000 of the reconstruction's
+   triangles: coverage within max(2, covered / 1000) pixels, depth within
+   1e-4 relative).  Prints each part's wall time.
+Phases 6-9 and 11-16 each run in a device memory freed of the earlier
 phases' engines and print their wall time, frames/s, ATE, peak device
 memory and launch counts.
 
@@ -1185,6 +1219,482 @@ def run_pretrain(torch, fd, log, dev, steps=100, batch=4096):
 
 
 # ---------------------------------------------------------------------------
+# Phases 15-17: data-parallel, pipelined, reconstruction evaluation
+
+DP_WORLD = 2
+DP_STAGES = (("middle", 1), ("fine", 1), ("color", 1))
+
+
+def _rank_summaries(stdout: str) -> list:
+    """The JSON summaries that run_torch.py's ranks printed, by rank."""
+    dec = json.JSONDecoder()
+    out, k = [], stdout.find("{\n")
+    while k >= 0:
+        obj, end = dec.raw_decode(stdout, k)
+        out.append(obj)
+        k = stdout.find("{\n", end)
+    return sorted(out, key=lambda s: s["rank"])
+
+
+def _rel_err(torch, a, b) -> float:
+    """Relative Frobenius error of a against b (0 when both are 0)."""
+    nb = float(torch.linalg.vector_norm(b.double()))
+    na = float(torch.linalg.vector_norm((a - b).double()))
+    return na / nb if nb > 0 else (0.0 if na == 0 else math.inf)
+
+
+def dp_setup(torch, dev):
+    """A full-width mapping window of the synthetic scene for the union
+    check: keyframes 0, 2, 4, 6 and the current frame 8 at their GT poses
+    (the BA cameras then moved by 1 cm), the repository's decoders and
+    random grids from the config's seed, BA and one Gauss-Newton
+    iteration at 200 rays a window frame and rank; and the union's pixels
+    of the three iterations (middle, fine, colour), 2 x 1,000 rays each.
+    The same in every process.
+
+    One GN iteration: a second starts from cameras that differ by the
+    first solve's rounding, and its ray masks (valid depth, in bound) are
+    discontinuous in the pose, so its sums differ by whole rays, far above
+    1e-5 at this width; tests/test_torch_parallel.py holds two iterations
+    at a small width."""
+    import dataclasses
+
+    from nice_slam_torch import mapping
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.keyframes import add_keyframe
+    from nice_slam_torch.parallel.schur_ba import window_pixels
+
+    cfg = load_config(SYN_CFG, overrides={"synthetic": {"n_frames": 9}})
+    eng = SlamEngine(cfg, device=str(dev))
+    frames = {k: eng._load_frame(k) for k in (0, 2, 4, 6, 8)}
+    for k in (0, 2, 4, 6):
+        c, d, p = frames[k]
+        pose = torch.as_tensor(p, device=dev)
+        add_keyframe(eng.store, c, d, pose, pose, k)
+    c, d, p = frames[8]
+    spec = dataclasses.replace(eng.specs.mapper, pose_gn_iters=1,
+                               pose_gn_pixels=200)
+    window, masks, cams0, lr_mask = mapping.prepare_mapping(
+        eng.store, c, d, torch.as_tensor(p, device=dev), eng.map_state.grids,
+        eng.bound, eng.specs.camera, spec, True,
+        gen=torch.Generator(device=dev).manual_seed(1),
+        mask_names=mapping._trained_grids(spec, DP_STAGES))
+    g = torch.Generator().manual_seed(4)
+    cams0 = cams0 + 0.01 * torch.randn(cams0.shape, generator=g).to(dev)
+    wn = window["colors"].shape[0]
+    pixels = [tuple(x.to(dev) for x in window_pixels(
+        g, wn, DP_WORLD * (spec.pixels // wn), eng.specs.camera, "cpu"))
+        for _ in DP_STAGES]
+    st = eng.map_state
+    return (eng.specs, st.params, st.grids, st.bound, window, masks, cams0,
+            lr_mask, spec, pixels)
+
+
+def dp_union_call(torch, dev, world_one: bool):
+    """One data-parallel mapping call of the union check, its reduces
+    recorded: (the summed [loss, live gradients] of each stage iteration
+    and the Gauss-Newton sums [H, b, sse0], [sse1, cnt0, cnt1] of each GN
+    iteration, the final params + grids leaves, the cameras, the
+    losses).  world_one:
+    this process alone, on the union (twice the rank's pixels)."""
+    import dataclasses
+
+    from nice_slam_torch import mapping
+    from nice_slam_torch.ops.tree import tree_leaves
+    from nice_slam_torch.parallel.data_parallel import RayShard
+
+    class Recording(RayShard):
+        def reduce(self, tensors, kind="gn"):
+            out = super().reduce(tensors, kind)
+            self.sums.append([t.detach().clone() for t in out])
+            return out
+
+    (specs, params, grids, bound, window, masks, cams0, lr_mask, spec,
+     pixels) = dp_setup(torch, dev)
+    shard = Recording()
+    shard.sums = []
+    if world_one:
+        spec = dataclasses.replace(spec, pixels=DP_WORLD * spec.pixels,
+                                   pose_gn_pixels=DP_WORLD
+                                   * spec.pose_gn_pixels)
+    p, g, cams, losses = mapping.map_optimize(
+        params, grids, bound, window, cams0, masks, lr_mask, 1.0,
+        specs.camera, DP_STAGES, spec, specs.render, specs.model, ba=True,
+        gen=torch.Generator(device=dev).manual_seed(3), pixels=pixels,
+        shard=shard)
+    return shard.sums, tree_leaves(p) + tree_leaves(g), cams, losses
+
+
+def dp_rank_main(rank: int, port: int, out: str, device: str) -> int:
+    """One rank of the union check (chip_smoke.py --dp-rank R --port P
+    --out FILE --device D): saves its reduced sums and results."""
+    import numpy as np
+    import torch
+
+    from nice_slam_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", DP_WORLD, rank, timeout_s=300,
+                         device=device)
+    dev = multihost.rank_device(device, rank)
+    sums, leaves, cams, losses = dp_union_call(torch, dev, False)
+    arrays = {f"sum{i}_{k}": t.cpu().numpy() for i, s in enumerate(sums)
+              for k, t in enumerate(s)}
+    arrays.update({f"leaf{k}": t.detach().cpu().numpy()
+                   for k, t in enumerate(leaves)})
+    arrays["cams"] = cams.detach().cpu().numpy()
+    arrays["losses"] = losses.cpu().numpy()
+    arrays["backend"] = np.array(multihost.backend())
+    np.savez(out, **arrays)
+    multihost.shutdown()
+    return 0
+
+
+def check_dp_union(torch, log, out_dir, device="cuda"):
+    """Two ranks of one mapping call over gloo on the card against this
+    process on the union: each iteration's summed loss and gradients, the
+    GN system and the updated leaves within a relative Frobenius error of
+    1e-5, the GN guard's sums within 1e-4."""
+    import numpy as np
+
+    from nice_slam_torch.parallel.multihost import free_port, rank_world
+
+    fail_if(rank_world()[1] != 1, "dp: the smoke itself joined a group")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "--port", str(port), "--device", device, "--out",
+         os.path.join(out_dir, f"union_rank{r}.npz")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(DP_WORLD)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        fail_if(p.returncode != 0,
+                f"dp union: rank {r} exited {p.returncode}: {text[-3000:]}")
+    ranks_s = time.perf_counter() - t0
+    dev = torch.device(device)
+    sums, leaves, cams, losses = dp_union_call(torch, dev, True)
+    want = {f"sum{i}_{k}": t for i, s in enumerate(sums)
+            for k, t in enumerate(s)}
+    want.update({f"leaf{k}": t.detach() for k, t in enumerate(leaves)})
+    want["cams"], want["losses"] = cams.detach(), losses
+    worst = {}
+    for r in range(DP_WORLD):
+        with np.load(os.path.join(out_dir, f"union_rank{r}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        fail_if(set(got) - {"backend"} != set(want),
+                f"dp union: rank {r} has {sorted(got)}, want {sorted(want)}")
+        for k, w in want.items():
+            e = _rel_err(torch, torch.as_tensor(got[k]).to(dev), w)
+            worst[k] = max(worst.get(k, 0.0), e)
+    # the guard's sums [sse1, cnt0, cnt1] are taken at the candidate
+    # cameras, which carry the 7x7 solve's rounding: 1e-4
+    guard = f"sum{len(DP_STAGES) + 1}_"
+    bad = {k: e for k, e in worst.items()
+           if not e <= (1e-4 if k.startswith(guard) else 1e-5)}
+    n_sums = sum(1 for k in want if k.startswith("sum"))
+    log(f"dp union: {DP_WORLD} ranks ({ranks_s:.2f} s) against one process "
+        f"on the union: {n_sums} summed tensors and {len(want) - n_sums} "
+        f"results, max relative error sums "
+        f"{max(e for k, e in worst.items() if k.startswith('sum')):.3g}, "
+        f"results {max(e for k, e in worst.items() if not k.startswith('sum')):.3g}")
+    fail_if(bool(bad), f"dp union: relative errors above 1e-5: {bad}")
+    return max(worst.values())
+
+
+def run_dp(torch, fd, log, n_frames=6, device="cuda", overrides=None):
+    """Phase 15: two ranks on cuda:0 through run_torch.py's local launch,
+    then the union check (`device` and config `overrides` rehearse it on
+    the CPU)."""
+    import shutil
+
+    import yaml
+
+    from nice_slam_torch.config import load_config
+
+    out = os.path.join(REPO, "output", "chip_smoke_dp")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cfg_path = os.path.join(out, "dp.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump({"inherit_from": SYN_CFG,
+                        "synthetic": {"n_frames": n_frames},
+                        "tpu": {"data_parallel": True,
+                                "mesh_shape": [DP_WORLD]},
+                        "data": {"output": out}, **(overrides or {})}, f)
+    cfg = load_config(cfg_path)
+    _release(torch)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(REPO, "run_torch.py"),
+                        cfg_path, "--no-mesh", "--device", device], cwd=REPO,
+                       capture_output=True, text=True, timeout=900)
+    launch_s = time.perf_counter() - t0
+    fail_if(r.returncode != 0,
+            f"dp: run_torch.py exited {r.returncode}: {r.stderr[-3000:]}")
+    ranks = _rank_summaries(r.stdout)
+    fail_if([s["rank"] for s in ranks] != list(range(DP_WORLD)),
+            f"dp: summaries of ranks {[s['rank'] for s in ranks]}")
+    exp_f, exp_b, _ = expected_launches(cfg, n_frames)
+    s0 = ranks[0]
+    ar = [s["allreduce"] for s in ranks]
+    k1 = [s["launches"]["fused_decode_fwd"] for s in ranks]
+    k2 = [s["launches"]["fused_decode_bwd"] for s in ranks]
+    res = {"path": "dp", "ranks": DP_WORLD, "backend": s0["backend"],
+           "launch_s": launch_s, "wall_s": [s["wall_s"] for s in ranks],
+           "frames": n_frames,
+           "frames_per_s": [n_frames / s["wall_s"] for s in ranks],
+           "ate_rmse_m": s0["ate_rmse_m"],
+           "peak_mib": [s["peak_mib"] for s in ranks],
+           "k1": k1[0], "k2": k2[0], "k1_by_rank": k1, "k2_by_rank": k2,
+           "allreduce_bytes_per_iter": ar[0]["bytes_per_iter"],
+           "allreduce_iters": ar[0]["iters"],
+           "allreduce_s": [a["seconds"] for a in ar],
+           "allreduce_share_of_map": [a["seconds"] / s["timings_s"]["map"]
+                                      for a, s in zip(ar, ranks)],
+           "timings": [s["timings_s"] for s in ranks],
+           "written": [s["written"] for s in ranks]}
+    log("dp: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(any(s["world"] != DP_WORLD for s in ranks), "dp: world size")
+    fail_if(any((s["traj_sha256"], s["map_sha256"])
+                != (s0["traj_sha256"], s0["map_sha256"]) for s in ranks),
+            "dp: the ranks' trajectories or maps differ: "
+            f"{[(s['traj_sha256'], s['map_sha256']) for s in ranks]}")
+    fail_if(any(k == 0 for k in k1 + k2),
+            "dp: a kernel of the path was never launched")
+    fail_if(any((f, b) != (exp_f, exp_b) for f, b in zip(k1, k2)),
+            f"dp: launches K1 {k1} K2 {k2} by rank, schedule {exp_f} "
+            f"{exp_b} a rank")
+    ate = res["ate_rmse_m"]
+    fail_if(not math.isfinite(ate) or ate > 0.25,
+            f"dp: ATE {ate} not finite or above 0.25 m")
+    fail_if(s0["written"].get("ckpt", 0) < 1
+            or any(v for s in ranks[1:] for v in s["written"].values()),
+            f"dp: files written by rank {res['written']}")
+    ck = sorted(os.listdir(os.path.join(out, "ckpts")))
+    fail_if(ck != [f"{n_frames - 1:05d}.npz"], f"dp: ckpts/ holds {ck}")
+    res["union_max_rel_err"] = check_dp_union(torch, log, out, device)
+    return res
+
+
+def pipelined_schedule(n: int, every: int) -> list:
+    """The JAX PipelinedSlamEngine's order of work (nice_slam_tpu/parallel/
+    pipelined.py:115-171): event 0, its snapshot; per group, its frames
+    tracked, the previous event's snapshot, the boundary's event; the
+    final snapshot."""
+    seq = [("map", 0), ("snap", None)]
+    cur, prev = 1, None
+    while cur < n:
+        g_end = min(((cur - 1) // every + 1) * every, n - 1)
+        seq += [("track", i) for i in range(cur, g_end + 1)]
+        if prev is not None:
+            seq.append(("snap", prev))
+        seq.append(("map", g_end))
+        prev, cur = g_end, g_end + 1
+    return seq + [("snap", prev)]
+
+
+def run_pipelined(torch, fd, log, n_frames=11):
+    """Phase 16: the pipelined engine in its one-device mode."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.ops.tree import tree_leaves
+    from nice_slam_torch.parallel.pipelined import PipelinedSlamEngine
+
+    cfg = load_config(SYN_CFG, overrides={
+        "synthetic": {"n_frames": n_frames}, "tpu": {"pipelined": True},
+        "data": {"output": os.path.join(REPO, "output",
+                                        "chip_smoke_pipelined")}})
+    eng = PipelinedSlamEngine(cfg, devices=[torch.device("cuda", 0)])
+    fail_if(eng.dev_track != eng.dev_map, "pipelined: two devices")
+    seq, shared = [], []
+    orig_track, orig_map, orig_snap = (eng.track, eng.mapping_event,
+                                       eng._snapshot)
+
+    def ptrs(ts):
+        return {t.untyped_storage().data_ptr() for t in ts}
+
+    def track(idx, *a, **k):
+        seq.append(("track", idx))
+        return orig_track(idx, *a, **k)
+
+    def mapping_event(idx, *a, **k):
+        seq.append(("map", idx))
+        st, kf = eng.map_state, eng.store
+        mapper = ptrs(tree_leaves(st.params) + tree_leaves(st.grids)
+                      + [st.bound, kf.est_c2w, kf.colors, kf.depths]
+                      + ([eng._est_m] if eng._est_m is not None else []))
+        tracker = ptrs(tree_leaves(eng._params_t) + tree_leaves(eng._grids_t)
+                       + [eng._bound_t, eng.est_c2w_dev])
+        shared.append(len(mapper & tracker))
+        return orig_map(idx, *a, **k)
+
+    def snapshot(idx):
+        seq.append(("snap", idx))
+        return orig_snap(idx)
+
+    eng.track, eng.mapping_event, eng._snapshot = (track, mapping_event,
+                                                   snapshot)
+    for i in range(n_frames):
+        eng.dataset[i]
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fd.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fd.launch_counts()
+    want = pipelined_schedule(n_frames, cfg["mapping"]["every_frame"])
+    exp_f, exp_b, _ = expected_launches(cfg, n_frames)
+    res = {"path": "pipelined", "wall_s": wall, "frames": n_frames,
+           "frames_per_s": n_frames / wall, "ate_rmse_m": eng.ate()["rmse"],
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
+           "order": [e for e in seq if e[0] != "track"],
+           "shared_storages": shared, "timings": dict(eng.timings)}
+    log("pipelined: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(seq != want, f"pipelined: order {seq}, schedule {want}")
+    fail_if(res["k1"] == 0 or res["k2"] == 0,
+            "pipelined: a kernel of the path was never launched")
+    fail_if((res["k1"], res["k2"]) != (exp_f, exp_b),
+            f"pipelined: launches K1 {res['k1']} K2 {res['k2']}, schedule "
+            f"{exp_f} {exp_b}")
+    fail_if(any(shared), f"pipelined: the tracker's snapshot shares storage "
+            f"with the mapper's state at events: {shared}")
+    ate = res["ate_rmse_m"]
+    fail_if(not math.isfinite(ate) or ate > 0.35,
+            f"pipelined: ATE {ate} not finite or above 0.35 m")
+    del eng
+    return res
+
+
+def box_sdf(p, lo, hi):
+    import numpy as np
+
+    q = np.abs(p - (lo + hi) / 2) - (hi - lo) / 2
+    return (np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+            + np.minimum(q.max(axis=-1), 0.0))
+
+
+def synthetic_gt_mesh(spacing: float = 0.02):
+    """The ground-truth mesh of SyntheticScene.default(): the room's walls,
+    the spheres and the box, as the zero level of a solid field (positive
+    outside the room's interior and inside an object) through the port's
+    marching tetrahedra.  A fixture of the smoke."""
+    import numpy as np
+
+    from nice_slam_torch.native import marching_tetrahedra
+    from nice_slam_torch.utils.synthetic import SyntheticScene
+
+    sc = SyntheticScene.default()
+    lo = np.asarray(sc.room_lo, float) - 2 * spacing
+    hi = np.asarray(sc.room_hi, float) + 2 * spacing
+    axes = [np.arange(lo[a], hi[a] + spacing / 2, spacing) for a in range(3)]
+    p = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)
+    f = box_sdf(p, np.asarray(sc.room_lo), np.asarray(sc.room_hi))
+    for s in sc.spheres:
+        f = np.maximum(f, s.radius - np.linalg.norm(p - s.center, axis=-1))
+    for b in sc.boxes:
+        f = np.maximum(f, -box_sdf(p, b.lo, b.hi))
+    return marching_tetrahedra(f.astype(np.float32), 0.0, lo,
+                               np.full(3, spacing))
+
+
+def run_recon(log, mesh_path, ckpt_path, cam, n_views=50,
+              out_dir=None):
+    """Phase 17: phase 10's mesh against the synthetic scene's culled GT
+    mesh, through the port's tools."""
+    import numpy as np
+
+    from nice_slam_torch.native import _rasterize_depth_numpy, rasterize_depth
+    from nice_slam_torch.tools import cull_mesh, eval_recon
+    from nice_slam_torch.utils.plyio import read_ply, write_ply
+
+    out_dir = out_dir or os.path.join(REPO, "output", "chip_smoke_recon")
+    os.makedirs(out_dir, exist_ok=True)
+    parts = {}
+
+    def part(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    t = t_all = time.perf_counter()
+    gv, gt_ = synthetic_gt_mesh()
+    gt_path = os.path.join(out_dir, "gt_mesh.ply")
+    write_ply(gt_path, gv, gt_)
+    t = part("gt_mesh", t)
+    culled = os.path.join(out_dir, "gt_mesh_culled.ply")
+    cull_mesh.main([gt_path, "--ckpt", ckpt_path, "--traj", "gt",
+                    "--output", culled, "--save_unseen",
+                    "--H", str(cam["H"]), "--W", str(cam["W"]),
+                    "--fx", str(cam["fx"]), "--fy", str(cam["fy"]),
+                    "--cx", str(cam["cx"]), "--cy", str(cam["cy"])])
+    t = part("cull", t)
+    rec, gt = read_ply(mesh_path), read_ply(culled)
+    unseen = np.load(culled.replace(".ply", "_pc_unseen.npy"))
+    t = part("read", t)
+    m3 = eval_recon.calc_3d_metrics(rec, gt)
+    t = part("metrics_3d", t)
+    m2 = eval_recon.calc_2d_metric(rec, gt, unseen, n_views=n_views)
+    t = part("metrics_2d", t)
+    self3 = eval_recon.calc_3d_metrics(gt, gt, align=False)
+    # the mean distance to the nearest of n uniform samples on an area A
+    # is about 0.5 sqrt(A / n)
+    v0, v1, v2 = (gt[0][gt[1][:, k]] for k in range(3))
+    area = 0.5 * float(np.linalg.norm(np.cross(v1 - v0, v2 - v0),
+                                      axis=1).sum())
+    floor_cm = 100 * 0.5 * math.sqrt(area / 200_000)
+    self2 = eval_recon.calc_2d_metric(gt, gt, unseen, n_views=5,
+                                      align=False)
+    t = part("self_check", t)
+    # the library against its numpy oracle on one view: a GT pose of the
+    # run, 10,000 of the reconstruction's triangles
+    with np.load(ckpt_path) as z:
+        c2w = z["gt_c2w"][int(z["idx"]) // 2]
+    rv, rt = rec[0], rec[1]
+    sub = rt[np.random.RandomState(0).choice(len(rt), min(10_000, len(rt)),
+                                             replace=False)]
+    args = (cam["H"], cam["W"], cam["fx"], cam["fy"], cam["cx"], cam["cy"])
+    d_lib = rasterize_depth(rv, sub, c2w, *args)
+    d_np = _rasterize_depth_numpy(
+        np.ascontiguousarray(rv, np.float32), np.asarray(sub, np.int64),
+        np.linalg.inv(c2w).astype(np.float32), *args, 0.01, 20.0)
+    cover = d_lib > 0
+    miss = int((cover != (d_np > 0)).sum())
+    both = cover & (d_np > 0)
+    rel = float(np.max(np.abs(d_lib - d_np)[both] / d_np[both])) \
+        if both.any() else 0.0
+    t = part("oracle_view", t)
+    res = {"path": "recon", "wall_s": time.perf_counter() - t_all,
+           "parts_s": parts, "n_views": n_views,
+           "rec_vertices": len(rv), "rec_triangles": len(rt),
+           "gt_triangles": len(gt_), "gt_culled_triangles": len(gt[1]),
+           "unseen_points": len(unseen), **m3, **m2,
+           "self": {**self3, **self2, "sampling_floor_cm": floor_cm},
+           "oracle": {"covered_px": int(cover.sum()), "coverage_differs_px":
+                      miss, "max_rel_err": rel}}
+    log("recon: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(not all(math.isfinite(res[k]) for k in (
+        "accuracy_cm", "completion_cm", "completion_ratio_pct",
+        "depth_l1_cm")), "recon: a metric is not finite")
+    fail_if(res["views_used"] == 0, "recon: no view was used")
+    # against itself: depth L1 exactly 0; accuracy and completion at the
+    # sampling floor (two independent 200k samples of the same surface)
+    fail_if(self2["depth_l1_cm"] != 0.0 or self2["views_used"] == 0,
+            f"recon: GT against itself, depth L1 {self2}")
+    fail_if(not (self3["accuracy_cm"] < 2 * floor_cm
+                 and self3["completion_cm"] < 2 * floor_cm
+                 and self3["completion_ratio_pct"] > 99.0),
+            f"recon: GT against itself {self3}, sampling floor "
+            f"{floor_cm} cm")
+    fail_if(miss > max(2, cover.sum() // 1000) or not rel <= 1e-4
+            or not cover.any(),
+            f"recon: rasterizer against its oracle: {res['oracle']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: timing
 
 def cuda_time_ms(torch, fn, warmup=3, reps=9, inner=10):
@@ -1268,7 +1778,15 @@ def time_bwd(torch, fd, ws, dev, n, with_color, live, log):
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    # one rank of phase 15's union check, started by the smoke itself
+    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, args.port, args.out, args.device)
 
     import torch
 
@@ -1373,8 +1891,15 @@ def main() -> int:
     gn = run_gn(torch, fd, log)
     occ = run_occ(torch, fd, log, strict_ate)
     pre = run_pretrain(torch, fd, log, dev)
+    dp = run_dp(torch, fd, log)
+    pipe = run_pipelined(torch, fd, log)
+    recon = run_recon(
+        log, os.path.join(REPO, "output", "chip_smoke", "mesh",
+                          "final_mesh.ply"),
+        os.path.join(REPO, "output", "chip_smoke", "ckpts", "00010.npz"),
+        syn["cam"])
     by_path = {r["path"]: r for r in (loose, free, resumed, imap, mesh,
-                                      repeat, gn, occ, pre)}
+                                      repeat, gn, occ, pre, dp, pipe)}
 
     # phase 5 continued: K1 and K2 at the new paths' shapes
     for path, kind in (("occ", f"fine n={n_proxy}"),
@@ -1419,6 +1944,7 @@ def main() -> int:
          "launches_by_path": paths("fused_decode_bwd"), "shapes": shapes},
     ]
     log(f"grid scatter: {json.dumps(repeat['scatter'])}")
+    log(f"recon: {json.dumps(recon)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

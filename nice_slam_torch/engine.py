@@ -32,11 +32,20 @@ A `mesher_hook` (utils/mesher.engine_mesher_hook) runs after the
 checkpoint every mesh_freq frames and at the last frame.  The trajectory,
 the map and the keyframe store stay on the device.
 
-Not in the port (the JAX package has them): the visualizer and the
-parallel modes.  The constructor raises when a config asks for a parallel
-mode (`check_slice`).  The JAX package's TPU dispatch knobs
-(tpu.grouped_tracking, fuse_lagged, barrier_every_groups, prefetch,
-fuse_track_map) are accepted and ignored.
+Parallel modes.  In a process group of more than one rank
+(parallel/multihost.py) the engine learns its rank and the world size:
+rank r runs on cuda:(LOCAL_RANK mod device_count), its mapping is
+data-parallel (parallel/data_parallel.py: each rank renders its slice of
+the union ray batch, the gradients are summed over the group) and only
+rank 0 writes checkpoints and meshes (nice_slam_tpu/engine.py:157-160,
+767-772).  World 1 is the dense path.  tpu.pipelined runs the tracker and
+the mapper on two devices (parallel/pipelined.py).
+
+Not in the port (the JAX package has them): the visualizer and
+tpu.grid_sharded, which the constructor refuses (`check_slice`).  The JAX
+package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
+barrier_every_groups, prefetch, fuse_track_map) and tpu.mesh_shape
+(run_torch.py reads it to launch local ranks) are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ from nice_slam_torch.config import SlamSpecs, specs_from_config
 from nice_slam_torch.keyframes import KeyframeStore, add_keyframe, make_store
 from nice_slam_torch.mapping import mapping_step, stage_iters_of
 from nice_slam_torch.ops.tree import tree_map
+from nice_slam_torch.parallel.multihost import rank_device, rank_world
 from nice_slam_torch.state import make_map_state
 from nice_slam_torch.tracking import track_step
 from nice_slam_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -60,16 +70,18 @@ from nice_slam_torch.utils.profiling import StageTimer
 
 
 def check_slice(cfg: dict) -> None:
-    """Raise for config options the port does not run: the parallel
-    modes."""
-    missing = []
+    """Raise for config options the port does not run (tpu.grid_sharded)
+    and, with ValueError, for tpu.pipelined together with
+    tpu.data_parallel (nice_slam_tpu/parallel/pipelined.py:72-76)."""
     tpu = cfg.get("tpu", {})
-    for knob in ("pipelined", "data_parallel", "grid_sharded", "multihost"):
-        if tpu.get(knob):
-            missing.append(f"tpu.{knob} (parallel modes)")
-    if missing:
+    if tpu.get("grid_sharded"):
         raise NotImplementedError(
-            "not in this slice of the PyTorch port: " + "; ".join(missing))
+            "not in this slice of the PyTorch port: tpu.grid_sharded")
+    if tpu.get("pipelined") and tpu.get("data_parallel"):
+        raise ValueError(
+            "tpu.pipelined and tpu.data_parallel are mutually exclusive: "
+            "the pipelined engine keeps the map on one device; "
+            "data-parallel mapping replicates it over a process group")
 
 
 class SlamEngine:
@@ -79,9 +91,18 @@ class SlamEngine:
         """Raises for the options `check_slice` names; every model width
         and embedding runs.  mesher_hook(engine, idx, final) runs after a
         mapping event's checkpoint every mesh_freq frames and at the last
-        frame."""
+        frame, on the primary rank.  In a process group of more than one
+        rank, device 'cuda' means this rank's card."""
         check_slice(cfg)
-        self.device = torch.device(device)
+        self.rank, self.world = rank_world()
+        self.is_primary = self.rank == 0
+        self.device = (rank_device(device, self.rank) if self.world > 1
+                       else torch.device(device))
+        # the data-parallel hook of the mapping step (None on one rank)
+        self.dp = None
+        if self.world > 1:
+            from nice_slam_torch.parallel.data_parallel import RayShard
+            self.dp = RayShard()
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("device='cuda' but no CUDA device; pass "
@@ -141,6 +162,8 @@ class SlamEngine:
         self.est_c2w_dev = torch.zeros(self.n_img, 4, 4, device=self.device)
         self.gt_c2w = np.zeros((self.n_img, 4, 4), np.float32)
         self.frames_done = 0
+        # files this rank wrote, by kind (only the primary writes)
+        self.written = {"ckpt": 0, "mesh": 0}
         # host seconds by stage (the mesher hook adds its parts)
         self.timer = StageTimer()
         self.timings = self.timer.totals
@@ -189,9 +212,10 @@ class SlamEngine:
         """Host copy of the device trajectory."""
         return self.est_c2w_dev.detach().cpu().numpy()
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _sync(self, device=None):
+        device = device or self.device
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def _safe_est_pose(self, gt_pose, idx: int):
         """Non-finite GT poses (a ScanNet artifact) must not seed the
@@ -205,9 +229,9 @@ class SlamEngine:
             self._warned_bad_pose = True
         return np.eye(4, dtype=np.float32)
 
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+    def _to_dev(self, a: np.ndarray, device=None) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a),
-                               dtype=torch.float32).to(self.device)
+                               dtype=torch.float32).to(device or self.device)
 
     def _load_frame(self, idx: int):
         """Frame idx: colour and depth on the device, the GT pose on the
@@ -221,8 +245,14 @@ class SlamEngine:
 
     def _set_gt_pose(self, idx: int, gt_pose) -> None:
         self.gt_c2w[idx] = gt_pose
-        self.est_c2w_dev[idx] = self._to_dev(self._safe_est_pose(gt_pose,
-                                                                 idx))
+        self.est_c2w_dev[idx] = self._to_dev(
+            self._safe_est_pose(gt_pose, idx), self.est_c2w_dev.device)
+
+    def _tracking_map(self):
+        """(params, grids, bound, generator) the tracker reads: the map
+        itself (the pipelined engine gives its snapshot)."""
+        st = self.map_state
+        return st.params, st.grids, self.bound, self.gen
 
     def track(self, idx: int, color, depth, gt_pose) -> None:
         """Track one frame against the frozen map; frame 0 and
@@ -232,13 +262,12 @@ class SlamEngine:
             return
         self.gt_c2w[idx] = gt_pose
         s = self.specs
-        st = self.map_state
+        params, grids, bound, gen = self._tracking_map()
         with self.timer.time("track"):
-            losses = track_step(st.params, st.grids, self.bound,
-                                self.est_c2w_dev, idx, color, depth,
-                                s.camera, s.track, s.render, s.model,
-                                gen=self.gen)
-            self._sync()
+            losses = track_step(params, grids, bound, self.est_c2w_dev, idx,
+                                color, depth, s.camera, s.track, s.render,
+                                s.model, gen=gen)
+            self._sync(self.est_c2w_dev.device)
         self.tracking_stats.append({"idx": idx, "losses": losses})
 
     def stats(self) -> list:
@@ -268,7 +297,7 @@ class SlamEngine:
             coarse_spec=coarse_spec,
             coarse_stage_iters=(stage_iters_of(coarse_spec, coarse_iters)
                                 if coarse_spec is not None else ()),
-            coarse_lr_factor=coarse_lr_factor)
+            coarse_lr_factor=coarse_lr_factor, dp=self.dp)
         if self.save_selected_kf and record:
             self.selected_keyframes[idx] = sel
         return losses
@@ -333,12 +362,15 @@ class SlamEngine:
             # every frame up to idx is tracked by now; under strict sync
             # the loop bumps frames_done only after this event
             self.frames_done = max(self.frames_done, idx + 1)
-            with self.timer.time("ckpt"):
-                self.save(os.path.join(self.output, "ckpts",
-                                       f"{idx:05d}.npz"))
-        if self.mesher_hook is not None and (
+            if self.is_primary:
+                with self.timer.time("ckpt"):
+                    self.save(os.path.join(self.output, "ckpts",
+                                           f"{idx:05d}.npz"))
+                self.written["ckpt"] += 1
+        if self.mesher_hook is not None and self.is_primary and (
                 (idx % self.mesh_freq == 0 and idx > 0) or final):
             self.mesher_hook(self, idx, final)
+            self.written["mesh"] += 1
 
     # -- main loop ---------------------------------------------------------
 

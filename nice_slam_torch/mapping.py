@@ -13,7 +13,11 @@ the JAX package:
   pose_gn_iters > 0 the staged Adam is followed by guarded Gauss-Newton
   steps on those cameras (parallel/schur_ba.py);
 - an occupancy-guided run refreshes its occupancy proxy after each NICE
-  mapping pass that is not the coarse mapper's (`refresh_occ_proxy`).
+  mapping pass that is not the coarse mapper's (`refresh_occ_proxy`);
+- in a process group of more than one rank the staged Adam is
+  data-parallel (parallel/data_parallel.py: `map_optimize` with a
+  `RayShard` hook that gives each rank its slice of the union's rays and
+  sums the loss and gradients over the group).
 
 In iMAP* mode there are no grids and no frustum masks: the one decoder
 trains at imap_decoders_lr under StepLR(200, 0.8) (Mapper.py:388-389),
@@ -266,11 +270,12 @@ def _window_rays(window, cams, camera: Camera, pix_per_frame: int,
 def mapping_loss(tree, window, bound, camera: Camera, stage: str,
                  mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                  gen: Optional[torch.Generator] = None, pix=None,
-                 reg_u=None):
+                 reg_u=None, max_depth=None):
     """One mapping loss (Mapper.py:430-501): masked L1 depth + (colour
     stage, every stage in iMAP*) L1 colour; density mode (iMAP*) adds the
     sigma regulation, whose jitter `reg_u` is drawn from `gen` unless
-    given."""
+    given.  `max_depth` replaces the batch's max sensor depth in the
+    render (a rank of a data-parallel step passes the union's)."""
     params, grids, cams = tree["params"], tree["grids"], tree["cams"]
     n_pix = mapspec.pixels // window["colors"].shape[0]
     rays_o, rays_d, gt_d, gt_c, valid = _window_rays(window, cams, camera,
@@ -282,7 +287,8 @@ def mapping_loss(tree, window, bound, camera: Camera, stage: str,
         m = valid
     depth, _, color, _ = render_rays(
         params, mspec, grids, bound, rays_o, rays_d, rspec, stage,
-        gt_depth=None if mapspec.coarse_mapper else gt_d, gen=gen)
+        gt_depth=None if mapspec.coarse_mapper else gt_d, gen=gen,
+        max_depth=max_depth)
     dm = (gt_d > 0) & m
     loss = torch.sum(torch.abs(gt_d - depth) * dm)
     if not mapspec.nice or stage == "color":
@@ -379,7 +385,7 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                  lr_factor: float, camera: Camera, stage_iters,
                  mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                  ba: bool = True, gen: Optional[torch.Generator] = None,
-                 pixels=None):
+                 pixels=None, shard=None):
     """Run the staged mapping optimisation.  Adam is fresh per call and its
     moments persist across the stages.  `pixels` optionally gives every
     iteration's window draws, in order.  With BA on, NICE mode and
@@ -387,8 +393,14 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
     guarded Gauss-Newton steps with the map frozen (nice_slam_tpu/
     mapping.py:388-395).
 
+    `shard` (parallel/data_parallel.RayShard) makes the step data-parallel:
+    each iteration renders this rank's slice of the union's draws
+    (`pixels` then gives the union's), and the loss and the live gradients
+    are summed over its group before the masks, the clip and Adam.
+
     Returns (params, grids, cams, losses (n_iters,))."""
     tree = {"params": params, "grids": grids, "cams": cams0.detach()}
+    wn = window["colors"].shape[0]
     opt = adam_init(tree)
     if not ba:
         mapspec = dataclasses.replace(mapspec, ba=False)
@@ -405,11 +417,20 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                           x.detach().requires_grad_(True), tree, frozen)
             live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
                     if not f]
+            pix = None if pixels is None else pixels[it_all]
+            reg_u = max_d = None
+            if shard is not None:
+                pix, reg_u, max_d = shard.loss_draws(
+                    window, camera, mapspec.pixels // wn, rspec, gen, pix)
             loss = mapping_loss(
                 tr, window, bound, camera, stage, mapspec, rspec_stage,
-                mspec, gen=gen,
-                pix=None if pixels is None else pixels[it_all])
-            gl = iter(torch.autograd.grad(loss, live, allow_unused=True))
+                mspec, gen=gen, pix=pix, reg_u=reg_u, max_depth=max_d)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+            if shard is not None:
+                loss, *grads = shard.reduce(
+                    [loss] + [torch.zeros_like(x) if gg is None else gg
+                              for x, gg in zip(live, grads)], stage)
+            gl = iter(grads)
             g = tree_map(lambda x, f: None if f else next(gl), tr, frozen)
             for n in g["grids"]:
                 if g["grids"][n] is not None:
@@ -436,7 +457,7 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
             cam_lr_mask, camera,
             dataclasses.replace(rspec, train_decoders=False), mspec,
             mapspec.pose_gn_iters, mapspec.pose_gn_pixels,
-            mapspec.pose_gn_damping, gen=gen)
+            mapspec.pose_gn_damping, gen=gen, shard=shard)
     return tree["params"], tree["grids"], tree["cams"], out
 
 
@@ -444,9 +465,14 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
                       est_c2w: torch.Tensor, idx: int, color, depth,
                       lr_factor: float, camera: Camera, stage_iters,
                       mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
-                      ba: bool, gen: Optional[torch.Generator] = None):
+                      ba: bool, gen: Optional[torch.Generator] = None,
+                      dp=None):
     """One keyframe-window optimisation: selection + frustum masks + staged
-    Adam + BA write-back (store and est_c2w updated in place).  Returns
+    Adam + BA write-back (store and est_c2w updated in place).  With `dp`
+    (a parallel/data_parallel.RayShard; the engine gives one when its
+    process group has more than one rank) the staged Adam is
+    `dp_map_optimize`, for the coarse mapper too, as
+    the JAX package routes it (nice_slam_tpu/mapping.py:504-523).  Returns
     (params, grids, losses, sel_frames): sel_frames is the window's frame
     ids (the current frame included, -2 = empty slot; Mapper.py:274-287)."""
     cur_c2w = est_c2w[idx]
@@ -459,9 +485,17 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
         torch.where(slots >= 0, store.frame_idx[torch.clamp(slots, min=0)],
                     torch.full_like(slots, idx)),
         torch.full_like(slots, -2))
-    params, grids, cams, losses = map_optimize(
-        params, grids, bound, window, cams0, masks, cam_lr_mask, lr_factor,
-        camera, stage_iters, mapspec, rspec, mspec, ba=ba, gen=gen)
+    if dp is not None:
+        from nice_slam_torch.parallel.data_parallel import dp_map_optimize
+        params, grids, cams, losses = dp_map_optimize(
+            params, grids, bound, window, cams0, masks, cam_lr_mask,
+            lr_factor, camera, stage_iters, mapspec, rspec, mspec, dp,
+            ba=ba, gen=gen)
+    else:
+        params, grids, cams, losses = map_optimize(
+            params, grids, bound, window, cams0, masks, cam_lr_mask,
+            lr_factor, camera, stage_iters, mapspec, rspec, mspec, ba=ba,
+            gen=gen)
     if ba:
         with torch.no_grad():
             new_c2w = to_homogeneous(cam_from_tensor(cams))
@@ -478,17 +512,19 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
                  ba: bool, gen: Optional[torch.Generator] = None,
                  insert_kf: bool = False, gt_pose=None,
                  coarse_spec: Optional[MapSpec] = None,
-                 coarse_stage_iters=(), coarse_lr_factor: float = 1.0):
+                 coarse_stage_iters=(), coarse_lr_factor: float = 1.0,
+                 dp=None):
     """One mapping event in the reference's order: the mapping optimisation
     (+BA) -> the occupancy proxy's refresh (occupancy-guided runs) ->
     keyframe insertion (insert_kf) -> the coarse mapper
     (coarse_spec; the reference's third process, NICE_SLAM.py:278-286),
-    which sees the post-BA poses and the new keyframe.
+    which sees the post-BA poses and the new keyframe.  `dp`: see
+    `_one_map_optimize`.
 
     Returns (params, grids, losses, sel_frames)."""
     params, grids, losses, sel_frames = _one_map_optimize(
         params, grids, bound, store, est_c2w, idx, color, depth, lr_factor,
-        camera, stage_iters, mapspec, rspec, mspec, ba, gen)
+        camera, stage_iters, mapspec, rspec, mspec, ba, gen, dp)
     if mapspec.nice and not mapspec.coarse_mapper and "occ_proxy" in grids:
         grids = dict(grids)
         grids["occ_proxy"] = refresh_occ_proxy(params, grids, bound, mspec)
@@ -498,7 +534,7 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
         params, grids, _, _ = _one_map_optimize(
             params, grids, bound, store, est_c2w, idx, color, depth,
             coarse_lr_factor, camera, coarse_stage_iters, coarse_spec,
-            rspec, mspec, False, gen)
+            rspec, mspec, False, gen, dp)
     return params, grids, losses, sel_frames
 
 

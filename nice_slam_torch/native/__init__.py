@@ -1,11 +1,18 @@
-"""Host (C++) iso-surface extraction for the mesher: marching tetrahedra.
+"""Host (C++) kernels: the mesher's marching tetrahedra and the depth
+rasterizer of the reconstruction evaluation (tools/eval_recon.py).
 
-`marching_cubes.cpp` is built with g++ at the first call (never at import)
-into nice_slam_torch/_build/ (listed in .gitignore), keyed on a hash of
-the source, the flags and the host CPU's features, so a fresh checkout
-builds it and a later process on the same machine reuses the library.  A failed build raises: at the mesher's
-256^3 volumes the numpy version would take hours.  The numpy version,
-`_marching_tetrahedra_numpy`, is the tests' oracle.
+`marching_cubes.cpp` and `rasterize.cpp` (the port's copies of the JAX
+package's nice_slam_tpu/native/) are built together with g++ at the first
+call (never at import) into one library under nice_slam_torch/_build/
+(listed in .gitignore), keyed on a hash of both sources, the flags and the
+host CPU's features, so a fresh checkout builds it and a later process on
+the same machine reuses the library.  A failed build raises: at the
+mesher's 256^3 volumes and the evaluation's 500x500 views of meshes of
+~10^6 triangles the numpy versions would take hours (the JAX package's
+rasterize_depth falls back to numpy instead,
+nice_slam_tpu/native/__init__.py:210-222).  The numpy versions,
+`_marching_tetrahedra_numpy` and `_rasterize_depth_numpy`, are the tests'
+oracles.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "marching_cubes.cpp"
+_SRCS = [Path(__file__).resolve().parent / name
+         for name in ("marching_cubes.cpp", "rasterize.cpp")]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # the JAX package's flags: with -march=native g++ contracts the vertex
 # interpolation into FMAs, so both libraries give the same vertices
@@ -43,25 +51,29 @@ def _host_cpu() -> bytes:
 
 
 def _lib_path() -> Path:
-    h = hashlib.sha256(_SRC.read_bytes())
+    h = hashlib.sha256()
+    for src in _SRCS:
+        h.update(src.read_bytes())
     h.update(" ".join(GXX_FLAGS).encode())
     h.update(_host_cpu())
-    return BUILD_DIR / f"libmarching-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libnative-{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run(["g++"] + GXX_FLAGS + ["-o", str(tmp), str(_SRC)],
+    r = subprocess.run(["g++"] + GXX_FLAGS + ["-o", str(tmp)]
+                       + [str(s) for s in _SRCS],
                        capture_output=True, text=True, timeout=300)
     if r.returncode != 0:
-        raise RuntimeError(f"g++ failed for {_SRC.name}:\n{r.stderr}")
+        raise RuntimeError(f"g++ failed for "
+                           f"{', '.join(s.name for s in _SRCS)}:\n{r.stderr}")
     # concurrent builders each write their own file; the rename is atomic
     os.replace(tmp, out)
 
 
 def get_lib() -> ctypes.CDLL:
-    """The loaded marching-tetrahedra library, built first if needed."""
+    """The loaded host library, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
@@ -85,6 +97,14 @@ def get_lib() -> ctypes.CDLL:
                                    ctypes.POINTER(ctypes.c_int64)]
             lib.mt_free.restype = None
             lib.mt_free.argtypes = [ctypes.c_void_p]
+            lib.raster_depth.restype = None
+            lib.raster_depth.argtypes = [
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_float, ctypes.c_float,
+                ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                ctypes.c_float, ctypes.POINTER(ctypes.c_float)]
             _lib = lib
         return _lib
 
@@ -202,3 +222,100 @@ def _marching_tetrahedra_numpy(vol, iso, origin, spacing):
     tris = (np.asarray(tris, np.int64) if tris
             else np.zeros((0, 3), np.int64))
     return verts, tris
+
+
+# ---------------------------------------------------------------------------
+# Depth rasterization (rasterize.cpp): the z-buffer triangle renderer of the
+# 2D reconstruction evaluation (full-buffer depth L1 as the reference's
+# Open3D offscreen renders, src/tools/eval_recon.py:153-204)
+
+def rasterize_depth(verts: np.ndarray, tris: np.ndarray, c2w: np.ndarray,
+                    H: int, W: int, fx: float, fy: float, cx: float,
+                    cy: float, z_near: float = 0.01,
+                    z_far: float = 20.0) -> np.ndarray:
+    """Render the mesh's depth buffer from camera pose `c2w` (4x4)
+    (nice_slam_tpu/native/__init__.py:191-222).
+
+    Returns (H, W) f32 view-space depth; 0 where no geometry (as an Open3D
+    depth capture).  Camera: x right, y up, -z forward."""
+    verts = np.ascontiguousarray(verts, np.float32)
+    tris = np.ascontiguousarray(tris, np.int64)
+    w2c = np.ascontiguousarray(np.linalg.inv(np.asarray(c2w, np.float64)),
+                               np.float32)
+    out = np.zeros((H, W), np.float32)
+    if not len(tris):
+        return out
+    lib = get_lib()
+    fptr = ctypes.POINTER(ctypes.c_float)
+    lib.raster_depth(
+        verts.ctypes.data_as(fptr), len(verts),
+        tris.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(tris),
+        w2c.ctypes.data_as(fptr), H, W, ctypes.c_float(fx),
+        ctypes.c_float(fy), ctypes.c_float(cx), ctypes.c_float(cy),
+        ctypes.c_float(z_near), ctypes.c_float(z_far),
+        out.ctypes.data_as(fptr))
+    return out
+
+
+def _rasterize_depth_numpy(verts, tris, w2c, H, W, fx, fy, cx, cy,
+                           z_near, z_far):
+    """numpy version, triangle by triangle (the tests' oracle;
+    nice_slam_tpu/native/__init__.py:225-285)."""
+    out = np.zeros((H, W), np.float32)
+    if len(tris) == 0:
+        return out
+    cam = verts @ w2c[:3, :3].T + w2c[:3, 3]
+    zcap = -z_near
+    for t in range(len(tris)):
+        c = cam[tris[t]]
+        front = c[:, 2] < zcap
+        if not front.any():
+            continue
+        # near-plane clip to a polygon
+        poly = []
+        for k in range(3):
+            a, b = c[k], c[(k + 1) % 3]
+            if front[k]:
+                poly.append(a)
+            if front[k] != front[(k + 1) % 3]:
+                tt = (zcap - a[2]) / (b[2] - a[2])
+                poly.append(a + tt * (b - a))
+        if len(poly) < 3:
+            continue
+        fan = [(poly[0], poly[i], poly[i + 1])
+               for i in range(1, len(poly) - 1)]
+        for (p0, p1, p2) in fan:
+            P = np.stack([p0, p1, p2])
+            invd = -1.0 / P[:, 2]
+            u = fx * P[:, 0] * invd + cx
+            v = -fy * P[:, 1] * invd + cy
+            area = ((u[1] - u[0]) * (v[2] - v[0])
+                    - (u[2] - u[0]) * (v[1] - v[0]))
+            if abs(area) < 1e-12:
+                continue
+            x0 = max(0, int(np.floor(u.min())))
+            x1 = min(W - 1, int(np.ceil(u.max())))
+            y0 = max(0, int(np.floor(v.min())))
+            y1 = min(H - 1, int(np.ceil(v.max())))
+            if x0 > x1 or y0 > y1:
+                continue
+            xs, ys = np.meshgrid(np.arange(x0, x1 + 1),
+                                 np.arange(y0, y1 + 1))
+            b0 = ((u[1] - xs) * (v[2] - ys)
+                  - (u[2] - xs) * (v[1] - ys)) / area
+            b1 = ((u[2] - xs) * (v[0] - ys)
+                  - (u[0] - xs) * (v[2] - ys)) / area
+            b2 = 1.0 - b0 - b1
+            inside = (b0 >= 0) & (b1 >= 0) & (b2 >= 0)
+            w_interp = b0 * invd[0] + b1 * invd[1] + b2 * invd[2]
+            inside &= w_interp > 0
+            if not inside.any():
+                continue
+            d = np.where(inside, 1.0 / np.maximum(w_interp, 1e-12), np.inf)
+            d = np.where(d > z_far, np.inf, d)
+            tile = out[y0:y1 + 1, x0:x1 + 1]
+            cur = np.where(tile == 0.0, np.inf, tile)
+            new = np.minimum(cur, d)
+            out[y0:y1 + 1, x0:x1 + 1] = np.where(
+                np.isfinite(new), new, 0.0).astype(np.float32)
+    return out

@@ -1,6 +1,9 @@
-"""Multi-frame and (later) multi-device solvers of the port.
+"""Multi-frame and multi-device solvers of the port.
 
 `schur_ba`: the Gauss-Newton pose refinement of tracking and local BA
-(the JAX package's nice_slam_tpu/parallel/schur_ba.py), on one device;
-its `reduce_fn` argument is where a sharded ray batch's systems would be
-summed across devices."""
+(the JAX package's nice_slam_tpu/parallel/schur_ba.py); its `reduce_fn`
+sums a sharded ray batch's systems across ranks.
+`multihost`: one process per rank in a torch.distributed process group.
+`data_parallel`: ray-data-parallel mapping over that group.
+`pipelined`: the tracker and the mapper on two devices.
+The JAX package's grid_sharded.py is not ported yet."""

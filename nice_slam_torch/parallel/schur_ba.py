@@ -60,13 +60,17 @@ def _rays(cams_r, i, j, camera: Camera):
     return c2w[:, :3, 3], rays_d
 
 
-def _samples(window, i, j):
+def _samples(window, i, j, frame_max_depth=None):
     """Per ray: its frame, sensor depth and its frame's max sensor depth
-    over the sample (N,), (N,), (N, 1)."""
+    over the sample, or `frame_max_depth` (Wn,) when given: (N,), (N,),
+    (N, 1)."""
     wn, n = i.shape
     f = torch.arange(wn, device=i.device)[:, None].expand(wn, n)
     gt_d = window["depths"][f, j.long(), i.long()]
-    max_d = torch.amax(gt_d, dim=1, keepdim=True).expand(wn, n)
+    if frame_max_depth is None:
+        max_d = torch.amax(gt_d, dim=1, keepdim=True).expand(wn, n)
+    else:
+        max_d = frame_max_depth[:, None].expand(wn, n)
     return f.reshape(-1), gt_d.reshape(-1), max_d.reshape(-1, 1)
 
 
@@ -89,14 +93,15 @@ def _frame_residuals(cams_r, i, j, gt_d, max_d, params, grids, bound,
 
 def pose_jacobian(params, grids, bound, window, cams, camera: Camera,
                   rspec: RenderSpec, mspec, pix,
-                  gen: Optional[torch.Generator] = None):
+                  gen: Optional[torch.Generator] = None,
+                  frame_max_depth=None):
     """Residuals and their Jacobian on the pixels `pix` = (i, j), each
     (Wn, P), by reverse mode: every ray renders with its own copy of its
     frame's camera, and one backward of sum(r) gives row k of the copies'
     gradient = dr_k/dcam.  Returns (J (Wn, P, 7), r (Wn, P))."""
     i, j = pix
     wn = cams.shape[0]
-    f, gt_d, max_d = _samples(window, i, j)
+    f, gt_d, max_d = _samples(window, i, j, frame_max_depth)
     with torch.enable_grad():
         cams_r = cams.detach()[f].requires_grad_(True)
         r = _frame_residuals(cams_r, i.reshape(-1), j.reshape(-1), gt_d,
@@ -109,16 +114,18 @@ def pose_jacobian(params, grids, bound, window, cams, camera: Camera,
 def pose_system(params, grids, bound, window, cams, camera: Camera,
                 rspec: RenderSpec, mspec, pixels_per_frame: int,
                 valid_mask, gen: Optional[torch.Generator] = None,
-                pix=None):
+                pix=None, frame_max_depth=None):
     """Per-frame Gauss-Newton system on one ray sample: pixels `pix` =
-    (i, j), each (Wn, pixels_per_frame), or drawn from `gen`.
+    (i, j), each (Wn, pixels_per_frame), or drawn from `gen`;
+    `frame_max_depth` (Wn,) replaces each frame's max sensor depth over
+    the sample (a data-parallel rank passes the union's).
 
     Returns (H (Wn, 7, 7), b (Wn, 7), sse (Wn,))."""
     if pix is None:
         pix = window_pixels(gen, cams.shape[0], pixels_per_frame, camera,
                             cams.device)
     J, r = pose_jacobian(params, grids, bound, window, cams, camera, rspec,
-                         mspec, pix, gen)
+                         mspec, pix, gen, frame_max_depth)
     v = valid_mask.to(r.dtype)
     H = (J.transpose(1, 2) @ J) * v[:, None, None]
     b = (J.transpose(1, 2) @ r[..., None])[..., 0] * v[:, None]
@@ -129,13 +136,13 @@ def pose_system(params, grids, bound, window, cams, camera: Camera,
 def residual_sse(params, grids, bound, window, cams, camera: Camera,
                  rspec: RenderSpec, mspec, pixels_per_frame: int,
                  valid_mask, gen: Optional[torch.Generator] = None,
-                 pix=None):
+                 pix=None, frame_max_depth=None):
     """Per-frame weighted SSE (Wn,) on a ray sample, forward only (the
     guard's evaluation)."""
     wn = cams.shape[0]
     i, j = pix if pix is not None else window_pixels(
         gen, wn, pixels_per_frame, camera, cams.device)
-    f, gt_d, max_d = _samples(window, i, j)
+    f, gt_d, max_d = _samples(window, i, j, frame_max_depth)
     r = _frame_residuals(cams[f], i.reshape(-1), j.reshape(-1), gt_d, max_d,
                          params, grids, bound, camera, rspec, mspec, gen)
     return torch.sum((r * r).reshape(wn, -1), dim=1) * valid_mask.to(r.dtype)
@@ -180,10 +187,12 @@ def gn_pose_update(cams, H, b, cam_lr_mask, damping: float,
 def gn_iteration(params, grids, bound, window, cams, cam_lr_mask,
                  camera: Camera, rspec: RenderSpec, mspec,
                  pixels_per_frame: int, damping: float, reduce_fn=None,
-                 gen: Optional[torch.Generator] = None, pix=None):
+                 gen: Optional[torch.Generator] = None, pix=None,
+                 frame_max_depth=None):
     """One guarded GN iteration on one ray sample.  reduce_fn(tuple) ->
     tuple sums the systems and the guard's SSEs and counts of a sharded
-    ray batch (None on one device).  Returns (cams, sse, accept (Wn,))."""
+    ray batch (None on one device); `frame_max_depth`: see pose_system.
+    Returns (cams, sse, accept (Wn,))."""
     valid_mask = window["valid"]
     wn = cams.shape[0]
     if pix is None:
@@ -193,7 +202,8 @@ def gn_iteration(params, grids, bound, window, cams, cam_lr_mask,
               else None)
     H, b, sse0 = pose_system(params, grids, bound, window, cams, camera,
                              rspec, mspec, pixels_per_frame, valid_mask,
-                             gen=gen, pix=pix)
+                             gen=gen, pix=pix,
+                             frame_max_depth=frame_max_depth)
     if reduce_fn is not None:
         H, b, sse0 = reduce_fn((H, b, sse0))
     cand = gn_pose_update(cams, H, b, cam_lr_mask, damping)
@@ -201,7 +211,7 @@ def gn_iteration(params, grids, bound, window, cams, cam_lr_mask,
         gen.set_state(jitter)
     sse1 = residual_sse(params, grids, bound, window, cand, camera, rspec,
                         mspec, pixels_per_frame, valid_mask, gen=gen,
-                        pix=pix)
+                        pix=pix, frame_max_depth=frame_max_depth)
     cnt0 = mask_count(bound, window, cams, camera, pixels_per_frame, pix=pix)
     cnt1 = mask_count(bound, window, cand, camera, pixels_per_frame, pix=pix)
     if reduce_fn is not None:
@@ -215,13 +225,22 @@ def schur_pose_refine(params, grids, bound, window, cams, cam_lr_mask,
                       camera: Camera, rspec: RenderSpec, mspec,
                       n_iters: int, pixels_per_frame: int, damping: float,
                       reduce_fn=None, gen: Optional[torch.Generator] = None,
-                      pixels=None):
+                      pixels=None, shard=None):
     """n_iters guarded GN iterations, each on a fresh ray sample (pixels[k]
-    when given, else drawn from `gen`).  Returns the cameras (Wn, 7)."""
+    when given, else drawn from `gen`).  With `shard` (parallel/
+    data_parallel.RayShard) each sample is this rank's slice of the
+    union's (pixels[k] then gives the union's) and the systems are summed
+    through shard.reduce.  Returns the cameras (Wn, 7)."""
     cams = cams.detach()
     for k in range(n_iters):
+        pix = None if pixels is None else pixels[k]
+        frame_max = None
+        if shard is not None:
+            pix, frame_max = shard.gn_draws(window, camera, pixels_per_frame,
+                                            gen, pix)
+            reduce_fn = shard.reduce
         cams, _, _ = gn_iteration(
             params, grids, bound, window, cams, cam_lr_mask, camera, rspec,
             mspec, pixels_per_frame, damping, reduce_fn=reduce_fn, gen=gen,
-            pix=None if pixels is None else pixels[k])
+            pix=pix, frame_max_depth=frame_max)
     return cams

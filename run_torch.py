@@ -10,6 +10,12 @@ Usage:
     python run_torch.py <config> --resume <output>   # its latest checkpoint
     python run_torch.py <config> --no-mesh       # write no mesh
     python run_torch.py <config> --profile LOGDIR  # LOGDIR/trace.json
+    # data-parallel mapping on n local ranks (tpu.data_parallel: true,
+    # tpu.mesh_shape: [n]), or one rank of a launch across hosts (the
+    # tpu.multihost keys or NICE_SLAM_TPU_COORDINATOR / _NUM_PROCESSES /
+    # _PROCESS_ID in each process's environment):
+    python run_torch.py <config with tpu.data_parallel>
+    python run_torch.py <config with tpu.pipelined>   # tracker | mapper
 
 The port runs NICE-SLAM and iMAP* under strict, loose and free sync on one
 GPU, with the fused decode as CUDA kernels, writes checkpoints
@@ -20,30 +26,77 @@ marching tetrahedra are host C++, built with g++ at first use).  The
 config's Gauss-Newton pose refinement (tracking / mapping.pose_GN_iters),
 occupancy-guided sampling (rendering.occupancy_guided) and the
 reference's .pt decoders (pretrained_decoders.coarse / middle_fine, read
-when the repository's npz is absent) run too.  Not in the port: the
-visualizer and the parallel modes; a config that asks for a parallel
-mode is refused.  --profile writes a torch.profiler Chrome trace of the
-run.
+when the repository's npz is absent) run too.  --profile writes a
+torch.profiler Chrome trace of the run.
 
-Prints a JSON summary (ate_rmse_m, ate_mean_m, frames, timings_s, ...)
-and writes <output>/ate.json and the estimated trajectory
-<output>/traj_est.npy ((frames, 4, 4) camera-to-world).
+Parallel modes: with tpu.data_parallel, tpu.mesh_shape [n] (n > 1) and
+no multi-process config, the script starts n local ranks
+(torch.multiprocessing, a free port) that map data-parallel
+(nice_slam_torch/parallel/data_parallel.py); with a multi-process config
+(tpu.multihost or the NICE_SLAM_TPU_* environment) this process is one
+rank of such a group (parallel/multihost.py).  tpu.pipelined runs the
+tracker and the mapper on two cards, or both on one
+(parallel/pipelined.py).  Not in the port: the visualizer and
+tpu.grid_sharded, which is refused.
+
+Every rank prints a JSON summary (ate_rmse_m, ate_mean_m, frames,
+timings_s, its rank and world size, the group's backend, digests of its
+trajectory and of its map, the fused decode's launches, the all_reduce's
+bytes and seconds, the files it wrote, ...); only rank 0 writes files:
+<output>/ate.json, the estimated trajectory <output>/traj_est.npy
+((frames, 4, 4) camera-to-world), checkpoints and meshes.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import sys
 import time
 
 
-def main():
+def _local_rank(rank: int, argv: list, port: int, world: int):
+    """Entry of a local rank: the launcher's environment, an equal share
+    of the host's cores (unless OMP_NUM_THREADS says otherwise: the ranks'
+    threads would otherwise contend with gloo's), then main."""
+    if "OMP_NUM_THREADS" not in os.environ:
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    os.environ.update({"NICE_SLAM_TPU_COORDINATOR": f"127.0.0.1:{port}",
+                       "NICE_SLAM_TPU_NUM_PROCESSES": str(world),
+                       "NICE_SLAM_TPU_PROCESS_ID": str(rank),
+                       "LOCAL_RANK": str(rank)})
+    main(argv)
+
+
+def local_ranks(cfg: dict) -> int:
+    """How many local ranks to start: n for tpu.data_parallel with
+    tpu.mesh_shape [n] and no multi-process config, else 1."""
+    tpu = cfg.get("tpu", {})
+    shape = tpu.get("mesh_shape")
+    if (not tpu.get("data_parallel") or not shape or tpu.get("multihost")
+            or os.environ.get("NICE_SLAM_TPU_COORDINATOR")):
+        return 1
+    return int(shape[0])
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(
         description="nice-slam PyTorch port runner (NICE-SLAM and iMAP*, "
                     "strict/loose/free sync, checkpoint and resume, "
                     "meshing, Gauss-Newton poses, occupancy-guided "
-                    "sampling; not yet: visualizer, parallel modes)")
+                    "sampling, data-parallel mapping, the pipelined "
+                    "engine; not yet: visualizer, tpu.grid_sharded)")
     ap.add_argument("config", nargs="?", default=None,
                     help="scene config yaml")
     ap.add_argument("--input_folder", type=str, default=None,
@@ -70,7 +123,7 @@ def main():
     ap.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
                     help="write a torch.profiler Chrome trace of the run to "
                          "LOGDIR/trace.json")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     from nice_slam_torch.config import load_config
     from nice_slam_torch.engine import SlamEngine
@@ -93,11 +146,29 @@ def main():
         overrides.setdefault("data", {})["output"] = args.output
 
     cfg = load_config(args.config, nice=not args.imap, overrides=overrides)
+    n_local = local_ranks(cfg)
+    if n_local > 1:
+        import torch.multiprocessing as mp
+
+        from nice_slam_torch.parallel.multihost import free_port
+
+        mp.spawn(_local_rank, args=(sys.argv[1:] if argv is None else argv,
+                                    free_port(), n_local),
+                 nprocs=n_local, join=True)
+        return
+    from nice_slam_torch.parallel import multihost
+
+    multihost.initialize_from_cfg(cfg, device=args.device)
     mesher_hook = None
     if not args.no_mesh:
         from nice_slam_torch.utils.mesher import engine_mesher_hook
         mesher_hook = engine_mesher_hook
-    eng = SlamEngine(cfg, device=args.device, mesher_hook=mesher_hook)
+    if cfg["tpu"].get("pipelined"):
+        from nice_slam_torch.parallel.pipelined import PipelinedSlamEngine
+        eng = PipelinedSlamEngine(cfg, device=args.device,
+                                  mesher_hook=mesher_hook)
+    else:
+        eng = SlamEngine(cfg, device=args.device, mesher_hook=mesher_hook)
     if args.resume:
         ckpt = args.resume
         if os.path.isdir(ckpt):
@@ -115,19 +186,39 @@ def main():
     wall = time.perf_counter() - t0
 
     stats = eng.ate()
-    print(json.dumps({"ate_rmse_m": stats["rmse"],
-                      "ate_mean_m": stats["mean"],
-                      "frames": eng.frames_done,
-                      "wall_s": wall,
-                      "timings_s": eng.timings,
-                      "device": str(eng.device)}, indent=2))
     import numpy as np
+    import torch
 
-    os.makedirs(eng.output, exist_ok=True)
-    with open(os.path.join(eng.output, "ate.json"), "w") as f:
-        json.dump(stats, f, indent=2)
-    np.save(os.path.join(eng.output, "traj_est.npy"),
-            eng.est_c2w[:eng.frames_done])
+    from nice_slam_torch.ops import fused_decode
+    from nice_slam_torch.ops.tree import tree_leaves
+
+    written = dict(eng.written)
+    if eng.is_primary:
+        os.makedirs(eng.output, exist_ok=True)
+        with open(os.path.join(eng.output, "ate.json"), "w") as f:
+            json.dump(stats, f, indent=2)
+        np.save(os.path.join(eng.output, "traj_est.npy"),
+                eng.est_c2w[:eng.frames_done])
+        written["ate"] = 1
+    st = eng.map_state
+    summary = json.dumps({
+        "ate_rmse_m": stats["rmse"], "ate_mean_m": stats["mean"],
+        "frames": eng.frames_done, "wall_s": wall,
+        "timings_s": eng.timings, "device": str(eng.device),
+        "rank": eng.rank, "world": eng.world,
+        "backend": multihost.backend(),
+        "traj_sha256": _digest([eng.est_c2w_dev[:eng.frames_done]]),
+        "map_sha256": _digest(tree_leaves(st.params)
+                              + tree_leaves(st.grids)),
+        "launches": fused_decode.launch_counts(),
+        "peak_mib": (torch.cuda.max_memory_allocated(eng.device) / 2**20
+                     if eng.device.type == "cuda" else None),
+        "allreduce": eng.dp.stats() if eng.dp else None,
+        "written": written}, indent=2)
+    # one write, so that the ranks' summaries do not interleave
+    sys.stdout.write(summary + "\n")
+    sys.stdout.flush()
+    multihost.shutdown()
 
 
 if __name__ == "__main__":

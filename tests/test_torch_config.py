@@ -55,7 +55,8 @@ def test_port_imports_without_jax():
     """Every module of nice_slam_torch (and run_torch.py, chip_smoke.py)
     imports with jax and nice_slam_tpu poisoned in sys.modules, among them
     the checkpoint, iMAP* and mesher modules (the host library is not
-    built at import); an iMAP* and a loose engine then
+    built at import), the parallel modes and the evaluation tools; an
+    iMAP* and a loose engine then
     build, save a checkpoint and resume from it on the CPU the same way,
     as do the Gauss-Newton, occupancy-guided and pretraining modules."""
     code = textwrap.dedent("""
@@ -70,7 +71,10 @@ def test_port_imports_without_jax():
                      "ops.composite", "render", "mapping", "engine",
                      "native", "utils.plyio", "utils.mesher",
                      "parallel.schur_ba", "models.pretrain",
-                     "tools.pretrain_decoders", "utils.profiling"):
+                     "tools.pretrain_decoders", "utils.profiling",
+                     "parallel.multihost", "parallel.data_parallel",
+                     "parallel.pipelined", "tools.eval_recon",
+                     "tools.cull_mesh", "tools.eval_ate"):
             assert "nice_slam_torch." + name in sys.modules, name
         import runpy
         runpy.run_path("run_torch.py", run_name="not_main")
@@ -99,19 +103,27 @@ def test_port_imports_without_jax():
 
 
 def test_unsupported_options_raise():
-    """Only the parallel modes are refused; occupancy-guided sampling, the
-    Gauss-Newton polish (tracking and mapping), loose/free sync (the Demo
-    config's loose among them), iMAP*, N_importance, density compositing,
-    gt_camera and NICE widths and embeddings the fused decode does not
-    take are accepted, by check_slice and by the engine's constructor
-    (which reads the GN and occupancy-guided options into its specs)."""
+    """Only tpu.grid_sharded is refused, and tpu.pipelined together with
+    tpu.data_parallel raises ValueError (the JAX package's
+    parallel/pipelined.py:72-76); the other parallel modes,
+    occupancy-guided sampling, the Gauss-Newton polish (tracking and
+    mapping), loose/free sync (the Demo config's loose among them), iMAP*,
+    N_importance, density compositing, gt_camera and NICE widths and
+    embeddings the fused decode does not take are accepted, by check_slice
+    and by the engine's constructor (which reads the GN and
+    occupancy-guided options into its specs)."""
     from nice_slam_torch.engine import check_slice
 
+    with pytest.raises(NotImplementedError):
+        check_slice(load_config(overrides={"tpu": {"grid_sharded": [2, 2]}}))
+    with pytest.raises(ValueError):
+        check_slice(load_config(overrides={
+            "tpu": {"pipelined": True, "data_parallel": True}}))
     for ov in ({"tpu": {"pipelined": True}}, {"tpu": {"data_parallel": True}},
-               {"tpu": {"grid_sharded": True}}, {"tpu": {"multihost": True}}):
-        with pytest.raises(NotImplementedError):
-            check_slice(load_config(overrides=ov))
-    for ov in ({"sync_method": "loose"}, {"sync_method": "free"},
+               {"tpu": {"multihost": True}},
+               {"tpu": {"data_parallel": True, "mesh_shape": [2],
+                        "multihost": {"num_processes": 2}}},
+               {"sync_method": "loose"}, {"sync_method": "free"},
                {"rendering": {"occupancy_guided": True}},
                {"tracking": {"pose_GN_iters": 2}},
                {"mapping": {"pose_GN_iters": 2}},
@@ -127,6 +139,11 @@ def test_unsupported_options_raise():
                     "cy": 5.5, "crop_edge": 0},
             "model": {"c_dim": 16, "hidden_size": 64}}
     SlamEngine(load_config(overrides=tiny), device="cpu")
+    # one process is world 1: the dense path, the primary rank
+    eng = SlamEngine(load_config(overrides={
+        **tiny, "tpu": {"data_parallel": True, "mesh_shape": [2]}}),
+        device="cpu")
+    assert (eng.rank, eng.world, eng.dp, eng.is_primary) == (0, 1, None, True)
     eng = SlamEngine(load_config(overrides={
         **tiny, "rendering": {"occupancy_guided": True},
         "tracking": {"pose_GN_iters": 2, "pose_GN_pixels": 30},
