@@ -156,7 +156,31 @@
    its numpy oracle on one view (10,000 of the reconstruction's
    triangles: coverage within max(2, covered / 1000) pixels, depth within
    1e-4 relative).  Prints each part's wall time.
-Phases 6-9 and 11-16 each run in a device memory freed of the earlier
+18. Grid-sharded union check: four ranks at tpu.grid_sharded [2, 2] on
+   cuda:0 over gloo (this script started with --gs-rank), one mapping
+   call of phase 15's window and pixels (middle, fine and colour
+   iterations at the strict shapes, 1,000 px a data rank; no Gauss-Newton,
+   which the gs step does not run) against this process on the union (2 x
+   1,000 px) through the dense map_optimize.  Fails unless the first
+   decode's features summed over the model ranks equal the dense
+   trilinear_interp bit for bit, every loss is within 1e-6 relative, the
+   updated decoders, grids and cameras within 1e-5 relative Frobenius,
+   the halo invariant holds bit for bit after every step, each rank's
+   K1/K2 launches equal the dense call's and the ranks end bit-equal.
+   Before the call, each rank's sharded query (gs_eval_points, 65,536
+   points, colour) must lie within 1e-4 x max(1, max |dense|) of
+   eval_points.  Prints the collectives' bytes per iteration by kind and
+   stage.
+19. Grid-sharded engine: run_torch.py's local launch with tpu.grid_sharded
+   [1, 2] (two ranks on cuda:0 over gloo), strict, full width, 6 frames:
+   the checks of phase 15's run (ranks bit-equal, K1/K2 a rank = the
+   single-rank schedule, ATE finite and under 0.25 m, only rank 0 wrote
+   ckpts/); prints the ATE beside phase 3's, the collectives' bytes per
+   iteration by kind (features, points, halo, reassembly, data) and
+   stage, their seconds and share of map time, the peak MiB a rank and
+   the wall.  The kernels' per-device shared-memory attribute and device
+   guard (a launch on a second card) are not exercised: one card.
+Phases 6-9, 11-16 and 19 each run in a device memory freed of the earlier
 phases' engines and print their wall time, frames/s, ATE, peak device
 memory and launch counts.
 
@@ -1404,25 +1428,27 @@ def check_dp_union(torch, log, out_dir, device="cuda"):
     return max(worst.values())
 
 
-def run_dp(torch, fd, log, n_frames=6, device="cuda", overrides=None):
-    """Phase 15: two ranks on cuda:0 through run_torch.py's local launch,
-    then the union check (`device` and config `overrides` rehearse it on
-    the CPU)."""
+def _launch_ranks(torch, log, name, tpu, world, n_frames, device,
+                  overrides):
+    """run_torch.py's local launch of `world` ranks on the strict config
+    with `tpu` (output/chip_smoke_<name>), then the checks every parallel
+    run shares: a summary of every rank, the ranks' trajectories, grids
+    and decoders bit-equal, each rank's K1/K2 launches equal to the
+    single-rank schedule, the ATE finite and under 0.25 m, only rank 0
+    wrote ckpts/.  Returns (ranks' summaries, result dict, output dir)."""
     import shutil
 
     import yaml
 
     from nice_slam_torch.config import load_config
 
-    out = os.path.join(REPO, "output", "chip_smoke_dp")
+    out = os.path.join(REPO, "output", f"chip_smoke_{name}")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
-    cfg_path = os.path.join(out, "dp.yaml")
+    cfg_path = os.path.join(out, f"{name}.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump({"inherit_from": SYN_CFG,
-                        "synthetic": {"n_frames": n_frames},
-                        "tpu": {"data_parallel": True,
-                                "mesh_shape": [DP_WORLD]},
+                        "synthetic": {"n_frames": n_frames}, "tpu": tpu,
                         "data": {"output": out}, **(overrides or {})}, f)
     cfg = load_config(cfg_path)
     _release(torch)
@@ -1432,49 +1458,294 @@ def run_dp(torch, fd, log, n_frames=6, device="cuda", overrides=None):
                        capture_output=True, text=True, timeout=900)
     launch_s = time.perf_counter() - t0
     fail_if(r.returncode != 0,
-            f"dp: run_torch.py exited {r.returncode}: {r.stderr[-3000:]}")
+            f"{name}: run_torch.py exited {r.returncode}: {r.stderr[-3000:]}")
     ranks = _rank_summaries(r.stdout)
-    fail_if([s["rank"] for s in ranks] != list(range(DP_WORLD)),
-            f"dp: summaries of ranks {[s['rank'] for s in ranks]}")
+    fail_if([s["rank"] for s in ranks] != list(range(world)),
+            f"{name}: summaries of ranks {[s['rank'] for s in ranks]}")
     exp_f, exp_b, _ = expected_launches(cfg, n_frames)
     s0 = ranks[0]
-    ar = [s["allreduce"] for s in ranks]
     k1 = [s["launches"]["fused_decode_fwd"] for s in ranks]
     k2 = [s["launches"]["fused_decode_bwd"] for s in ranks]
-    res = {"path": "dp", "ranks": DP_WORLD, "backend": s0["backend"],
+    res = {"path": name, "ranks": world, "backend": s0["backend"],
            "launch_s": launch_s, "wall_s": [s["wall_s"] for s in ranks],
            "frames": n_frames,
            "frames_per_s": [n_frames / s["wall_s"] for s in ranks],
            "ate_rmse_m": s0["ate_rmse_m"],
            "peak_mib": [s["peak_mib"] for s in ranks],
            "k1": k1[0], "k2": k2[0], "k1_by_rank": k1, "k2_by_rank": k2,
-           "allreduce_bytes_per_iter": ar[0]["bytes_per_iter"],
-           "allreduce_iters": ar[0]["iters"],
-           "allreduce_s": [a["seconds"] for a in ar],
-           "allreduce_share_of_map": [a["seconds"] / s["timings_s"]["map"]
-                                      for a, s in zip(ar, ranks)],
            "timings": [s["timings_s"] for s in ranks],
            "written": [s["written"] for s in ranks]}
-    log("dp: " + ", ".join(f"{k} {v}" for k, v in res.items()))
-    fail_if(any(s["world"] != DP_WORLD for s in ranks), "dp: world size")
+    fail_if(any(s["world"] != world for s in ranks), f"{name}: world size")
     fail_if(any((s["traj_sha256"], s["map_sha256"])
                 != (s0["traj_sha256"], s0["map_sha256"]) for s in ranks),
-            "dp: the ranks' trajectories or maps differ: "
+            f"{name}: the ranks' trajectories or maps differ: "
             f"{[(s['traj_sha256'], s['map_sha256']) for s in ranks]}")
     fail_if(any(k == 0 for k in k1 + k2),
-            "dp: a kernel of the path was never launched")
+            f"{name}: a kernel of the path was never launched")
     fail_if(any((f, b) != (exp_f, exp_b) for f, b in zip(k1, k2)),
-            f"dp: launches K1 {k1} K2 {k2} by rank, schedule {exp_f} "
+            f"{name}: launches K1 {k1} K2 {k2} by rank, schedule {exp_f} "
             f"{exp_b} a rank")
     ate = res["ate_rmse_m"]
     fail_if(not math.isfinite(ate) or ate > 0.25,
-            f"dp: ATE {ate} not finite or above 0.25 m")
+            f"{name}: ATE {ate} not finite or above 0.25 m")
     fail_if(s0["written"].get("ckpt", 0) < 1
             or any(v for s in ranks[1:] for v in s["written"].values()),
-            f"dp: files written by rank {res['written']}")
+            f"{name}: files written by rank {res['written']}")
     ck = sorted(os.listdir(os.path.join(out, "ckpts")))
-    fail_if(ck != [f"{n_frames - 1:05d}.npz"], f"dp: ckpts/ holds {ck}")
+    fail_if(ck != [f"{n_frames - 1:05d}.npz"], f"{name}: ckpts/ holds {ck}")
+    return ranks, res, out
+
+
+def run_dp(torch, fd, log, n_frames=6, device="cuda", overrides=None):
+    """Phase 15: two ranks on cuda:0 through run_torch.py's local launch,
+    then the union check (`device` and config `overrides` rehearse it on
+    the CPU)."""
+    ranks, res, out = _launch_ranks(
+        torch, log, "dp", {"data_parallel": True, "mesh_shape": [DP_WORLD]},
+        DP_WORLD, n_frames, device, overrides)
+    ar = [s["allreduce"] for s in ranks]
+    res.update({
+        "allreduce_bytes_per_iter": ar[0]["bytes_per_iter"],
+        "allreduce_iters": ar[0]["iters"],
+        "allreduce_s": [a["seconds"] for a in ar],
+        "allreduce_share_of_map": [a["seconds"] / s["timings_s"]["map"]
+                                   for a, s in zip(ar, ranks)]})
+    log("dp: " + ", ".join(f"{k} {v}" for k, v in res.items()))
     res["union_max_rel_err"] = check_dp_union(torch, log, out, device)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 18-19: grid-sharded mapping
+
+GS_SHAPE = (2, 2)         # [n_data, n_model] of the union check
+
+
+def gs_union_call(torch, dev, gs):
+    """One mapping call of the gs union check on phase 15's window (the
+    middle, fine and colour iterations, no Gauss-Newton: the gs step has
+    none) and pixels: with `gs` (a GridShard) this rank's part through
+    gs_map_once, recording the first decode's summed features against the
+    dense trilinear_interp and the halo invariant after every step;
+    without, this process alone on the union (n_data x the rank's pixels)
+    through the dense map_optimize.  With `gs`, first the sharded query
+    `gs_eval_points` of 65,536 points against the dense eval_points.
+    Returns (params + grids leaves, cams, losses, K1/K2 launches of the
+    call, first features bit-equal (None without gs), halo checks, the
+    query's max abs error over max(1, max |dense|) (None without gs))."""
+    import dataclasses
+
+    from nice_slam_torch import mapping
+    from nice_slam_torch.ops import fused_decode as fd
+    from nice_slam_torch.ops.grid import normalize_coords, trilinear_interp
+    from nice_slam_torch.ops.tree import tree_leaves
+    from nice_slam_torch.parallel import grid_sharded as gsm
+
+    (specs, params, grids, bound, window, masks, cams0, lr_mask, spec,
+     pixels) = dp_setup(torch, dev)
+    spec = dataclasses.replace(spec, pose_gn_iters=0)
+    feats_equal, halo_ok, query_err = [], [], None
+    if gs is not None:
+        # the sharded query (the mesher's chunk of 65,536 points, over
+        # the padded bound) against the dense decode, before the counts
+        from nice_slam_torch.render import eval_points
+
+        g = torch.Generator(device=dev).manual_seed(11)
+        lo, hi = bound[:, 0] - 0.1, bound[:, 1] + 0.1
+        pts = lo + (hi - lo) * torch.rand(65536, 3, generator=g, device=dev)
+        slabs, shapes = gsm.shard_grids(grids, gs.n_model, gs.m)
+        q = gsm.gs_eval_points(params, specs.model, slabs, bound, shapes,
+                               pts, "color", gs)
+        with torch.no_grad():
+            ref = eval_points(params, specs.model, grids, bound, pts,
+                              "color")
+        query_err = (float((q - ref).abs().max())
+                     / max(1.0, float(ref.abs().max())))
+    fd.reset_launch_counts()
+    if gs is None:
+        spec = dataclasses.replace(spec, pixels=GS_SHAPE[0] * spec.pixels)
+        p, g, cams, losses = mapping.map_optimize(
+            params, grids, bound, window, cams0, masks, lr_mask, 1.0,
+            specs.camera, DP_STAGES, spec, specs.render, specs.model,
+            ba=True, gen=torch.Generator(device=dev).manual_seed(3),
+            pixels=pixels)
+    else:
+        feats_fn, refresh = gsm.gs_feats, gsm.refresh_halos
+
+        def recorded_feats(slabs, bound_, pts, shapes, levels, gs_, stage):
+            feats = feats_fn(slabs, bound_, pts, shapes, levels, gs_, stage)
+            if not feats_equal:
+                with torch.no_grad():
+                    p_nor = normalize_coords(pts, bound_)
+                    feats_equal.append(all(
+                        torch.equal(feats[n], trilinear_interp(grids[n],
+                                                               p_nor))
+                        for n in levels))
+            return feats
+
+        def checked(slabs, names, gs_, stage):
+            new = refresh(slabs, names, gs_, stage)
+            names = list(names)
+            rows = gsm._halo_planes([new[k][0] for k in names], gs_, gs_.m,
+                                    "check", stage)
+            if gs_.m + 1 < gs_.n_model:
+                halo_ok.extend(bool(torch.equal(new[k][-1], r[gs_.m + 1]))
+                               for k, r in zip(names, rows))
+            return new
+
+        gsm.gs_feats, gsm.refresh_halos = recorded_feats, checked
+        p, g, cams, losses = gsm.gs_map_once(
+            params, grids, bound, window, cams0, masks, lr_mask, 1.0,
+            specs.camera, DP_STAGES, spec, specs.render, specs.model, gs,
+            gen=torch.Generator(device=dev).manual_seed(3), pixels=pixels)
+        gsm.gs_feats, gsm.refresh_halos = feats_fn, refresh
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    counts = fd.launch_counts()
+    return (tree_leaves(p) + tree_leaves(g), cams, losses,
+            (counts["fused_decode_fwd"], counts["fused_decode_bwd"]),
+            feats_equal[0] if feats_equal else None, halo_ok, query_err)
+
+
+def gs_rank_main(rank: int, port: int, out: str, device: str) -> int:
+    """One rank of the gs union check (chip_smoke.py --gs-rank R --port P
+    --out FILE --device D): saves its results."""
+    import numpy as np
+    import torch
+
+    from nice_slam_torch.parallel import multihost
+    from nice_slam_torch.parallel.grid_sharded import GridShard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"127.0.0.1:{port}", GS_SHAPE[0] * GS_SHAPE[1],
+                         rank, timeout_s=300, device=device)
+    dev = multihost.rank_device(device, rank)
+    gs = GridShard(*GS_SHAPE)
+    t0 = time.perf_counter()
+    leaves, cams, losses, launches, feats_equal, halo_ok, query_err = \
+        gs_union_call(torch, dev, gs)
+    call_s = time.perf_counter() - t0
+    arrays = {f"leaf{k}": t.detach().cpu().numpy()
+              for k, t in enumerate(leaves)}
+    arrays.update({
+        "cams": cams.detach().cpu().numpy(), "losses": losses.cpu().numpy(),
+        "launches": np.array(launches), "feats_equal": np.array(feats_equal),
+        "halo_ok": np.array(halo_ok, bool), "dm": np.array([gs.d, gs.m]),
+        "query_err": np.array(query_err),
+        "call_s": np.array(call_s),
+        "stats": np.array(json.dumps(gs.stats())),
+        "backend": np.array(multihost.backend())})
+    np.savez(out, **arrays)
+    multihost.shutdown()
+    return 0
+
+
+def check_gs_union(torch, log, device="cuda"):
+    """Phase 18: four ranks at [2, 2] of one mapping call over gloo on the
+    card against this process on the union: the first decode's summed
+    features bit-equal to the dense interpolation, every loss within 1e-6
+    relative, the updated decoders, grids and cameras within 1e-5
+    relative Frobenius, the halo invariant bitwise after every step, K1/K2
+    launches a rank equal to the dense call's, the ranks bit-equal; and
+    the sharded query within 1e-4 x max(1, max |dense|) of eval_points
+    (K1's forward tolerance)."""
+    import numpy as np
+
+    from nice_slam_torch.parallel.multihost import free_port, rank_world
+
+    fail_if(rank_world()[1] != 1, "gs: the smoke itself joined a group")
+    out_dir = os.path.join(REPO, "output", "chip_smoke_gs_union")
+    os.makedirs(out_dir, exist_ok=True)
+    world = GS_SHAPE[0] * GS_SHAPE[1]
+    _release(torch)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gs-rank", str(r),
+         "--port", str(port), "--device", device, "--out",
+         os.path.join(out_dir, f"rank{r}.npz")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        fail_if(p.returncode != 0,
+                f"gs union: rank {r} exited {p.returncode}: {text[-3000:]}")
+    ranks_s = time.perf_counter() - t0
+    dev = torch.device(device)
+    leaves, cams, losses, launches, _, _, _ = gs_union_call(torch, dev,
+                                                            None)
+    want = {f"leaf{k}": t.detach() for k, t in enumerate(leaves)}
+    want["cams"] = cams.detach()
+    got = []
+    for r in range(world):
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as z:
+            got.append({k: z[k] for k in z.files})
+    worst, loss_err = 0.0, 0.0
+    for r, g in enumerate(got):
+        fail_if(list(g["dm"]) != [r // GS_SHAPE[1], r % GS_SHAPE[1]],
+                f"gs union: rank {r} is (d, m) {list(g['dm'])}")
+        fail_if(not float(g["query_err"]) <= 1e-4,
+                f"gs union: rank {r}'s sharded query is {g['query_err']} "
+                "(relative to max(1, max |dense|)) from eval_points")
+        fail_if(not bool(g["feats_equal"]),
+                f"gs union: rank {r}'s summed features differ from the "
+                "dense interpolation")
+        fail_if(tuple(g["launches"]) != launches,
+                f"gs union: rank {r} launched K1/K2 {tuple(g['launches'])}, "
+                f"the dense call {launches}")
+        if g["dm"][1] + 1 < GS_SHAPE[1]:
+            fail_if(g["halo_ok"].size == 0 or not g["halo_ok"].all(),
+                    f"gs union: rank {r}'s halo invariant {g['halo_ok']}")
+        lw = losses.cpu().numpy()
+        loss_err = max(loss_err, float(np.max(np.abs(g["losses"] - lw)
+                                              / np.abs(lw))))
+        for k, w in want.items():
+            worst = max(worst, _rel_err(torch, torch.as_tensor(g[k]).to(dev),
+                                        w))
+        for k in want:
+            fail_if(not np.array_equal(g[k], got[0][k]),
+                    f"gs union: ranks 0 and {r} differ at {k}")
+    st = json.loads(str(got[0]["stats"]))
+    res = {"ranks": world, "shape": list(GS_SHAPE),
+           "backend": str(got[0]["backend"]), "ranks_s": ranks_s,
+           "call_s": [float(g["call_s"]) for g in got],
+           "launches_a_rank": list(launches), "loss_max_rel_err": loss_err,
+           "result_max_rel_err": worst,
+           "halo_checks": int(got[0]["halo_ok"].size),
+           "query_max_err": max(float(g["query_err"]) for g in got),
+           "bytes_per_iter": {k: v for k, v in st["bytes_per_iter"].items()
+                              if k != "check"}}
+    log("gs union: " + json.dumps(res))
+    fail_if(not loss_err <= 1e-6,
+            f"gs union: losses {loss_err} relative from the union's")
+    fail_if(not worst <= 1e-5,
+            f"gs union: results {worst} relative from the union's")
+    return res
+
+
+def run_gs(torch, fd, log, strict_ate, n_frames=6, device="cuda",
+           overrides=None):
+    """Phase 19: run_torch.py with tpu.grid_sharded [1, 2] (two ranks on
+    the card over gloo), strict, full width."""
+    ranks, res, _ = _launch_ranks(
+        torch, log, "gs", {"grid_sharded": [1, 2]}, 2, n_frames, device,
+        overrides)
+    st = [s["grid_sharded"] for s in ranks]
+    secs = [sum(x["seconds"].values()) for x in st]
+    res.update({
+        "strict_ate_rmse_m": strict_ate,
+        "collective_bytes_per_iter": st[0]["bytes_per_iter"],
+        "collective_iters": st[0]["iters"],
+        "collective_s_by_kind": [x["seconds"] for x in st],
+        "collective_share_of_map": [c / s["timings_s"]["map"]
+                                    for c, s in zip(secs, ranks)]})
+    log("gs: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(any(x["shape"] != [1, 2] for x in st), "gs: shape")
     return res
 
 
@@ -1781,12 +2052,16 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # one rank of phase 15's union check, started by the smoke itself
     ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    # one rank of phase 18's union check
+    ap.add_argument("--gs-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dp_rank is not None:
         return dp_rank_main(args.dp_rank, args.port, args.out, args.device)
+    if args.gs_rank is not None:
+        return gs_rank_main(args.gs_rank, args.port, args.out, args.device)
 
     import torch
 
@@ -1898,8 +2173,15 @@ def main() -> int:
                           "final_mesh.ply"),
         os.path.join(REPO, "output", "chip_smoke", "ckpts", "00010.npz"),
         syn["cam"])
+    # phases 18-19: grid-sharded mapping (the two-card repairs of the
+    # launch path cannot run on one card)
+    gs_union = check_gs_union(torch, log)
+    gs = run_gs(torch, fd, log, strict_ate)
+    gs["union"] = gs_union
+    log("gs: the kernels' per-device shared-memory attribute and device "
+        f"guard are not exercised here ({torch.cuda.device_count()} card)")
     by_path = {r["path"]: r for r in (loose, free, resumed, imap, mesh,
-                                      repeat, gn, occ, pre, dp, pipe)}
+                                      repeat, gn, occ, pre, dp, pipe, gs)}
 
     # phase 5 continued: K1 and K2 at the new paths' shapes
     for path, kind in (("occ", f"fine n={n_proxy}"),

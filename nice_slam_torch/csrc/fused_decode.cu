@@ -265,13 +265,22 @@ nice_fwd_combine_kernel(const float* __restrict__ occ_part,
     reinterpret_cast<float4*>(out)[i] = make_float4(0.f, 0.f, 0.f, occ);
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// The dynamic shared-memory limit is an attribute of the kernel on one
+// device: set it once per device ordinal (the current device), so a
+// process that launches on a second card sets it there too.
 int set_smem_limit() {
-  static int done = 0;
-  if (!done) {
+  static unsigned char done[MAX_DEVICES] = {0};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
     cudaFuncSetAttribute(nice_fwd_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)SMEM);
-    done = 1;
+    done[dev] = 1;
   }
   return (int)cudaGetLastError();
 }

@@ -666,16 +666,24 @@ size_t live_smem(int d) {
   return sizeof(float) * (d == 1 ? Tiles<2 * HID>::size : Tiles<HID>::size);
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// Set once per device ordinal (the current device), as K1's
+// set_smem_limit: the attribute belongs to the kernel on one device.
 int set_smem_limits() {
-  static int done = 0;
-  if (!done) {
+  static unsigned char done[MAX_DEVICES] = {0};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!done[dev]) {
     cudaFuncSetAttribute(nice_bwd_kernel<false>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)FROZEN_SMEM_MAX);
     cudaFuncSetAttribute(nice_bwd_kernel<true>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)LIVE_SMEM_MAX);
-    done = 1;
+    done[dev] = 1;
   }
   return (int)cudaGetLastError();
 }

@@ -36,13 +36,16 @@ Parallel modes.  In a process group of more than one rank
 (parallel/multihost.py) the engine learns its rank and the world size:
 rank r runs on cuda:(LOCAL_RANK mod device_count), its mapping is
 data-parallel (parallel/data_parallel.py: each rank renders its slice of
-the union ray batch, the gradients are summed over the group) and only
-rank 0 writes checkpoints and meshes (nice_slam_tpu/engine.py:157-160,
-767-772).  World 1 is the dense path.  tpu.pipelined runs the tracker and
-the mapper on two devices (parallel/pipelined.py).
+the union ray batch, the gradients are summed over the group) or, under
+tpu.grid_sharded [n_data, n_model] with n_data x n_model ranks, the NICE
+mapper's grids are cut into X-slabs over the `model` ranks and its rays
+over the `data` ranks (parallel/grid_sharded.py; the coarse mapper and
+iMAP* stay dense on every rank).  Only rank 0 writes checkpoints and
+meshes (nice_slam_tpu/engine.py:157-160, 767-772).  World 1 is the dense
+path.  tpu.pipelined runs the tracker and the mapper on two devices
+(parallel/pipelined.py).
 
-Not in the port (the JAX package has them): the visualizer and
-tpu.grid_sharded, which the constructor refuses (`check_slice`).  The JAX
+Not in the port (the JAX package has it): the visualizer.  The JAX
 package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
 barrier_every_groups, prefetch, fuse_track_map) and tpu.mesh_shape
 (run_torch.py reads it to launch local ranks) are accepted and ignored.
@@ -70,18 +73,39 @@ from nice_slam_torch.utils.profiling import StageTimer
 
 
 def check_slice(cfg: dict) -> None:
-    """Raise for config options the port does not run (tpu.grid_sharded)
-    and, with ValueError, for tpu.pipelined together with
-    tpu.data_parallel (nice_slam_tpu/parallel/pipelined.py:72-76)."""
+    """Raise ValueError for tpu.pipelined together with tpu.data_parallel
+    or tpu.grid_sharded (the JAX pipelined engine refuses any mesh,
+    nice_slam_tpu/parallel/pipelined.py:72-76)."""
     tpu = cfg.get("tpu", {})
-    if tpu.get("grid_sharded"):
-        raise NotImplementedError(
-            "not in this slice of the PyTorch port: tpu.grid_sharded")
-    if tpu.get("pipelined") and tpu.get("data_parallel"):
+    for mode in ("data_parallel", "grid_sharded"):
+        if tpu.get("pipelined") and tpu.get(mode):
+            raise ValueError(
+                f"tpu.pipelined and tpu.{mode} are mutually exclusive: "
+                "the pipelined engine keeps the map on one device; "
+                "the parallel mapping modes spread it over a process group")
+
+
+def grid_shard_for(cfg: dict, world: int):
+    """The GridShard of tpu.grid_sharded [n_data, n_model] in a process
+    group of `world` ranks, or None: one process, or n_model 1, maps dense
+    with the JAX package's warning (nice_slam_tpu/engine.py:142-151).  A
+    group of another size than n_data x n_model raises ValueError (the
+    JAX package, which builds its mesh from the devices it sees, has no
+    such case)."""
+    shape = cfg.get("tpu", {}).get("grid_sharded")
+    if not shape:
+        return None
+    n_data, n_model = int(shape[0]), int(shape[1])
+    if world > 1 and world != n_data * n_model:
         raise ValueError(
-            "tpu.pipelined and tpu.data_parallel are mutually exclusive: "
-            "the pipelined engine keeps the map on one device; "
-            "data-parallel mapping replicates it over a process group")
+            f"tpu.grid_sharded={list(shape)} needs {n_data * n_model} "
+            f"ranks, the process group has {world}")
+    if world == 1 or n_model < 2:
+        print(f"warning: tpu.grid_sharded={list(shape)} needs "
+              f"{n_data * n_model} devices (have {world}) — running dense")
+        return None
+    from nice_slam_torch.parallel.grid_sharded import GridShard
+    return GridShard(n_data, n_model)
 
 
 class SlamEngine:
@@ -98,9 +122,11 @@ class SlamEngine:
         self.is_primary = self.rank == 0
         self.device = (rank_device(device, self.rank) if self.world > 1
                        else torch.device(device))
-        # the data-parallel hook of the mapping step (None on one rank)
+        # the mapping step's parallel hooks (None on one rank):
+        # tpu.grid_sharded takes precedence over data-parallel, as in JAX
+        self.gs = grid_shard_for(cfg, self.world)
         self.dp = None
-        if self.world > 1:
+        if self.world > 1 and not cfg["tpu"].get("grid_sharded"):
             from nice_slam_torch.parallel.data_parallel import RayShard
             self.dp = RayShard()
         if self.device.type == "cuda":
@@ -297,7 +323,7 @@ class SlamEngine:
             coarse_spec=coarse_spec,
             coarse_stage_iters=(stage_iters_of(coarse_spec, coarse_iters)
                                 if coarse_spec is not None else ()),
-            coarse_lr_factor=coarse_lr_factor, dp=self.dp)
+            coarse_lr_factor=coarse_lr_factor, dp=self.dp, gs=self.gs)
         if self.save_selected_kf and record:
             self.selected_keyframes[idx] = sel
         return losses

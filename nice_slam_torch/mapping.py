@@ -17,7 +17,9 @@ the JAX package:
 - in a process group of more than one rank the staged Adam is
   data-parallel (parallel/data_parallel.py: `map_optimize` with a
   `RayShard` hook that gives each rank its slice of the union's rays and
-  sums the loss and gradients over the group).
+  sums the loss and gradients over the group), or under tpu.grid_sharded
+  the NICE mapper runs with its grids in X-slabs over a 2-D process group
+  (parallel/grid_sharded.py `gs_map_once`).
 
 In iMAP* mode there are no grids and no frustum masks: the one decoder
 trains at imap_decoders_lr under StepLR(200, 0.8) (Mapper.py:388-389),
@@ -396,7 +398,10 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
     `shard` (parallel/data_parallel.RayShard) makes the step data-parallel:
     each iteration renders this rank's slice of the union's draws
     (`pixels` then gives the union's), and the loss and the live gradients
-    are summed over its group before the masks, the clip and Adam.
+    are summed over its group before the masks and Adam.  The
+    data-parallel step, as the JAX package's (nice_slam_tpu/parallel/
+    data_parallel.py:92-101), applies neither mapping.grad_clip nor
+    iMAP*'s StepLR scale, at any world size.
 
     Returns (params, grids, cams, losses (n_iters,))."""
     tree = {"params": params, "grids": grids, "cams": cams0.detach()}
@@ -437,13 +442,15 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                     g["grids"][n] = g["grids"][n] * masks[n]
             g = tree_map(lambda x, gg: torch.zeros_like(x)
                          if gg is None and x.requires_grad else gg, tr, g)
-            if mapspec.grad_clip > 0.0:
+            # the data-parallel step clips nothing and scales no LR, as
+            # the JAX package's (data_parallel.py:92-101)
+            if mapspec.grad_clip > 0.0 and shard is None:
                 gn = torch.sqrt(sum(torch.sum(x * x)
                                     for x in tree_leaves(g) if x is not None))
                 scale = torch.clamp(mapspec.grad_clip / (gn + 1e-12), max=1.0)
                 g = tree_map(lambda x: None if x is None else x * scale, g)
             lr_it = lr_tree
-            if not mapspec.nice:
+            if not mapspec.nice and shard is None:
                 scale = imap_lr_scale(opt.step)
                 lr_it = {**lr_tree, "params": tree_map(
                     lambda lr: lr * scale, lr_tree["params"])}
@@ -466,13 +473,17 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
                       lr_factor: float, camera: Camera, stage_iters,
                       mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                       ba: bool, gen: Optional[torch.Generator] = None,
-                      dp=None):
+                      dp=None, gs=None):
     """One keyframe-window optimisation: selection + frustum masks + staged
     Adam + BA write-back (store and est_c2w updated in place).  With `dp`
     (a parallel/data_parallel.RayShard; the engine gives one when its
     process group has more than one rank) the staged Adam is
     `dp_map_optimize`, for the coarse mapper too, as
-    the JAX package routes it (nice_slam_tpu/mapping.py:504-523).  Returns
+    the JAX package routes it (nice_slam_tpu/mapping.py:504-523).  With
+    `gs` (a parallel/grid_sharded.GridShard; the engine then gives no
+    `dp`) the NICE mapper's staged Adam is `gs_map_once`, without
+    Gauss-Newton; the coarse mapper and iMAP* stay dense and local (their
+    draws are in lockstep, so every rank computes the same).  Returns
     (params, grids, losses, sel_frames): sel_frames is the window's frame
     ids (the current frame included, -2 = empty slot; Mapper.py:274-287)."""
     cur_c2w = est_c2w[idx]
@@ -485,7 +496,13 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
         torch.where(slots >= 0, store.frame_idx[torch.clamp(slots, min=0)],
                     torch.full_like(slots, idx)),
         torch.full_like(slots, -2))
-    if dp is not None:
+    if gs is not None and mapspec.nice and not mapspec.coarse_mapper:
+        from nice_slam_torch.parallel.grid_sharded import gs_map_once
+        params, grids, cams, losses = gs_map_once(
+            params, grids, bound, window, cams0, masks, cam_lr_mask,
+            lr_factor, camera, stage_iters, mapspec, rspec, mspec, gs,
+            gen=gen)
+    elif dp is not None:
         from nice_slam_torch.parallel.data_parallel import dp_map_optimize
         params, grids, cams, losses = dp_map_optimize(
             params, grids, bound, window, cams0, masks, cam_lr_mask,
@@ -513,18 +530,18 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
                  insert_kf: bool = False, gt_pose=None,
                  coarse_spec: Optional[MapSpec] = None,
                  coarse_stage_iters=(), coarse_lr_factor: float = 1.0,
-                 dp=None):
+                 dp=None, gs=None):
     """One mapping event in the reference's order: the mapping optimisation
     (+BA) -> the occupancy proxy's refresh (occupancy-guided runs) ->
     keyframe insertion (insert_kf) -> the coarse mapper
     (coarse_spec; the reference's third process, NICE_SLAM.py:278-286),
-    which sees the post-BA poses and the new keyframe.  `dp`: see
+    which sees the post-BA poses and the new keyframe.  `dp`, `gs`: see
     `_one_map_optimize`.
 
     Returns (params, grids, losses, sel_frames)."""
     params, grids, losses, sel_frames = _one_map_optimize(
         params, grids, bound, store, est_c2w, idx, color, depth, lr_factor,
-        camera, stage_iters, mapspec, rspec, mspec, ba, gen, dp)
+        camera, stage_iters, mapspec, rspec, mspec, ba, gen, dp, gs)
     if mapspec.nice and not mapspec.coarse_mapper and "occ_proxy" in grids:
         grids = dict(grids)
         grids["occ_proxy"] = refresh_occ_proxy(params, grids, bound, mspec)
@@ -534,7 +551,7 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
         params, grids, _, _ = _one_map_optimize(
             params, grids, bound, store, est_c2w, idx, color, depth,
             coarse_lr_factor, camera, coarse_stage_iters, coarse_spec,
-            rspec, mspec, False, gen, dp)
+            rspec, mspec, False, gen, dp, gs)
     return params, grids, losses, sel_frames
 
 

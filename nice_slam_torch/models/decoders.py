@@ -231,34 +231,68 @@ def _unfused_apply(params, dspecs, p, c_mid, c_fine, c_color,
     return torch.cat([rgb, occ[..., None]], dim=-1)
 
 
-def model_apply(params, spec: ModelSpec, grids, bound, p: torch.Tensor,
-                stage: str = "color",
-                train_decoders: bool = True) -> torch.Tensor:
-    """Stage-dispatched forward: (N, 3) points -> raw (N, 4) [rgb, occ].
-
-    train_decoders=False tells the fused decode that no decoder weight
-    gradient is wanted (frozen decoders)."""
+def model_apply_feats(params, spec: ModelSpec, p: torch.Tensor, feats,
+                      stage: str = "color",
+                      train_decoders: bool = True) -> torch.Tensor:
+    """Stage-dispatched NICE forward from the per-point grid features
+    `feats` ({level: (N, c_dim)} for the levels the stage reads): (N, 3)
+    points -> raw (N, 4) [rgb, occ].  The caller owns the gather, as in
+    JAX model_apply_feats (nice_slam_tpu/models/decoders.py:273-328); the
+    grid-sharded decode passes features summed over a process group
+    (parallel/grid_sharded.py).  The fine and colour stages route by
+    `fused_route(spec)`, as `model_apply` does: at the default widths
+    through the fused decode (K1/K2 on the card), else the unfused
+    composition.  (The JAX package's sharded decode always composes
+    unfused: the same function of the same inputs.)"""
     dspecs = spec.decoder_specs()
-    if not spec.nice:
-        return apply_mlp(params["imap"], dspecs["imap"], p)
     zeros3 = torch.zeros(p.shape[:-1] + (3,), dtype=p.dtype, device=p.device)
     if stage == "coarse":
-        c = trilinear_interp(grids["coarse"], normalize_coords(
-            p, bound * spec.coarse_bound_enlarge))
-        occ = apply_mlp_no_xyz(params["coarse"], dspecs["coarse"], c)
+        occ = apply_mlp_no_xyz(params["coarse"], dspecs["coarse"],
+                               feats["coarse"])
         return torch.cat([zeros3, occ[..., None]], dim=-1)
-    p_nor = normalize_coords(p, bound)
-    c_mid = trilinear_interp(grids["middle"], p_nor)
+    c_mid = feats["middle"]
     if stage == "middle":
         occ = apply_mlp(params["middle"], dspecs["middle"], p, c_mid)
         return torch.cat([zeros3, occ[..., None]], dim=-1)
     if stage not in ("fine", "color"):
         raise ValueError(f"unknown stage {stage}")
     with_color = stage == "color"
-    c_fine = trilinear_interp(grids["fine"], p_nor)
-    c_color = trilinear_interp(grids["color"], p_nor) if with_color else None
+    c_color = feats["color"] if with_color else None
     if fused_route(spec):
-        return _fused_apply(params, p, c_mid, c_fine, c_color, with_color,
-                            train_decoders)
-    return _unfused_apply(params, dspecs, p, c_mid, c_fine, c_color,
+        return _fused_apply(params, p, c_mid, feats["fine"], c_color,
+                            with_color, train_decoders)
+    return _unfused_apply(params, dspecs, p, c_mid, feats["fine"], c_color,
                           with_color)
+
+
+_STAGE_LEVELS = {"coarse": ("coarse",), "middle": ("middle",),
+                 "fine": ("middle", "fine"),
+                 "color": ("middle", "fine", "color")}
+
+
+def stage_levels(stage: str):
+    """The grid levels whose features a NICE stage reads."""
+    if stage not in _STAGE_LEVELS:
+        raise ValueError(f"unknown stage {stage}")
+    return _STAGE_LEVELS[stage]
+
+
+def model_apply(params, spec: ModelSpec, grids, bound, p: torch.Tensor,
+                stage: str = "color",
+                train_decoders: bool = True) -> torch.Tensor:
+    """Stage-dispatched forward: (N, 3) points -> raw (N, 4) [rgb, occ]:
+    the stage's grid features by `trilinear_interp`, then
+    `model_apply_feats` (iMAP*: its one MLP).
+
+    train_decoders=False tells the fused decode that no decoder weight
+    gradient is wanted (frozen decoders)."""
+    if not spec.nice:
+        return apply_mlp(params["imap"], spec.decoder_specs()["imap"], p)
+    if stage == "coarse":
+        feats = {"coarse": trilinear_interp(grids["coarse"], normalize_coords(
+            p, bound * spec.coarse_bound_enlarge))}
+    else:
+        p_nor = normalize_coords(p, bound)
+        feats = {n: trilinear_interp(grids[n], p_nor)
+                 for n in stage_levels(stage)}
+    return model_apply_feats(params, spec, p, feats, stage, train_decoders)

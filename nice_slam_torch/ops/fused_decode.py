@@ -455,10 +455,14 @@ def _fwd_prepare(with_color, p, c_mid, c_fine, c_color, img):
 
 
 def _launch_fwd(with_color, p, c_mid, c_fine, c_color, img):
-    """K1: raw (N, 4) from the weight image."""
+    """K1: raw (N, 4) from the weight image, launched on p's device (the
+    C entry launches on the current device)."""
     lib = _kernels()
-    args, out, _ = _fwd_prepare(with_color, p, c_mid, c_fine, c_color, img)
-    _check_err(lib, lib.nice_decode_fwd(*args), "fused decode forward kernel")
+    with torch.cuda.device(p.device):
+        args, out, _ = _fwd_prepare(with_color, p, c_mid, c_fine, c_color,
+                                    img)
+        _check_err(lib, lib.nice_decode_fwd(*args),
+                   "fused decode forward kernel")
     return out
 
 
@@ -516,15 +520,16 @@ def _bwd_prepare(with_color, live, p, c_mid, c_fine, c_color, g, img):
 
 
 def _launch_bwd(with_color, live, p, c_mid, c_fine, c_color, g, img):
-    """K2.  Returns (dp, dc_mid, dc_fine, dc_color (None in the fine
-    stage), packed weight gradients (valid in the live decoders' sections)
-    or None)."""
+    """K2, launched on p's device.  Returns (dp, dc_mid, dc_fine, dc_color
+    (None in the fine stage), packed weight gradients (valid in the live
+    decoders' sections) or None)."""
     lib = _bwd_kernels()
-    args, (dp_part, dcm, dcf, dcc, wgrad), _ = _bwd_prepare(
-        with_color, live, p, c_mid, c_fine, c_color, g, img)
-    _check_err(lib, lib.nice_decode_bwd(*args),
-               "fused decode backward kernel")
-    return dp_part.sum(0), dcm, dcf, dcc, wgrad
+    with torch.cuda.device(p.device):
+        args, (dp_part, dcm, dcf, dcc, wgrad), _ = _bwd_prepare(
+            with_color, live, p, c_mid, c_fine, c_color, g, img)
+        _check_err(lib, lib.nice_decode_bwd(*args),
+                   "fused decode backward kernel")
+        return dp_part.sum(0), dcm, dcf, dcc, wgrad
 
 
 def bwd_variant_info(live: bool, dec: int) -> dict:

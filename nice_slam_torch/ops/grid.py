@@ -97,9 +97,13 @@ def scatter_rows(rows: torch.Tensor, vals: torch.Tensor, n_rows: int,
 
 class _TrilinearInterp(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, grid: torch.Tensor, p_nor: torch.Tensor):
+    def forward(ctx, grid: torch.Tensor, p_nor: torch.Tensor, shape,
+                x_offset: int):
         nx, ny, nz, C = grid.shape
-        i0, i1, f, du = _cell(grid.shape, p_nor)
+        i0, i1, f, du = _cell(shape, p_nor)
+        if x_offset:
+            shift = torch.tensor([x_offset, 0, 0], device=i0.device)
+            i0, i1 = i0 - shift, i1 - shift
         rows = _corner_rows(grid.shape, i0, i1)
         flat = grid.reshape(nx * ny * nz, C)
         c = flat[rows.reshape(-1)].reshape(8, -1, C)
@@ -148,14 +152,26 @@ class _TrilinearInterp(torch.autograd.Function):
                                torch.sum(g * d_fy, dim=-1),
                                torch.sum(g * d_fz, dim=-1)], dim=-1)
             d_p = d_f * du
-        return d_grid, d_p
+        return d_grid, d_p, None, None
 
 
 def trilinear_interp(grid: torch.Tensor, p_nor: torch.Tensor) -> torch.Tensor:
     """Trilinearly interpolate `grid` [Nx, Ny, Nz, C] at p_nor (N, 3) in
     [-1, 1]^3 (x, y, z order).  Returns (N, C).  Differentiable with
     respect to both the grid and the points."""
-    return _TrilinearInterp.apply(grid, p_nor)
+    return _TrilinearInterp.apply(grid, p_nor, tuple(grid.shape), 0)
+
+
+def slab_trilinear(slab: torch.Tensor, p_nor: torch.Tensor, global_shape,
+                   x_offset: int) -> torch.Tensor:
+    """`trilinear_interp` of the global grid of shape `global_shape`
+    (Nx, Ny, Nz) at p_nor, read from `slab`, its rows [x_offset,
+    x_offset + slab.shape[0]) (parallel/grid_sharded.py).  Every point's
+    base cell and the row after it must lie in the slab.  The cell, the
+    corner order and the lerps are the dense function's, so each row
+    equals the dense interpolation bit for bit."""
+    return _TrilinearInterp.apply(
+        slab, p_nor, tuple(global_shape) + (slab.shape[-1],), x_offset)
 
 
 def grid_shape_for_bound(bound, voxel_len: float, enlarge: int = 1):

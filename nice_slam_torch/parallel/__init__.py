@@ -5,5 +5,6 @@
 sums a sharded ray batch's systems across ranks.
 `multihost`: one process per rank in a torch.distributed process group.
 `data_parallel`: ray-data-parallel mapping over that group.
-`pipelined`: the tracker and the mapper on two devices.
-The JAX package's grid_sharded.py is not ported yet."""
+`grid_sharded`: the grids in X-slabs over the `model` ranks of a 2-D
+process group, the rays over its `data` ranks.
+`pipelined`: the tracker and the mapper on two devices."""

@@ -14,8 +14,7 @@ copy of the staged loop.  Per iteration, in order:
    union's max sensor depth;
 2. the loss and the live gradients are all_reduce(SUM)-ed in one flat
    bucket (one call, not one per leaf);
-3. the frustum masks, the gradient clip and iMAP*'s StepLR apply, then
-   Adam runs identically on every rank.
+3. the frustum masks apply, then Adam runs identically on every rank.
 
 With Gauss-Newton on, each GN iteration draws the union's pixels the same
 way (per-frame max depth over the union) and `schur_ba.gn_iteration` sums
@@ -33,10 +32,12 @@ counts on every rank, so the lockstep holds, but they are not the
 union's.
 
 mapspec.pixels is the budget of one rank, as in the JAX package: a step
-renders world x pixels rays.  Unlike the JAX DP step
-(data_parallel.py:92-101), this one applies mapping.grad_clip (after the
-all_reduce) and iMAP*'s StepLR scale, as the local step does; both
-packages agree in NICE mode, where grad_clip is 0.
+renders world x pixels rays.  As the JAX DP step (nice_slam_tpu/parallel/
+data_parallel.py:92-101), this one applies neither mapping.grad_clip nor
+iMAP*'s StepLR scale, which the local step applies (mapping.py:455-462
+there): a quirk of the reference package, kept on purpose, at every world
+size, one rank included.  In NICE mode (grad_clip 0, no StepLR) the DP
+step and the local step take the same update.
 """
 
 from __future__ import annotations

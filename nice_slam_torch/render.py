@@ -99,7 +99,8 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
                 rays_o: torch.Tensor, rays_d: torch.Tensor,
                 rspec: RenderSpec, stage: str,
                 gt_depth: Optional[torch.Tensor] = None,
-                gen: Optional[torch.Generator] = None, max_depth=None):
+                gen: Optional[torch.Generator] = None, max_depth=None,
+                decode_fn=None):
     """Render a batch of rays.
 
     gt_depth=None (e.g. the coarse mapper) disables surface sampling and
@@ -109,16 +110,27 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
     batch's max sensor depth, so rays of several frames render in one
     batch as each frame's alone would (parallel/schur_ba.py).
 
+    decode_fn: (M, 3) points -> raw (M, 4) in place of `eval_points`,
+    with the out-of-AABB occupancy forcing (the grid-sharded decode,
+    parallel/grid_sharded.py; JAX render.py:104-123).  The occupancy
+    proxy is read only from a dict of grids, as in JAX (render.py:130-132):
+    with `grids` None the samples are unguided.
+
     Returns (depth (N,), uncertainty (N,), color (N, 3), weights (N, S))."""
+    if decode_fn is None:
+        def decode_fn(pp):
+            return eval_points(params, mspec, grids, bound, pp, stage,
+                               train_decoders=rspec.train_decoders)
+
     with_depth = gt_depth is not None and stage != "coarse"
     occ_proxy = (grids.get("occ_proxy")
-                 if rspec.occ_guided and stage != "coarse" else None)
+                 if (rspec.occ_guided and stage != "coarse"
+                     and isinstance(grids, dict)) else None)
     z_vals = _zvals(rays_o, rays_d, gt_depth if with_depth else None, bound,
                     rspec, with_depth, gen, occ_proxy, max_depth)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     n, s, _ = pts.shape
-    raw = eval_points(params, mspec, grids, bound, pts.reshape(-1, 3), stage,
-                      train_decoders=rspec.train_decoders)
+    raw = decode_fn(pts.reshape(-1, 3))
     out = raw2outputs(raw.reshape(n, s, 4), z_vals, rays_d, rspec.occupancy)
     if rspec.n_importance > 0:
         weights = out[3]
@@ -127,8 +139,7 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
                            det=rspec.perturb == 0.0, gen=gen).detach()
         z_vals, _ = torch.sort(torch.cat([z_vals, z_imp], dim=-1), dim=-1)
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-        raw = eval_points(params, mspec, grids, bound, pts.reshape(-1, 3),
-                          stage, train_decoders=rspec.train_decoders)
+        raw = decode_fn(pts.reshape(-1, 3))
         out = raw2outputs(raw.reshape(n, s + rspec.n_importance, 4), z_vals,
                           rays_d, rspec.occupancy)
     return out

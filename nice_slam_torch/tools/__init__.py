@@ -1,2 +1,4 @@
 """Tools of the port: measurements on the GPU (decode_ablation,
-scatter_bench) and decoder pretraining (pretrain_decoders)."""
+scatter_bench), decoder pretraining (pretrain_decoders), the evaluation
+tools (eval_ate, cull_mesh, eval_recon) and a scene yaml for a capture of
+one's own (prep_own_data)."""

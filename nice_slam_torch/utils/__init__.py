@@ -1,2 +1,2 @@
 """Host-side helpers: datasets, the synthetic scene, ATE, checkpoints,
-PLY files and the mesher."""
+PLY files, the mesher and the transient-failure retry."""

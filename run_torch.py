@@ -15,6 +15,9 @@ Usage:
     # tpu.multihost keys or NICE_SLAM_TPU_COORDINATOR / _NUM_PROCESSES /
     # _PROCESS_ID in each process's environment):
     python run_torch.py <config with tpu.data_parallel>
+    # grid-sharded mapping on n_data x n_model local ranks
+    # (tpu.grid_sharded: [n_data, n_model]):
+    python run_torch.py <config with tpu.grid_sharded>
     python run_torch.py <config with tpu.pipelined>   # tracker | mapper
 
 The port runs NICE-SLAM and iMAP* under strict, loose and free sync on one
@@ -34,10 +37,19 @@ no multi-process config, the script starts n local ranks
 (torch.multiprocessing, a free port) that map data-parallel
 (nice_slam_torch/parallel/data_parallel.py); with a multi-process config
 (tpu.multihost or the NICE_SLAM_TPU_* environment) this process is one
-rank of such a group (parallel/multihost.py).  tpu.pipelined runs the
-tracker and the mapper on two cards, or both on one
-(parallel/pipelined.py).  Not in the port: the visualizer and
-tpu.grid_sharded, which is refused.
+rank of such a group (parallel/multihost.py).  With tpu.grid_sharded
+[n_data, n_model] (n_model > 1) the script starts n_data x n_model local
+ranks the same way, and the NICE mapper runs with its grids in X-slabs
+over the `model` ranks and its rays over the `data` ranks
+(parallel/grid_sharded.py); it takes precedence over tpu.data_parallel.
+tpu.pipelined runs the tracker and the mapper on two cards, or both on
+one (parallel/pipelined.py).  Not in the port: the visualizer.
+
+A single-process run that fails on a transient rendezvous or transport
+error (nice_slam_torch/utils/retry.py) is retried up to twice, each retry
+resuming from the newest checkpoint in the output directory (run.py's
+retry).  A rank of a multi-rank launch does not retry alone: the failure
+ends the launch, and --resume <output> restarts it.
 
 Every rank prints a JSON summary (ate_rmse_m, ate_mean_m, frames,
 timings_s, its rank and world size, the group's backend, digests of its
@@ -73,12 +85,18 @@ def _local_rank(rank: int, argv: list, port: int, world: int):
 
 
 def local_ranks(cfg: dict) -> int:
-    """How many local ranks to start: n for tpu.data_parallel with
-    tpu.mesh_shape [n] and no multi-process config, else 1."""
+    """How many local ranks to start, with no multi-process config: n_data
+    x n_model for tpu.grid_sharded [n_data, n_model] with n_model > 1 (it
+    takes precedence), n for tpu.data_parallel with tpu.mesh_shape [n],
+    else 1."""
     tpu = cfg.get("tpu", {})
+    if tpu.get("multihost") or os.environ.get("NICE_SLAM_TPU_COORDINATOR"):
+        return 1
+    gs = tpu.get("grid_sharded")
+    if gs:
+        return int(gs[0]) * int(gs[1]) if int(gs[1]) > 1 else 1
     shape = tpu.get("mesh_shape")
-    if (not tpu.get("data_parallel") or not shape or tpu.get("multihost")
-            or os.environ.get("NICE_SLAM_TPU_COORDINATOR")):
+    if not tpu.get("data_parallel") or not shape:
         return 1
     return int(shape[0])
 
@@ -95,8 +113,8 @@ def main(argv=None):
         description="nice-slam PyTorch port runner (NICE-SLAM and iMAP*, "
                     "strict/loose/free sync, checkpoint and resume, "
                     "meshing, Gauss-Newton poses, occupancy-guided "
-                    "sampling, data-parallel mapping, the pipelined "
-                    "engine; not yet: visualizer, tpu.grid_sharded)")
+                    "sampling, data-parallel and grid-sharded mapping, the "
+                    "pipelined engine; not yet: the visualizer)")
     ap.add_argument("config", nargs="?", default=None,
                     help="scene config yaml")
     ap.add_argument("--input_folder", type=str, default=None,
@@ -128,6 +146,7 @@ def main(argv=None):
     from nice_slam_torch.config import load_config
     from nice_slam_torch.engine import SlamEngine
     from nice_slam_torch.utils.checkpoint import latest_checkpoint
+    from nice_slam_torch.utils.retry import retry_transient
 
     overrides = {}
     if args.synthetic is not None:
@@ -163,27 +182,45 @@ def main(argv=None):
     if not args.no_mesh:
         from nice_slam_torch.utils.mesher import engine_mesher_hook
         mesher_hook = engine_mesher_hook
-    if cfg["tpu"].get("pipelined"):
-        from nice_slam_torch.parallel.pipelined import PipelinedSlamEngine
-        eng = PipelinedSlamEngine(cfg, device=args.device,
-                                  mesher_hook=mesher_hook)
-    else:
-        eng = SlamEngine(cfg, device=args.device, mesher_hook=mesher_hook)
-    if args.resume:
-        ckpt = args.resume
-        if os.path.isdir(ckpt):
-            ckpt = (latest_checkpoint(os.path.join(ckpt, "ckpts"))
-                    or latest_checkpoint(ckpt))
-            if ckpt is None:
-                ap.error(f"no checkpoint under {args.resume}")
-        eng.resume(ckpt)
-        print(f"resumed from {ckpt} at frame {eng.frames_done}")
+    resume = args.resume
+    if resume and os.path.isdir(resume):
+        resume = (latest_checkpoint(os.path.join(resume, "ckpts"))
+                  or latest_checkpoint(resume))
+        if resume is None:
+            ap.error(f"no checkpoint under {args.resume}")
     from nice_slam_torch.utils.profiling import torch_trace
 
-    t0 = time.perf_counter()
-    with torch_trace(args.profile):
-        eng.run(n_frames=args.frames, progress=True)
-    wall = time.perf_counter() - t0
+    def build_and_run():
+        # the unit a transient failure retries: a new engine, resumed from
+        # the newest checkpoint of the failed attempt (if it wrote one)
+        if cfg["tpu"].get("pipelined"):
+            from nice_slam_torch.parallel.pipelined import (
+                PipelinedSlamEngine,
+            )
+            eng = PipelinedSlamEngine(cfg, device=args.device,
+                                      mesher_hook=mesher_hook)
+        else:
+            eng = SlamEngine(cfg, device=args.device,
+                             mesher_hook=mesher_hook)
+        ckpt = resume
+        if build_and_run.attempted:
+            ckpt = latest_checkpoint(os.path.join(eng.output, "ckpts")) \
+                or resume
+        build_and_run.attempted = True
+        if ckpt:
+            eng.resume(ckpt)
+            print(f"resumed from {ckpt} at frame {eng.frames_done}")
+        t0 = time.perf_counter()
+        with torch_trace(args.profile):
+            eng.run(n_frames=args.frames, progress=True)
+        return eng, time.perf_counter() - t0
+
+    build_and_run.attempted = False
+    retry = {}
+    # a rank of a group does not retry alone (utils/retry.py)
+    attempts = 1 if multihost.rank_world()[1] > 1 else 3
+    eng, wall = retry_transient(build_and_run, attempts=attempts,
+                                label="slam run", stats=retry)
 
     stats = eng.ate()
     import numpy as np
@@ -214,6 +251,8 @@ def main(argv=None):
         "peak_mib": (torch.cuda.max_memory_allocated(eng.device) / 2**20
                      if eng.device.type == "cuda" else None),
         "allreduce": eng.dp.stats() if eng.dp else None,
+        "grid_sharded": eng.gs.stats() if eng.gs else None,
+        "attempts": retry["attempts"],
         "written": written}, indent=2)
     # one write, so that the ranks' summaries do not interleave
     sys.stdout.write(summary + "\n")

@@ -74,7 +74,9 @@ def test_port_imports_without_jax():
                      "tools.pretrain_decoders", "utils.profiling",
                      "parallel.multihost", "parallel.data_parallel",
                      "parallel.pipelined", "tools.eval_recon",
-                     "tools.cull_mesh", "tools.eval_ate"):
+                     "tools.cull_mesh", "tools.eval_ate",
+                     "parallel.grid_sharded", "utils.retry",
+                     "tools.prep_own_data"):
             assert "nice_slam_torch." + name in sys.modules, name
         import runpy
         runpy.run_path("run_torch.py", run_name="not_main")
@@ -103,9 +105,9 @@ def test_port_imports_without_jax():
 
 
 def test_unsupported_options_raise():
-    """Only tpu.grid_sharded is refused, and tpu.pipelined together with
-    tpu.data_parallel raises ValueError (the JAX package's
-    parallel/pipelined.py:72-76); the other parallel modes,
+    """No option is refused on its own; tpu.pipelined together with
+    tpu.data_parallel or tpu.grid_sharded raises ValueError (the JAX
+    package's parallel/pipelined.py:72-76); the other parallel modes,
     occupancy-guided sampling, the Gauss-Newton polish (tracking and
     mapping), loose/free sync (the Demo config's loose among them), iMAP*,
     N_importance, density compositing, gt_camera and NICE widths and
@@ -114,12 +116,13 @@ def test_unsupported_options_raise():
     occupancy-guided options into its specs)."""
     from nice_slam_torch.engine import check_slice
 
-    with pytest.raises(NotImplementedError):
-        check_slice(load_config(overrides={"tpu": {"grid_sharded": [2, 2]}}))
-    with pytest.raises(ValueError):
-        check_slice(load_config(overrides={
-            "tpu": {"pipelined": True, "data_parallel": True}}))
+    for mode in ({"data_parallel": True}, {"grid_sharded": [2, 2]}):
+        with pytest.raises(ValueError):
+            check_slice(load_config(overrides={
+                "tpu": {"pipelined": True, **mode}}))
     for ov in ({"tpu": {"pipelined": True}}, {"tpu": {"data_parallel": True}},
+               {"tpu": {"grid_sharded": [2, 2]}},
+               {"tpu": {"grid_sharded": [1, 2], "data_parallel": True}},
                {"tpu": {"multihost": True}},
                {"tpu": {"data_parallel": True, "mesh_shape": [2],
                         "multihost": {"num_processes": 2}}},

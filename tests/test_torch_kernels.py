@@ -412,6 +412,63 @@ def test_ablation_patches_apply():
     assert mma.count("mma_tf32(d, a.lo, b0h, b1h);") == 1
 
 
+def test_wrappers_launch_inside_the_tensors_device_guard(monkeypatch):
+    """K1's and K2's C entries launch on the current device, so each
+    wrapper makes p's device current around its launch (a mocked launch
+    records the device guards open at the call)."""
+    from types import SimpleNamespace
+
+    open_guards = []
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            open_guards.append(self.dev)
+
+        def __exit__(self, *exc):
+            open_guards.pop()
+
+    seen = []
+
+    class Lib:
+        def nice_decode_fwd(self, *args):
+            seen.append(("fwd", list(open_guards)))
+            return 0
+
+        def nice_decode_bwd(self, *args):
+            seen.append(("bwd", list(open_guards)))
+            return 0
+
+    dev = torch.device("cuda", 1)
+    part = torch.zeros(2, 1, 3)
+    monkeypatch.setattr(fd.torch.cuda, "device", Guard)
+    monkeypatch.setattr(fd, "_kernels", Lib)
+    monkeypatch.setattr(fd, "_bwd_kernels", Lib)
+    monkeypatch.setattr(fd, "_fwd_prepare", lambda *a: ((), "out", None))
+    monkeypatch.setattr(fd, "_bwd_prepare",
+                        lambda *a: ((), (part, 1, 2, 3, 4), None))
+    p = SimpleNamespace(device=dev)
+    assert fd._launch_fwd(True, p, None, None, None, None) == "out"
+    dp, *rest = fd._launch_bwd(True, 0, p, None, None, None, None, None)
+    assert torch.equal(dp, part.sum(0)) and rest == [1, 2, 3, 4]
+    assert seen == [("fwd", [dev]), ("bwd", [dev])]
+    assert open_guards == []
+
+
+def test_smem_limit_is_set_per_device():
+    """The shared-memory attribute is set once per device ordinal (a
+    process that launches on a second card sets it there too), not once
+    per process."""
+    for name, fn in (("fused_decode.cu", "int set_smem_limit() {"),
+                     ("fused_decode_bwd.cu", "int set_smem_limits() {")):
+        src = open(os.path.join(CSRC, name)).read()
+        body = _body(src, fn)
+        assert "cudaGetDevice(&dev)" in body, name
+        assert "done[dev]" in body and "static int done = 0" not in body
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -492,6 +549,48 @@ def test_kernels_match_plain_on_cuda(weights, cuda_device, with_color, live,
             continue
         cos = float((a * b).sum()) / (na * nb)
         assert cos > 0.9999 and abs(na / nb - 1) < 1e-3, (k, cos, na / nb)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_second_card(weights):
+    """With cuda:0 current, K1 and K2 on tensors of the last card match
+    the plain version there (the per-device shared-memory attribute and
+    the wrappers' device guard; atol 1e-4 forward, rtol 1e-3 atol 1e-4 on
+    dp and dc, the cotangent of ReLU-flip points zeroed, as the one-card
+    check)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (a launch on a second card)")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    p, (cm, cf, cc), g = _inputs(N=700, seed=8)
+    ws = [w.to(dev).contiguous() for w in weights]
+    pt, cmt, cft, cct = (torch.tensor(a, device=dev) for a in (p, cm, cf, cc))
+    with torch.no_grad():
+        mins = []
+        for d, c in ((0, cmt), (1, torch.cat([cft, cmt], dim=-1)),
+                     (2, cct)):
+            _, (_, _, zs, _) = fd._mlp_forward(pt, c, *fd._unpack(ws, d),
+                                               save=True)
+            mins.append(torch.stack([z.abs().amin(1) for z in zs]).amin(0))
+        # points whose ReLU could flip between summation orders: no
+        # cotangent (as test_kernels_match_plain_on_cuda)
+        g = (torch.tensor(g, device=dev)
+             * (torch.stack(mins).amin(0) >= 1e-4)[:, None]).cpu().numpy()
+    with torch.cuda.device(0):
+        out = []
+        for fn in (fd.fused_nice_decode, None):
+            xs = [torch.tensor(a, device=dev, requires_grad=True)
+                  for a in (p, cm, cf, cc)]
+            y = (fn(True, False, *xs, *ws) if fn is not None
+                 else fd.reference_nice_decode(True, *xs, *ws))
+            grads = torch.autograd.grad(
+                (y * torch.tensor(g, device=dev)).sum(), xs)
+            torch.cuda.synchronize(dev)
+            out.append((y, grads))
+    (y_k, g_k), (y_r, g_r) = out
+    assert y_k.device == dev
+    np.testing.assert_allclose(n(y_k), n(y_r), atol=1e-4)
+    for a, b in zip(g_k, g_r):
+        np.testing.assert_allclose(n(a), n(b), rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.cuda

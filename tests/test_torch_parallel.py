@@ -206,6 +206,79 @@ def test_world_one_shard_is_the_local_step():
     assert shard.stats()["iters"]["gn"] == 2 and shard.seconds == 0.0
 
 
+def _imap_window():
+    """An iMAP* window (keyframe 0, current frame 3) at a small width."""
+    cfg = load_config(nice=False, overrides={
+        "dataset": "synthetic", "synthetic": {"n_frames": 4},
+        "cam": {"H": 12, "W": 16, "fx": 12.0, "fy": 12.0, "cx": 7.5,
+                "cy": 5.5, "crop_edge": 0},
+        "mapping": {"bound": BOUND, "pixels": 16, "mapping_window_size": 3},
+        "rendering": {"N_samples": 4, "N_importance": 2}})
+    specs = specs_from_config(cfg)
+    cam = specs.camera
+    ds = get_dataset(cfg)
+    state = make_map_state(torch.Generator().manual_seed(0), specs.model,
+                           BOUND, GRID_LEN, 0.32, device="cpu")
+    store = make_store(2, cam.H, cam.W, device="cpu")
+    _, c, d, p = ds[0]
+    add_keyframe(store, torch.as_tensor(c), torch.as_tensor(d),
+                 torch.as_tensor(np.asarray(p, np.float32)),
+                 torch.as_tensor(np.asarray(p, np.float32)), 0)
+    _, c, d, p = ds[3]
+    window, masks, cams0, lr_mask = mapping.prepare_mapping(
+        store, torch.as_tensor(c), torch.as_tensor(d),
+        torch.as_tensor(np.asarray(p, np.float32)), state.grids, state.bound,
+        cam, specs.mapper, True, gen=torch.Generator().manual_seed(1))
+    return specs, state, window, masks, cams0, lr_mask
+
+
+@pytest.mark.parametrize("case", ["nice_grad_clip", "imap_steplr"])
+def test_dp_step_has_no_clip_and_no_steplr(case, monkeypatch):
+    """The data-parallel step takes the JAX DP step's arithmetic
+    (nice_slam_tpu/parallel/data_parallel.py:92-101): no grad_clip and no
+    iMAP* StepLR, at world 1 too.  NICE with grad_clip 0.01: equal bit for
+    bit to the local step without the clip, and not to the local step
+    with it.  iMAP*: equal to the local step with StepLR(200, 0.8)'s scale
+    pinned to 1, and the scale never asked for (the local step asks at
+    every Adam step; past step 200 it would be 0.8)."""
+    from nice_slam_torch.parallel.data_parallel import (
+        RayShard,
+        dp_map_optimize,
+    )
+
+    if case == "nice_grad_clip":
+        specs, state, window, masks, cams0, lr_mask, mapspec, _ = \
+            _dp_setup()
+        mapspec = dataclasses.replace(mapspec, pose_gn_iters=0)
+        stages, jax_spec = STAGES, mapspec
+        mapspec = dataclasses.replace(mapspec, grad_clip=0.01)
+    else:
+        specs, state, window, masks, cams0, lr_mask = _imap_window()
+        mapspec = jax_spec = specs.mapper
+        stages = (("color", 3),)
+    scales = []
+    monkeypatch.setattr(mapping, "imap_lr_scale",
+                        lambda step: scales.append(step) or 1.0)
+
+    def run(fn, spec, **kw):
+        return _flat(*fn(state.params, state.grids, state.bound, window,
+                         cams0, masks, lr_mask, 1.0, specs.camera, stages,
+                         spec, specs.render, specs.model, ba=True,
+                         gen=torch.Generator().manual_seed(3), **kw))
+
+    dp = run(dp_map_optimize, mapspec, shard=RayShard())
+    assert scales == []
+    jax_arith = run(mapping.map_optimize, jax_spec)
+    for k in dp:
+        assert np.array_equal(dp[k], jax_arith[k]), k
+    if case == "nice_grad_clip":
+        local = run(mapping.map_optimize, mapspec)
+        assert not all(np.array_equal(dp[k], local[k]) for k in dp)
+    else:
+        # the local step asks for the scale at every Adam step
+        assert scales == [0, 1, 2]
+
+
 def test_dp_losses_scale_with_devices(dp_ranks):
     """tests/test_parallel.py:81 on the port: the loss is summed over the
     ranks, each with `pixels` rays, so it is about world x one rank's."""
