@@ -180,7 +180,29 @@
    stage, their seconds and share of map time, the peak MiB a rank and
    the wall.  The kernels' per-device shared-memory attribute and device
    guard (a launch on a second card) are not exercised: one card.
-Phases 6-9, 11-16 and 19 each run in a device memory freed of the earlier
+20. Visualiser and replay: the main path's run (phase 3's config and
+   seed, 11 frames) with enable_visualizer() at tracking and mapping
+   vis_freq 5, vis_inside_freq 25: frames 5 and 10 draw tracking
+   iterations 0 and 25 of 50, event 5 draws mapping iterations 0, 25 and
+   50 of 60 (event 0 is the first and event 10 the colour refinement:
+   none).  Each panel is a 240x320 render through K1 in 16,384-ray
+   chunks (4 launches at 786,432 colour points and one at 540,672).
+   Fails unless the panel files are exactly those 4 + 3 npz (and their
+   jpgs if and only if matplotlib imports), the trajectory, grids and
+   decoders are bit-equal to phase 3's (its digest taken before phase 4),
+   K1's launches equal the schedule plus 5 a panel (K2's the schedule),
+   and one tracking and one mapping panel re-rendered from their captured
+   inputs through K1 equal their npz depth and match the same render
+   through the plain decode within 1e-4 x max(1, max |ref|) at all but
+   max(2, H*W / 1000) pixels.  K1 is checked and timed (as in phase 5) at
+   the panels' two shapes.  Then nice_slam_torch/tools/replay.py --html
+   on phase 3's output in a subprocess: exit 0, DATA's n and kf equal to
+   phase 3's frames and keyframes, est equal to the latest checkpoint's
+   est_c2w as float32, mesh arrays present as phase 10's final_mesh.ply
+   is.  Prints the ms per panel (host, 'vis' stage), the wall with panels
+   and without (the wall less the 'vis' stage; phase 3's beside it) and
+   the peak MiB.
+Phases 6-9, 11-16, 19 and 20 each run in a device memory freed of the earlier
 phases' engines and print their wall time, frames/s, ATE, peak device
 memory and launch counts.
 
@@ -555,7 +577,7 @@ def run_main_path(torch, fd, log):
     fail_if(not all(math.isfinite(r[k]) for r in recs
                     for k in ("first_loss", "last_loss", "best_loss")),
             "stats(): a tracking loss is not finite")
-    return counts, fwd_kinds, kinds, eng, ate
+    return counts, fwd_kinds, kinds, eng, ate, wall
 
 
 def profile_window(torch, eng, log):
@@ -1966,6 +1988,273 @@ def run_recon(log, mesh_path, ckpt_path, cam, n_views=50,
 
 
 # ---------------------------------------------------------------------------
+# Phase 20: visualiser and replay
+
+VIS_CFG = {"tracking": {"vis_freq": 5, "vis_inside_freq": 25},
+           "mapping": {"vis_freq": 5, "vis_inside_freq": 25}}
+
+
+def state_digest(eng) -> str:
+    """sha256 of the trajectory, the decoders and the grids."""
+    import hashlib
+
+    from nice_slam_torch.ops.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in ([eng.est_c2w_dev] + tree_leaves(eng.map_state.params)
+              + tree_leaves(eng.map_state.grids)):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def vis_schedule(cfg, n_img: int):
+    """The panels of a strict run by the JAX package's rules: tracking,
+    every vis_freq-th tracked frame at every vis_inside_freq-th of its
+    iterations; mapping, every single-pass event of a vis_freq-th frame
+    but the first (mapping.no_vis_on_first_frame) and the colour
+    refinement, at every vis_inside_freq-th of its iterations."""
+    t, m = cfg["tracking"], cfg["mapping"]
+    tracking = [f"{i:05d}_{it:04d}" for i in range(1, n_img)
+                if i % t["vis_freq"] == 0
+                for it in range(0, t["iters"], t["vis_inside_freq"])]
+    mapping = [f"{e:05d}_{it:04d}"
+               for e in map_events(n_img, m["every_frame"], 0)
+               if e % m["vis_freq"] == 0 and e != 0
+               and not (e == n_img - 1 and m["color_refine"])
+               for it in range(0, m["iters"], m["vis_inside_freq"])]
+    return tracking, mapping
+
+
+def panel_kinds(camera, rspec, n_panels: int, chunk: int = 16384) -> dict:
+    """K1 launches by kind of n_panels full-image renders (colour stage,
+    `chunk` rays a launch, the last chunk partial)."""
+    per_ray = rspec.n_samples + rspec.n_surface
+    rays = camera.H * camera.W
+    kinds = {}
+    for s in range(0, rays, chunk):
+        key = f"color n={min(chunk, rays - s) * per_ray}"
+        kinds[key] = kinds.get(key, 0) + n_panels
+    return kinds
+
+
+def check_panel(torch, fd, eng, cap, npz, log, name):
+    """One panel's render through K1 against the same render through the
+    plain decode on the card (the launch counts restored afterwards).
+    Tolerance: 1e-4 x max(1, max |ref|) for depth and colour at all but
+    max(2, H*W / 1000) pixels (ROADMAP.md §3 fault 5: a ReLU that flips
+    between the two summation orders).  The kernel's depth must equal the
+    panel's npz bit for bit (the captured inputs are the panel's).
+    Returns the max abs error over the pixels within tolerance."""
+    import dataclasses
+
+    import numpy as np
+
+    from nice_slam_torch.models import decoders
+    from nice_slam_torch.render import render_image
+
+    params, grids, bound, c2w, gt_depth = cap
+    s = eng.specs
+    rspec = dataclasses.replace(s.render, perturb=0.0, train_decoders=False)
+    saved = (fd.FusedNiceDecode.fwd_launches, fd.FusedNiceDecode.bwd_launches,
+             dict(fd.FusedNiceDecode.fwd_kinds),
+             dict(fd.FusedNiceDecode.bwd_kinds))
+    out = {}
+    for route in ("kernel", "plain"):
+        orig = decoders.fused_nice_decode
+        if route == "plain":
+            decoders.fused_nice_decode = (
+                lambda wc, _tw, p, cm, cf, cc, *ws:
+                fd.reference_nice_decode(wc, p, cm, cf, cc, *ws))
+        try:
+            d, _, c = render_image(params, s.model, grids, bound, c2w,
+                                   s.camera, rspec, "color", gt_depth)
+        finally:
+            decoders.fused_nice_decode = orig
+        out[route] = (d, c)
+    torch.cuda.synchronize()
+    (fd.FusedNiceDecode.fwd_launches, fd.FusedNiceDecode.bwd_launches,
+     fd.FusedNiceDecode.fwd_kinds, fd.FusedNiceDecode.bwd_kinds) = saved
+    fail_if(not np.array_equal(out["kernel"][0].cpu().numpy(), npz["depth"]),
+            f"vis: {name}: the re-render differs from the panel's npz")
+    n_pix = gt_depth.numel()
+    allowed = max(2, n_pix // 1000)
+    err = 0.0
+    for part, a, ref in (("depth", out["kernel"][0], out["plain"][0]),
+                         ("colour", out["kernel"][1], out["plain"][1])):
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        diff = (a - ref).abs().reshape(n_pix, -1).amax(-1)
+        bad = int((~(diff <= tol)).sum())
+        fail_if(bad > allowed, f"vis: {name} {part}: {bad} pixels beyond "
+                f"{tol} (allowed {allowed})")
+        err = max(err, float(diff[diff <= tol].max()))
+        log(f"vis: {name} {part} through K1 vs the plain decode: max abs "
+            f"err {float(diff[diff <= tol].max()):.3g} (tol {tol:.3g}), "
+            f"{bad} pixels beyond (allowed {allowed})")
+    return err
+
+
+def run_replay(log, main_ref):
+    """The replay's --html on phase 3's output dir in a subprocess."""
+    import base64
+    import re
+
+    import numpy as np
+
+    from nice_slam_torch.utils.checkpoint import latest_checkpoint
+
+    run_dir = os.path.join(REPO, "output", "chip_smoke")
+    out = os.path.join(REPO, "output", "chip_smoke_vis", "replay.html")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "nice_slam_torch.tools.replay",
+                        run_dir, "--html", out], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    fail_if(r.returncode != 0, f"replay: exit {r.returncode}: {r.stderr}")
+    with open(out) as f:
+        m = re.search(r"const DATA = (\{.*?\});\n", f.read(), re.S)
+    fail_if(m is None, "replay: no DATA block in the viewer")
+    data = json.loads(m.group(1))
+    ckpt = latest_checkpoint(os.path.join(run_dir, "ckpts"))
+    with np.load(ckpt) as z:
+        est = z["est_c2w"].astype(np.float32)
+    n = main_ref["frames"]
+    fail_if(data["n"] != n or data["kf"] != main_ref["kf"],
+            f"replay: n {data['n']} kf {data['kf']}, phase 3: {n} "
+            f"{main_ref['kf']}")
+    est_html = np.frombuffer(base64.b64decode(data["est"]),
+                             np.float32).reshape(n, 4, 4)
+    fail_if(not np.array_equal(est_html, est[:n]),
+            f"replay: est differs from {ckpt}'s est_c2w")
+    has_mesh = os.path.exists(os.path.join(run_dir, "mesh",
+                                           "final_mesh.ply"))
+    fail_if(("mesh_v" in data and "mesh_i" in data) != has_mesh,
+            f"replay: mesh arrays {'mesh_v' in data}, final_mesh.ply "
+            f"{has_mesh}")
+    res = {"wall_s": wall, "n": data["n"], "kf": data["kf"],
+           "mesh": has_mesh, "ate": data.get("ate"),
+           "mib": os.path.getsize(out) / 2**20, "ckpt": ckpt}
+    log("replay: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    return res
+
+
+def run_vis(torch, fd, log, main_ref, n_frames=11):
+    """Phase 20: the main path's run with per-iteration panels, against
+    phase 3's state; the panels through K1 against the plain decode; the
+    replay of phase 3's run."""
+    import numpy as np
+
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.ops.tree import tree_map
+    from nice_slam_torch.utils.visualizer import have_matplotlib, load_panel
+
+    out = os.path.join(REPO, "output", "chip_smoke_vis")
+    cfg = load_config(SYN_CFG, overrides={
+        **VIS_CFG, "synthetic": {"n_frames": n_frames},
+        "data": {"output": out}})
+
+    def timed_run(eng):
+        for i in range(n_frames):
+            eng.dataset[i]
+        _release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        fd.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # the same run without panels, timed here so that the walls with and
+    # without panels come from one place
+    eng = SlamEngine(load_config(SYN_CFG, overrides={
+        **VIS_CFG, "synthetic": {"n_frames": n_frames},
+        "data": {"output": out + "_plain"}}), device="cuda")
+    wall_plain = timed_run(eng)
+    fail_if(state_digest(eng) != main_ref["digest"],
+            "vis: the run without panels differs from phase 3's run")
+    del eng
+    eng = SlamEngine(cfg, device="cuda").enable_visualizer()
+    want_t, want_m = vis_schedule(cfg, n_frames)
+    fail_if((len(want_t), len(want_m)) != (4, 3),
+            f"vis: schedule {want_t} {want_m}, expected 4 + 3 panels")
+    # the inputs of one tracking and one mapping panel, for the check
+    caps = {}
+
+    def capture(vis, kind, at):
+        orig = vis.render_panel
+
+        def render_panel(engine, idx, it, gt_color, gt_depth, c2w,
+                         params=None, grids=None, bound=None, **kw):
+            if f"{idx:05d}_{it:04d}" == at:
+                st = engine.map_state
+                caps[kind] = (
+                    tree_map(torch.clone, st.params if params is None
+                             else params),
+                    tree_map(torch.clone, st.grids if grids is None
+                             else grids),
+                    (engine.bound if bound is None else bound).clone(),
+                    torch.as_tensor(c2w).clone(), gt_depth.clone())
+            return orig(engine, idx, it, gt_color, gt_depth, c2w,
+                        params=params, grids=grids, bound=bound, **kw)
+
+        vis.render_panel = render_panel
+
+    capture(eng._track_vis, "tracking", want_t[-1])
+    capture(eng._map_vis, "mapping", want_m[1])
+    wall = timed_run(eng)
+    counts = fd.launch_counts()
+    fwd_kinds = fd.fwd_launch_kinds()
+    digest = state_digest(eng)
+    n_panels = len(want_t) + len(want_m)
+    exp_f, exp_b, exp_fk = expected_launches(cfg, n_frames)
+    pk = panel_kinds(eng.specs.camera, eng.specs.render, n_panels)
+    per_panel = sum(pk.values()) // n_panels
+    for k, v in pk.items():
+        exp_fk[k] = exp_fk.get(k, 0) + v
+    mpl = have_matplotlib()
+    names = {d: sorted(os.listdir(os.path.join(out, d)))
+             for d in ("tracking_vis", "mapping_vis")}
+    exts = (".jpg", ".npz") if mpl else (".npz",)
+    vis_s = eng.timings.get("vis", 0.0)
+    res = {"path": "vis", "wall_s": wall, "wall_without_panels_s":
+           wall_plain, "strict_wall_s": main_ref["wall"],
+           "frames": n_frames, "panels": eng.timer.counts.get("vis", 0),
+           "ms_per_panel": 1e3 * vis_s / max(eng.timer.counts["vis"], 1),
+           "ate_rmse_m": eng.ate()["rmse"],
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
+           "k1_by_kind": fwd_kinds, "k1_per_panel": per_panel,
+           "matplotlib": mpl, "files": names, "timings": dict(eng.timings)}
+    log("vis: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(names["tracking_vis"] != sorted(n + e for n in want_t
+                                           for e in exts)
+            or names["mapping_vis"] != sorted(n + e for n in want_m
+                                             for e in exts),
+            f"vis: panels {names}, schedule {want_t} {want_m} as {exts}")
+    fail_if(digest != main_ref["digest"],
+            "vis: trajectory, grids or decoders differ from phase 3's run")
+    fail_if(res["k1"] == 0 or res["k2"] == 0,
+            "vis: a kernel of the path was never launched")
+    fail_if((res["k1"], res["k2"], fwd_kinds)
+            != (exp_f + sum(pk.values()), exp_b, exp_fk),
+            f"vis: launches K1 {res['k1']} {fwd_kinds}, K2 {res['k2']}; "
+            f"schedule + {per_panel} a panel: {exp_f + sum(pk.values())} "
+            f"{exp_fk}, {exp_b}")
+    err = 0.0
+    for kind, d, at in (("tracking", "tracking_vis", want_t[-1]),
+                        ("mapping", "mapping_vis", want_m[1])):
+        npz = load_panel(os.path.join(out, d, at + ".npz"))
+        fail_if(not all(np.isfinite(npz[k]).all() for k in npz),
+                f"vis: {d}/{at}.npz holds a non-finite value")
+        err = max(err, check_panel(torch, fd, eng, caps[kind], npz, log,
+                                   f"{d}/{at}"))
+    res["max_abs_err"] = err
+    res["replay"] = run_replay(log, main_ref)
+    del eng, caps
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: timing
 
 def cuda_time_ms(torch, fn, warmup=3, reps=9, inner=10):
@@ -2126,7 +2415,11 @@ def main() -> int:
                (4096, False, "middle+fine", 3, True),
                (96000, True, "none", 0, True)))
 
-    counts, fwd_kinds, kinds, eng, strict_ate = run_main_path(torch, fd, log)
+    counts, fwd_kinds, kinds, eng, strict_ate, wall = run_main_path(
+        torch, fd, log)
+    # phase 20 holds its run against this state (before phase 4 moves it)
+    main_ref = {"digest": state_digest(eng), "wall": wall,
+                "frames": eng.frames_done, "kf": list(eng.kf_frame_ids)}
     mesh = run_mesh(torch, fd, eng, log)
     # K1 at the mesh's shapes against the plain version
     for kind in mesh["k1_by_kind"]:
@@ -2180,13 +2473,25 @@ def main() -> int:
     gs["union"] = gs_union
     log("gs: the kernels' per-device shared-memory attribute and device "
         f"guard are not exercised here ({torch.cuda.device_count()} card)")
+    vis = run_vis(torch, fd, log, main_ref)
     by_path = {r["path"]: r for r in (loose, free, resumed, imap, mesh,
-                                      repeat, gn, occ, pre, dp, pipe, gs)}
+                                      repeat, gn, occ, pre, dp, pipe, gs,
+                                      vis)}
+    # K1 at the panels' shapes against the plain version
+    vis_kinds = sorted(k for k in vis["k1_by_kind"]
+                       if k not in fwd_kinds)
+    for kind in vis_kinds:
+        n = int(kind.split(" n=")[1])
+        e = check_fwd(torch, fd, ws, n, True,
+                      make_inputs(torch, n, 78, dev)[:4])
+        log(f"kernel check K1 {kind} (panel): ok (fwd err {e:.3g})")
+        err_f = max(err_f, e)
 
     # phase 5 continued: K1 and K2 at the new paths' shapes
     for path, kind in (("occ", f"fine n={n_proxy}"),
                        ("pretrain", "fine n=4096"),
-                       ("gn", "color n=96000")):
+                       ("gn", "color n=96000"),
+                       *(("vis", k) for k in vis_kinds)):
         stage, n = kind.split(" n=")
         r = time_fwd(torch, fd, ws, dev, int(n), stage == "color", log)
         fwd_shapes.append({**r, "path": path, "launches":

@@ -45,8 +45,15 @@ meshes (nice_slam_tpu/engine.py:157-160, 767-772).  World 1 is the dense
 path.  tpu.pipelined runs the tracker and the mapper on two devices
 (parallel/pipelined.py).
 
-Not in the port (the JAX package has it): the visualizer.  The JAX
-package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
+`enable_visualizer()` draws the reference's debug panels (utils/
+visualizer.py) into <output>/tracking_vis and <output>/mapping_vis: per
+optimisation iteration at the config's (vis_freq, vis_inside_freq), or
+with inside=False one panel a selected frame and mapping event.  Drawing
+panels changes no result: a run with them equals one without, bit for
+bit.  Their render time counts under the stage 'vis', not 'track' or
+'map'.
+
+The JAX package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
 barrier_every_groups, prefetch, fuse_track_map) and tpu.mesh_shape
 (run_torch.py reads it to launch local ranks) are accepted and ignored.
 """
@@ -63,6 +70,7 @@ import torch
 from nice_slam_torch.config import SlamSpecs, specs_from_config
 from nice_slam_torch.keyframes import KeyframeStore, add_keyframe, make_store
 from nice_slam_torch.mapping import mapping_step, stage_iters_of
+from nice_slam_torch.ops.se3 import cam_from_tensor, to_homogeneous
 from nice_slam_torch.ops.tree import tree_map
 from nice_slam_torch.parallel.multihost import rank_device, rank_world
 from nice_slam_torch.state import make_map_state
@@ -197,6 +205,11 @@ class SlamEngine:
         # per tracked frame: {"idx", "losses"} with the [first, last, best]
         # loss tensor on the device until stats() reads them
         self.tracking_stats: list = []
+        # the panels of enable_visualizer: per-iteration visualizers of
+        # tracking and mapping, or (inside=False) a per-frame and a
+        # per-event hook
+        self._track_vis = self._map_vis = None
+        self._frame_hook = self._event_hook = None
 
     def _load_pretrained_decoders(self):
         """NICE decoder weights, in the JAX package's order of sources
@@ -289,12 +302,24 @@ class SlamEngine:
         self.gt_c2w[idx] = gt_pose
         s = self.specs
         params, grids, bound, gen = self._tracking_map()
+        vis = self._track_vis
+        panels = vis is not None and vis.frame_selected(idx)
         with self.timer.time("track"):
-            losses = track_step(params, grids, bound, self.est_c2w_dev, idx,
-                                color, depth, s.camera, s.track, s.render,
-                                s.model, gen=gen)
+            out = track_step(params, grids, bound, self.est_c2w_dev, idx,
+                             color, depth, s.camera, s.track, s.render,
+                             s.model, gen=gen, return_cams=panels)
             self._sync(self.est_c2w_dev.device)
+        losses, cams = out if panels else (out, None)
         self.tracking_stats.append({"idx": idx, "losses": losses})
+        if panels:
+            # each selected iteration's pre-step camera against the map
+            # the frame was tracked on (src/Tracker.py:230-231)
+            for it in range(cams.shape[0]):
+                if vis.iter_selected(it):
+                    vis.render_panel(
+                        self, idx, it, color, depth,
+                        to_homogeneous(cam_from_tensor(cams[it])),
+                        params=params, grids=grids, bound=bound)
 
     def stats(self) -> list:
         """One record per tracked frame, {"idx", "first_loss",
@@ -311,7 +336,8 @@ class SlamEngine:
 
     def _map(self, idx, color, depth, mapspec, n_iters, lr_f, ba,
              insert_kf=False, gt_pose=None, coarse_spec=None,
-             coarse_iters=0, coarse_lr_factor=1.0, record=True):
+             coarse_iters=0, coarse_lr_factor=1.0, record=True,
+             on_iter=None):
         s = self.specs
         st = self.map_state
         st.params, st.grids, losses, sel = mapping_step(
@@ -323,7 +349,8 @@ class SlamEngine:
             coarse_spec=coarse_spec,
             coarse_stage_iters=(stage_iters_of(coarse_spec, coarse_iters)
                                 if coarse_spec is not None else ()),
-            coarse_lr_factor=coarse_lr_factor, dp=self.dp, gs=self.gs)
+            coarse_lr_factor=coarse_lr_factor, dp=self.dp, gs=self.gs,
+            on_iter=on_iter)
         if self.save_selected_kf and record:
             self.selected_keyframes[idx] = sel
         return losses
@@ -367,7 +394,9 @@ class SlamEngine:
                 self._map(idx, color, depth, mapspec, n_iters, lr_f, ba,
                           insert_kf=want_insert, gt_pose=gt_pose,
                           coarse_spec=coarse, coarse_iters=c_iters,
-                          coarse_lr_factor=c_lr)
+                          coarse_lr_factor=c_lr,
+                          on_iter=self._map_panels(idx, color, depth, first,
+                                                   mapspec))
             else:
                 for _ in range(outer):
                     self._map(idx, color, depth, mapspec, n_iters, lr_f, ba)
@@ -383,6 +412,8 @@ class SlamEngine:
             if want_insert:
                 self.kf_frame_ids.append(idx)
             self._sync()
+        if self._event_hook is not None:
+            self._event_hook(self, idx, color, depth)
 
         if (idx % self.ckpt_freq == 0 and idx > 0) or final:
             # every frame up to idx is tracked by now; under strict sync
@@ -397,6 +428,77 @@ class SlamEngine:
                 (idx % self.mesh_freq == 0 and idx > 0) or final):
             self.mesher_hook(self, idx, final)
             self.written["mesh"] += 1
+
+    def _map_panels(self, idx: int, color, depth, first: bool, mapspec):
+        """The on_iter of a single-pass NICE mapping event that draws
+        per-iteration panels, else None (JAX engine.py:667-672: frame idx
+        selected, and not the first event under
+        mapping.no_vis_on_first_frame).  The colour refinement and iMAP*'s
+        three passes draw none.  A panel renders from the mid-optimisation
+        map at the event's starting pose."""
+        vis = self._map_vis
+        if (vis is None or not mapspec.nice or not vis.frame_selected(idx)
+                or (first and self.cfg["mapping"].get(
+                    "no_vis_on_first_frame", True))):
+            return None
+        c2w = self.est_c2w_dev[idx].clone()
+
+        def on_iter(it, tree, decode_fn=None):
+            if vis.iter_selected(it):
+                vis.render_panel(self, idx, it, color, depth, c2w,
+                                 params=tree["params"],
+                                 grids=None if decode_fn else tree["grids"],
+                                 decode_fn=decode_fn)
+
+        return on_iter
+
+    # -- visualiser --------------------------------------------------------
+
+    def enable_visualizer(self, mapping_only: bool = False,
+                          inside: bool = True):
+        """Draw the residual panels (utils/visualizer.py) into
+        <output>/tracking_vis and <output>/mapping_vis, as the JAX
+        package's enable_visualizer (nice_slam_tpu/engine.py:776-818).
+
+        inside=True (the reference's semantics, src/utils/
+        Visualizer.py:24-107): panels {idx:05d}_{it:04d} PER OPTIMISATION
+        ITERATION at the config's (tracking / mapping.vis_freq,
+        vis_inside_freq): a selected frame's tracking iterations render
+        their pre-step cameras against the frozen map (the pipelined
+        engine's snapshot), a selected mapping event's iterations render
+        the mid-optimisation map before their step.
+
+        inside=False: one panel (it 0) every tracking.vis_freq-th frame,
+        after its mapping event, and one every mapping.vis_freq-th mapping
+        event, after it.  mapping_only leaves out the tracking panels.
+
+        Prints one line naming the forms the panels take (npz, and jpg
+        where matplotlib imports).  Only the primary rank writes; every
+        rank renders."""
+        from nice_slam_torch.utils.visualizer import (
+            Visualizer,
+            make_engine_vis_hook,
+            panel_forms,
+        )
+
+        t, m = self.cfg["tracking"], self.cfg["mapping"]
+        tdir = os.path.join(self.output, "tracking_vis")
+        mdir = os.path.join(self.output, "mapping_vis")
+        if inside:
+            if not mapping_only:
+                self._track_vis = Visualizer(
+                    tdir, t.get("vis_freq", 50), t.get("vis_inside_freq", 25))
+            self._map_vis = Visualizer(
+                mdir, m.get("vis_freq", 50), m.get("vis_inside_freq", 25))
+        else:
+            if not mapping_only:
+                self._frame_hook = make_engine_vis_hook(
+                    tdir, t.get("vis_freq", 50))
+            self._event_hook = make_engine_vis_hook(
+                mdir, m.get("vis_freq", 50), by_call_count=True)
+        if self.is_primary:
+            print(panel_forms([mdir] if mapping_only else [tdir, mdir]))
+        return self
 
     # -- main loop ---------------------------------------------------------
 
@@ -439,6 +541,8 @@ class SlamEngine:
                 mc, md, mg = self._frame_cache.get(midx,
                                                    (color, depth, gt_pose))
                 self.mapping_event(midx, mc, md, mg)
+            if self._frame_hook is not None:
+                self._frame_hook(self, idx, color, depth)
             self.frames_done = idx + 1
         if bar:
             bar.close()

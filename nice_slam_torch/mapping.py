@@ -387,7 +387,7 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                  lr_factor: float, camera: Camera, stage_iters,
                  mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                  ba: bool = True, gen: Optional[torch.Generator] = None,
-                 pixels=None, shard=None):
+                 pixels=None, shard=None, on_iter=None):
     """Run the staged mapping optimisation.  Adam is fresh per call and its
     moments persist across the stages.  `pixels` optionally gives every
     iteration's window draws, in order.  With BA on, NICE mode and
@@ -402,6 +402,12 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
     data-parallel step, as the JAX package's (nice_slam_tpu/parallel/
     data_parallel.py:92-101), applies neither mapping.grad_clip nor
     iMAP*'s StepLR scale, at any world size.
+
+    `on_iter(it, tree)`, when given, is called before the step of every
+    iteration `it` (counted over the stages from 0) with the current
+    {"params", "grids", "cams"}: the per-iteration mapping panels
+    (utils/visualizer.py).  It must change nothing and draw nothing from
+    `gen`, so a run with it equals one without, bit for bit.
 
     Returns (params, grids, cams, losses (n_iters,))."""
     tree = {"params": params, "grids": grids, "cams": cams0.detach()}
@@ -418,6 +424,8 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
         rspec_stage = dataclasses.replace(
             rspec, train_decoders=(stage == "color" or not mapspec.nice))
         for _ in range(n_iters):
+            if on_iter is not None:
+                on_iter(it_all, tree)
             tr = tree_map(lambda x, f: x if f else
                           x.detach().requires_grad_(True), tree, frozen)
             live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
@@ -473,7 +481,7 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
                       lr_factor: float, camera: Camera, stage_iters,
                       mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                       ba: bool, gen: Optional[torch.Generator] = None,
-                      dp=None, gs=None):
+                      dp=None, gs=None, on_iter=None):
     """One keyframe-window optimisation: selection + frustum masks + staged
     Adam + BA write-back (store and est_c2w updated in place).  With `dp`
     (a parallel/data_parallel.RayShard; the engine gives one when its
@@ -483,9 +491,11 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
     `gs` (a parallel/grid_sharded.GridShard; the engine then gives no
     `dp`) the NICE mapper's staged Adam is `gs_map_once`, without
     Gauss-Newton; the coarse mapper and iMAP* stay dense and local (their
-    draws are in lockstep, so every rank computes the same).  Returns
-    (params, grids, losses, sel_frames): sel_frames is the window's frame
-    ids (the current frame included, -2 = empty slot; Mapper.py:274-287)."""
+    draws are in lockstep, so every rank computes the same).  `on_iter`:
+    see `map_optimize` (under `gs` it also gets the sharded decode).
+    Returns (params, grids, losses, sel_frames): sel_frames is the
+    window's frame ids (the current frame included, -2 = empty slot;
+    Mapper.py:274-287)."""
     cur_c2w = est_c2w[idx]
     window, masks, cams0, cam_lr_mask = prepare_mapping(
         store, color, depth, cur_c2w, grids, bound, camera, mapspec, ba,
@@ -501,18 +511,18 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
         params, grids, cams, losses = gs_map_once(
             params, grids, bound, window, cams0, masks, cam_lr_mask,
             lr_factor, camera, stage_iters, mapspec, rspec, mspec, gs,
-            gen=gen)
+            gen=gen, on_iter=on_iter)
     elif dp is not None:
         from nice_slam_torch.parallel.data_parallel import dp_map_optimize
         params, grids, cams, losses = dp_map_optimize(
             params, grids, bound, window, cams0, masks, cam_lr_mask,
             lr_factor, camera, stage_iters, mapspec, rspec, mspec, dp,
-            ba=ba, gen=gen)
+            ba=ba, gen=gen, on_iter=on_iter)
     else:
         params, grids, cams, losses = map_optimize(
             params, grids, bound, window, cams0, masks, cam_lr_mask,
             lr_factor, camera, stage_iters, mapspec, rspec, mspec, ba=ba,
-            gen=gen)
+            gen=gen, on_iter=on_iter)
     if ba:
         with torch.no_grad():
             new_c2w = to_homogeneous(cam_from_tensor(cams))
@@ -530,18 +540,19 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
                  insert_kf: bool = False, gt_pose=None,
                  coarse_spec: Optional[MapSpec] = None,
                  coarse_stage_iters=(), coarse_lr_factor: float = 1.0,
-                 dp=None, gs=None):
+                 dp=None, gs=None, on_iter=None):
     """One mapping event in the reference's order: the mapping optimisation
     (+BA) -> the occupancy proxy's refresh (occupancy-guided runs) ->
     keyframe insertion (insert_kf) -> the coarse mapper
     (coarse_spec; the reference's third process, NICE_SLAM.py:278-286),
-    which sees the post-BA poses and the new keyframe.  `dp`, `gs`: see
-    `_one_map_optimize`.
+    which sees the post-BA poses and the new keyframe.  `dp`, `gs`,
+    `on_iter` (the mapper's optimisation only, not the coarse mapper's):
+    see `_one_map_optimize`.
 
     Returns (params, grids, losses, sel_frames)."""
     params, grids, losses, sel_frames = _one_map_optimize(
         params, grids, bound, store, est_c2w, idx, color, depth, lr_factor,
-        camera, stage_iters, mapspec, rspec, mspec, ba, gen, dp, gs)
+        camera, stage_iters, mapspec, rspec, mspec, ba, gen, dp, gs, on_iter)
     if mapspec.nice and not mapspec.coarse_mapper and "occ_proxy" in grids:
         grids = dict(grids)
         grids["occ_proxy"] = refresh_occ_proxy(params, grids, bound, mspec)

@@ -159,15 +159,17 @@ def dp_map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                     lr_factor: float, camera: Camera, stage_iters,
                     mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                     shard: RayShard, ba: bool = True,
-                    gen: Optional[torch.Generator] = None, pixels=None):
+                    gen: Optional[torch.Generator] = None, pixels=None,
+                    on_iter=None):
     """Data-parallel `map_optimize`: the same staged schedule, each
     iteration's loss and gradients summed over `shard`'s group, with a
     rank budget of mapspec.pixels rays (world x pixels a step).  `pixels`
-    optionally gives every iteration's union draws, in order.
+    optionally gives every iteration's union draws, in order; `on_iter`
+    as in `map_optimize` (every rank calls it in lockstep).
 
     Returns (params, grids, cams, losses (n_iters,)), the losses summed
     over the group."""
     return map_optimize(params, grids, bound, window, cams0, masks,
                         cam_lr_mask, lr_factor, camera, stage_iters, mapspec,
                         rspec, mspec, ba=ba, gen=gen, pixels=pixels,
-                        shard=shard)
+                        shard=shard, on_iter=on_iter)

@@ -410,13 +410,18 @@ def gs_map_optimize(params, slabs, bound, window, cams0, mask_slabs,
                     cam_lr_mask, lr_factor: float, camera: Camera,
                     stage_iters, mapspec: MapSpec, rspec: RenderSpec,
                     mspec: ModelSpec, shapes, gs: GridShard,
-                    gen: Optional[torch.Generator] = None, pixels=None):
+                    gen: Optional[torch.Generator] = None, pixels=None,
+                    on_iter=None):
     """The staged mapping optimisation on this rank's slabs (dict of
     (sx+1, ny, nz, C)), in the step order of JAX `_gs_map_optimize`.
     mask_slabs: the frustum masks of the trained levels in the same
     layout; shapes: the global (nx, ny, nz) by level.  A `data` rank's
     budget is mapspec.pixels; `pixels` optionally gives every iteration's
     union draws, in order (each (Wn, n_data x pixels / Wn)).
+    `on_iter(it, tree, decode_fn)`, when given, is called before the step
+    of every iteration with the slabs in tree["grids"] and the colour
+    stage's sharded decode of them (collective: every rank calls it in
+    lockstep), as mapping.map_optimize's on_iter.
 
     Returns (params, slabs, cams, losses (n_iters,), summed over
     `data`)."""
@@ -434,6 +439,10 @@ def gs_map_optimize(params, slabs, bound, window, cams0, mask_slabs,
         rspec_stage = dataclasses.replace(
             rspec, train_decoders=stage == "color", occ_guided=False)
         for _ in range(n_iters):
+            if on_iter is not None:
+                on_iter(it_all, tree, make_gs_decode_fn(
+                    tree["params"], mspec, tree["grids"], bound, shapes,
+                    "color", gs, train_decoders=False, count_as="vis"))
             tr = tree_map(lambda x, f: x if f else
                           x.detach().requires_grad_(True), tree, frozen)
             live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
@@ -494,7 +503,7 @@ def gs_map_once(params, grids, bound, window, cams0, masks, cam_lr_mask,
                 lr_factor: float, camera: Camera, stage_iters,
                 mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                 gs: GridShard, gen: Optional[torch.Generator] = None,
-                pixels=None):
+                pixels=None, on_iter=None):
     """The engine's adapter (JAX grid_sharded.py:208-230): one mapping
     optimisation from and to the engine's dense grids.  The levels that
     the call trains are reassembled; every rank returns the same dense
@@ -505,7 +514,7 @@ def gs_map_once(params, grids, bound, window, cams0, masks, cam_lr_mask,
     params, slabs, cams, losses = gs_map_optimize(
         params, slabs, bound, window, cams0, mask_slabs, cam_lr_mask,
         lr_factor, camera, stage_iters, mapspec, rspec, mspec, shapes, gs,
-        gen=gen, pixels=pixels)
+        gen=gen, pixels=pixels, on_iter=on_iter)
     trained = [n for n in SHARDED_LEVELS
                if n in slabs and n in _trained_grids(mapspec, stage_iters)]
     new_grids = dict(grids)

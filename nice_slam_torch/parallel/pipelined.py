@@ -32,8 +32,11 @@ tpu.seed + 1); the mapper keeps the engine's.  On two devices the two
 sides run one after the other on the host; the overlap is what the
 device queues give between host synchronisations.  tracking.gt_camera
 has no tracking to overlap and runs the sequential engine's per-frame
-loop.  The port has no visualiser, so there is no per-frame hook to
-refuse.  The engine runs from frame 0 (the JAX engine's run ignores a
+loop.  Panels (enable_visualizer): mapping_only=True draws the mapping
+panels, as the JAX engine (:121-124); the per-iteration tracking panels
+render against the tracker's snapshot; the per-frame tracking hook of
+inside=False needs the per-frame loop and is refused, as in JAX.  The
+engine runs from frame 0 (the JAX engine's run ignores a
 resume point too), and refuses a process group of more than one rank:
 pipelining and data-parallel mapping are exclusive.
 """
@@ -134,6 +137,11 @@ class PipelinedSlamEngine(SlamEngine):
         if self.gt_camera:
             return super().run(n_frames=n_frames, progress=progress,
                                start=0)
+        if self._frame_hook is not None:
+            raise ValueError(
+                "the pipelined engine tracks in frame groups and cannot "
+                "host a per-frame panel hook; use "
+                "enable_visualizer(mapping_only=True)")
         n = min(n_frames or self.n_img, self.n_img)
         color, depth, gt_pose = self._load_frame(0)
         self._set_gt_pose(0, gt_pose)

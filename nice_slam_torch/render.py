@@ -163,9 +163,11 @@ def regulation_sigma(params, mspec: ModelSpec, grids, bound, rays_o, rays_d,
 @torch.no_grad()
 def render_image(params, mspec: ModelSpec, grids, bound, c2w, camera,
                  rspec: RenderSpec, stage: str = "color", gt_depth=None,
-                 chunk: int = 16384):
+                 chunk: int = 16384, decode_fn=None):
     """Full-image rendering in fixed-size chunks of rays (reference
-    Renderer.py:200-255).  `camera` carries (H, W, fx, fy, cx, cy).
+    Renderer.py:200-255).  `camera` carries (H, W, fx, fy, cx, cy);
+    decode_fn as in `render_rays` (the grid-sharded panels).  No
+    generator: with rspec.perturb 0 the render draws nothing.
     Returns (depth (H, W), uncertainty (H, W), color (H, W, 3))."""
     H, W = camera.H, camera.W
     rays_o, rays_d = image_rays(H, W, camera.fx, camera.fy, camera.cx,
@@ -178,7 +180,8 @@ def render_image(params, mspec: ModelSpec, grids, bound, c2w, camera,
         d, v, c, _ = render_rays(
             params, mspec, grids, bound, rays_o[s:s + chunk],
             rays_d[s:s + chunk], rspec, stage,
-            gt_depth=gt[s:s + chunk] if gt is not None else None)
+            gt_depth=gt[s:s + chunk] if gt is not None else None,
+            decode_fn=decode_fn)
         depth.append(d)
         var.append(v)
         color.append(c)

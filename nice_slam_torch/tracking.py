@@ -133,9 +133,12 @@ def tracking_depth_median(cam, params, grids, bound, gt_depth,
 
 def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
                 camera: Camera, tspec: TrackSpec, rspec: RenderSpec,
-                mspec: ModelSpec, gen: Optional[torch.Generator] = None):
+                mspec: ModelSpec, gen: Optional[torch.Generator] = None,
+                return_cams: bool = False):
     """Optimise one frame's camera.  Returns (best_cam, first_loss,
-    last_loss, best_loss), all on the device.
+    last_loss, best_loss), all on the device, plus with return_cams the
+    (iters, 7) PRE-step camera of every iteration (what the reference's
+    per-iteration visualiser renders, src/Tracker.py:230-231).
 
     The candidate kept is the post-step camera whose pre-step loss was
     minimal (Tracker.py:232-247).  The decoders are frozen, so the fused
@@ -152,8 +155,9 @@ def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
     opt = adam_init(cam)
     best_cam = cam
     best_loss = torch.tensor(float("inf"), device=dev)
-    losses = []
+    losses, cams = [], []
     for _ in range(tspec.iters):
+        cams.append(cam)
         c = cam.clone().requires_grad_(True)
         loss = tracking_loss(c, params, grids, bound, gt_color, gt_depth,
                              camera, tspec, rspec, mspec, gen=gen)
@@ -165,9 +169,11 @@ def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
         best_loss = torch.where(better, loss, best_loss)
         losses.append(loss)
         cam = new_cam
-    if not losses:
-        return best_cam, best_loss, best_loss, best_loss
-    return best_cam, losses[0], losses[-1], best_loss
+    res = ((best_cam, losses[0], losses[-1], best_loss) if losses
+           else (best_cam, best_loss, best_loss, best_loss))
+    if return_cams:
+        return res + (torch.stack(cams) if cams else cam0.new_zeros(0, 7),)
+    return res
 
 
 def const_speed_init(pre_c2w, pre_pre_c2w):
@@ -180,10 +186,13 @@ def const_speed_init(pre_c2w, pre_pre_c2w):
 def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
                gt_color, gt_depth, camera: Camera, tspec: TrackSpec,
                rspec: RenderSpec, mspec: ModelSpec,
-               gen: Optional[torch.Generator] = None):
+               gen: Optional[torch.Generator] = None,
+               return_cams: bool = False):
     """Track frame `idx` from the poses already in est_c2w (n, 4, 4) and
     write its pose there.  Returns the device tensor [first, last, best]
-    of the tracking losses."""
+    of the tracking losses, and with return_cams also `track_frame`'s
+    (iters, 7) pre-step cameras (the Gauss-Newton polish comes after
+    them)."""
     pre = est_c2w[idx - 1]
     init_c2w = pre
     if tspec.const_speed and idx >= 2:
@@ -203,21 +212,22 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
             keep = med_cs <= tspec.init_select_margin * torch.clamp(
                 med_pre, min=0.01)
             init_c2w = torch.where(keep, init_c2w, pre)
-    best_cam, first, last, best = track_frame(
+    best_cam, first, last, best, *pre_cams = track_frame(
         params, grids, bound, tensor_from_cam(init_c2w), gt_color, gt_depth,
-        camera, tspec, rspec, mspec, gen=gen)
+        camera, tspec, rspec, mspec, gen=gen, return_cams=return_cams)
     if tspec.gn_iters > 0:
         # the polish of nice_slam_tpu/tracking.py:333-346: a one-frame
         # window over the whole image, the map frozen
         dev = best_cam.device
         window = {"depths": gt_depth[None],
                   "valid": torch.ones(1, dtype=torch.bool, device=dev)}
-        cams = schur_ba.schur_pose_refine(
+        refined = schur_ba.schur_pose_refine(
             params, grids, bound, window, best_cam[None],
             torch.ones(1, device=dev), camera,
             dataclasses.replace(rspec, train_decoders=False), mspec,
             tspec.gn_iters, tspec.gn_pixels, tspec.gn_damping, gen=gen)
-        best_cam = cams[0]
+        best_cam = refined[0]
     est_c2w[idx] = to_homogeneous(cam_from_tensor(best_cam))
-    return torch.stack([first, last, best])
+    losses = torch.stack([first, last, best])
+    return (losses, pre_cams[0]) if return_cams else losses
 

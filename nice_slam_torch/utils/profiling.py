@@ -19,20 +19,30 @@ from typing import Dict, Optional
 
 
 class StageTimer:
-    """Accumulating wall-clock timers keyed by stage name."""
+    """Accumulating wall-clock timers keyed by stage name.  A stage timed
+    inside another counts only to itself: the outer stage's total leaves
+    it out (the panels drawn inside a mapping event count under 'vis',
+    not 'map')."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        # [start, seconds of the stages nested in it] of each open stage
+        self._open: list = []
 
     @contextlib.contextmanager
     def time(self, name: str):
-        t0 = time.perf_counter()
+        frame = [time.perf_counter(), 0.0]
+        self._open.append(frame)
         try:
             yield
         finally:
-            self.totals[name] += time.perf_counter() - t0
+            self._open.pop()
+            dt = time.perf_counter() - frame[0]
+            self.totals[name] += dt - frame[1]
             self.counts[name] += 1
+            if self._open:
+                self._open[-1][1] += dt
 
     def report(self) -> str:
         lines = []

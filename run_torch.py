@@ -10,6 +10,7 @@ Usage:
     python run_torch.py <config> --resume <output>   # its latest checkpoint
     python run_torch.py <config> --no-mesh       # write no mesh
     python run_torch.py <config> --profile LOGDIR  # LOGDIR/trace.json
+    python run_torch.py <config> --vis           # residual panels
     # data-parallel mapping on n local ranks (tpu.data_parallel: true,
     # tpu.mesh_shape: [n]), or one rank of a launch across hosts (the
     # tpu.multihost keys or NICE_SLAM_TPU_COORDINATOR / _NUM_PROCESSES /
@@ -43,7 +44,14 @@ ranks the same way, and the NICE mapper runs with its grids in X-slabs
 over the `model` ranks and its rays over the `data` ranks
 (parallel/grid_sharded.py); it takes precedence over tpu.data_parallel.
 tpu.pipelined runs the tracker and the mapper on two cards, or both on
-one (parallel/pipelined.py).  Not in the port: the visualizer.
+one (parallel/pipelined.py).
+
+--vis draws the reference's debug panels per optimisation iteration
+(tracking and mapping .vis_freq / .vis_inside_freq) into
+<output>/tracking_vis and <output>/mapping_vis (mapping only under
+tpu.pipelined): {idx:05d}_{it:04d}.npz always, and the .jpg where
+matplotlib imports; `python -m nice_slam_torch.utils.visualizer <dir>`
+draws the jpgs of a run made without it.
 
 A single-process run that fails on a transient rendezvous or transport
 error (nice_slam_torch/utils/retry.py) is retried up to twice, each retry
@@ -114,7 +122,7 @@ def main(argv=None):
                     "strict/loose/free sync, checkpoint and resume, "
                     "meshing, Gauss-Newton poses, occupancy-guided "
                     "sampling, data-parallel and grid-sharded mapping, the "
-                    "pipelined engine; not yet: the visualizer)")
+                    "pipelined engine, the visualizer panels)")
     ap.add_argument("config", nargs="?", default=None,
                     help="scene config yaml")
     ap.add_argument("--input_folder", type=str, default=None,
@@ -138,6 +146,10 @@ def main(argv=None):
                          "PyTorch versions of the kernels)")
     ap.add_argument("--no-mesh", action="store_true",
                     help="skip mesh extraction")
+    ap.add_argument("--vis", action="store_true",
+                    help="save GT/rendered/residual panels per tracking "
+                         "and mapping iteration (npz, and jpg where "
+                         "matplotlib imports)")
     ap.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
                     help="write a torch.profiler Chrome trace of the run to "
                          "LOGDIR/trace.json")
@@ -190,10 +202,12 @@ def main(argv=None):
             ap.error(f"no checkpoint under {args.resume}")
     from nice_slam_torch.utils.profiling import torch_trace
 
+    pipelined = bool(cfg["tpu"].get("pipelined"))
+
     def build_and_run():
         # the unit a transient failure retries: a new engine, resumed from
         # the newest checkpoint of the failed attempt (if it wrote one)
-        if cfg["tpu"].get("pipelined"):
+        if pipelined:
             from nice_slam_torch.parallel.pipelined import (
                 PipelinedSlamEngine,
             )
@@ -202,6 +216,12 @@ def main(argv=None):
         else:
             eng = SlamEngine(cfg, device=args.device,
                              mesher_hook=mesher_hook)
+        if args.vis:
+            if pipelined:
+                print("note: tpu.pipelined tracks in frame groups — "
+                      "keeping mapping panels only (no per-frame tracking "
+                      "panels)")
+            eng.enable_visualizer(mapping_only=pipelined)
         ckpt = resume
         if build_and_run.attempted:
             ckpt = latest_checkpoint(os.path.join(eng.output, "ckpts")) \

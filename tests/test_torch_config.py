@@ -55,8 +55,10 @@ def test_port_imports_without_jax():
     """Every module of nice_slam_torch (and run_torch.py, chip_smoke.py)
     imports with jax and nice_slam_tpu poisoned in sys.modules, among them
     the checkpoint, iMAP* and mesher modules (the host library is not
-    built at import), the parallel modes and the evaluation tools; an
-    iMAP* and a loose engine then
+    built at import), the parallel modes, the evaluation tools, the
+    visualiser and the replay, whose viewer template ships inside the
+    package (beside tools/replay.py, named in pyproject.toml's package
+    data); an iMAP* and a loose engine then
     build, save a checkpoint and resume from it on the CPU the same way,
     as do the Gauss-Newton, occupancy-guided and pretraining modules."""
     code = textwrap.dedent("""
@@ -76,8 +78,13 @@ def test_port_imports_without_jax():
                      "parallel.pipelined", "tools.eval_recon",
                      "tools.cull_mesh", "tools.eval_ate",
                      "parallel.grid_sharded", "utils.retry",
-                     "tools.prep_own_data"):
+                     "tools.prep_own_data", "utils.visualizer",
+                     "tools.replay"):
             assert "nice_slam_torch." + name in sys.modules, name
+        tpl = os.path.join(os.path.dirname(
+            sys.modules["nice_slam_torch.tools.replay"].__file__),
+            "viewer_template.html")
+        assert "__DATA__" in open(tpl).read(), tpl
         import runpy
         runpy.run_path("run_torch.py", run_name="not_main")
         runpy.run_path("chip_smoke.py", run_name="not_main")
@@ -102,6 +109,11 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    assert data["nice_slam_torch.tools"] == ["viewer_template.html"]
 
 
 def test_unsupported_options_raise():
