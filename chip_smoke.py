@@ -23,8 +23,10 @@
    sum).  The reported max_abs_err of K2 is over the other points.
    Then the new paths' shapes: K1 at the occupancy proxy's node count
    (fine, the refresh), K1 and K2 at 4,096 fine with the middle and fine
-   decoders live (pretraining) and at 96,000 colour without weight
-   gradients (the colour refinement's Gauss-Newton).
+   decoders live (pretraining), at 96,000 colour without weight
+   gradients (the colour refinement's Gauss-Newton) and at 240,000
+   points (ScanNet's 5,000 mapping pixels x 48 samples: colour with the
+   colour decoder live, colour and fine with none live).
    Also prints K1's and each K2 variant's registers, spill bytes and
    resident blocks per SM (CUDA runtime).
 3. Main path: SlamEngine on configs/Synthetic/synthetic.yaml at its full
@@ -202,9 +204,30 @@
    is.  Prints the ms per panel (host, 'vis' stage), the wall with panels
    and without (the wall less the 'vis' stage; phase 3's beside it) and
    the peak MiB.
-Phases 6-9, 11-16, 19 and 20 each run in a device memory freed of the earlier
-phases' engines and print their wall time, frames/s, ATE, peak device
-memory and launch counts.
+21. Replica room0: a fixture in Replica's file layout written by the
+   port's own writers (utils/imageio.py: results/frame%06d.jpg,
+   results/depth%06d.png at png_depth_scale 6553.5, traj.txt) at
+   Replica's 680x1200 camera, rendered from a room inside room0's bound;
+   then configs/Replica/room0.yaml, unchanged, through run_torch.py's
+   command line and config path with only --input_folder, --output and
+   --frames 6 (mapping events 0 and 5, iters_first 1500).  First the
+   committed tests/data/codec_420_61x45.jpg must decode to the sha256 of
+   cv2.imread's pixels.  Fails unless the reader gives 6 frames with
+   transfer_color_uint8 (colour crosses to the card as uint8), the
+   launches equal the schedule (K1 also by kind) and the ATE is finite.
+   Prints wall, frames/s, track / map / io / ckpt seconds, ATE, peak MiB,
+   the launches by kind, ms a frame to decode (JPEG + PNG) and to read,
+   and the bytes uploaded a frame as uint8 and as f32 colour; where cv2
+   imports (nothing here needs it), how many of the fixture's files the
+   port decodes as cv2.imread does (printed, not a gate).
+22. ScanNet scene0000: the same over a ScanNet-layout fixture
+   (frames/color/N.jpg, frames/depth/N.png at 1000, frames/pose/N.txt) at
+   scannet.yaml's 480x640 camera and configs/ScanNet/scene0000.yaml,
+   unchanged: mapping at 5,000 pixels, so K1 and K2 run at 240,000
+   points.  After it K1 and K2 are timed (as in phase 5) at 240,000.
+Phases 6-9, 11-16 and 19-22 each run in a device memory freed of the
+earlier phases' engines and print their wall time, frames/s, ATE, peak
+device memory and launch counts.
 
 The last two lines are a JSON object of the kernels and the contract line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -2255,6 +2278,227 @@ def run_vis(torch, fd, log, main_ref, n_frames=11):
 
 
 # ---------------------------------------------------------------------------
+# Phases 21-22: real camera datasets (Replica room0, ScanNet scene0000)
+
+ROOM0_CFG = os.path.join(REPO, "configs", "Replica", "room0.yaml")
+SCENE0000_CFG = os.path.join(REPO, "configs", "ScanNet", "scene0000.yaml")
+# a 4:2:0 JPEG 61 pixels wide, written by cv2.imwrite (libjpeg-turbo
+# 3.1.2), and the sha256 of cv2.imread's pixels (converted to RGB)
+CODEC_JPEG = os.path.join(REPO, "tests", "data", "codec_420_61x45.jpg")
+CODEC_JPEG_SHA256 = ("9987da55e8f0482a605fb8ea1e52ed47"
+                     "70561d43eceb21c17734bb602c7d0713")
+
+
+def _flip_yz(c2w):
+    """The internal (-y, -z) camera convention <-> the datasets' one."""
+    m = c2w.astype("float64").copy()
+    m[:3, 1] *= -1
+    m[:3, 2] *= -1
+    return m
+
+
+def room0_scene():
+    """A room inside room0's bound ([[-2.9, 8.9], [-3.2, 5.5], [-3.5,
+    3.3]]), the scene of tests/test_configs_e2e.py:40-57."""
+    import numpy as np
+
+    from nice_slam_torch.utils.synthetic import Sphere, SyntheticScene
+
+    light = np.array([0.4, 0.8, 0.45])
+    return SyntheticScene(
+        room_lo=np.array([-2.0, -2.5, -3.0]),
+        room_hi=np.array([2.0, 0.5, 1.0]),
+        spheres=[Sphere(np.array([-1.0, -1.9, -1.8]), 0.6,
+                        np.array([0.85, 0.25, 0.2])),
+                 Sphere(np.array([1.0, -1.7, 0.0]), 0.7,
+                        np.array([0.2, 0.45, 0.85]))],
+        boxes=[], wall_albedo=np.array([0.7, 0.68, 0.65]),
+        light_dir=light / np.linalg.norm(light))
+
+
+def write_replica_fixture(root, n_frames, cam):
+    """Replica's file layout, written by the port's own writers:
+    results/frame%06d.jpg (baseline 4:2:0, quality 95),
+    results/depth%06d.png (16-bit at the config's png_depth_scale) and
+    traj.txt (row-major 4x4 camera-to-world poses in the dataset's
+    convention), rendered from room0_scene() at the camera `cam`
+    (replica.yaml's 680 x 1200, f 600)."""
+    import numpy as np
+
+    from nice_slam_torch.utils.imageio import write_jpeg, write_png
+    from nice_slam_torch.utils.synthetic import (
+        orbit_trajectory, render_frame)
+
+    res = os.path.join(root, "results")
+    os.makedirs(res, exist_ok=True)
+    scene = room0_scene()
+    poses = orbit_trajectory(scene, n_frames)
+    lines = []
+    for i in range(n_frames):
+        color, depth = render_frame(scene, poses[i], cam["H"], cam["W"],
+                                    cam["fx"], cam["fy"], cam["cx"],
+                                    cam["cy"])
+        write_jpeg(os.path.join(res, f"frame{i:06d}.jpg"),
+                   (color * 255).astype(np.uint8), quality=95)
+        write_png(os.path.join(res, f"depth{i:06d}.png"),
+                  (depth * cam["png_depth_scale"]).astype(np.uint16))
+        lines.append(" ".join(map(str, _flip_yz(poses[i]).reshape(-1))))
+    with open(os.path.join(root, "traj.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_scannet_fixture(root, n_frames, cam):
+    """ScanNet's file layout, written by the port's own writers:
+    frames/color/N.jpg, frames/depth/N.png (16-bit millimetres) and
+    frames/pose/N.txt, rendered from the synthetic scene (a 4 x 3 x 4 m
+    room, inside scene0000's bound) at the camera `cam` (scannet.yaml's
+    H, W and intrinsics)."""
+    import numpy as np
+
+    from nice_slam_torch.utils.imageio import write_jpeg, write_png
+    from nice_slam_torch.utils.synthetic import (
+        SyntheticScene, orbit_trajectory, render_frame)
+
+    sub = {k: os.path.join(root, "frames", k)
+           for k in ("color", "depth", "pose")}
+    for d in sub.values():
+        os.makedirs(d, exist_ok=True)
+    scene = SyntheticScene.default()
+    poses = orbit_trajectory(scene, n_frames)
+    for i in range(n_frames):
+        color, depth = render_frame(scene, poses[i], cam["H"], cam["W"],
+                                    cam["fx"], cam["fy"], cam["cx"],
+                                    cam["cy"])
+        write_jpeg(os.path.join(sub["color"], f"{i}.jpg"),
+                   (color * 255).astype(np.uint8), quality=95)
+        write_png(os.path.join(sub["depth"], f"{i}.png"),
+                  (depth * cam["png_depth_scale"]).astype(np.uint16))
+        np.savetxt(os.path.join(sub["pose"], f"{i}.txt"),
+                   _flip_yz(poses[i]))
+
+
+def check_codec(log):
+    """The port's JPEG decoder on this machine: the committed 4:2:0 file
+    decodes to the pixels cv2.imread gave where it was written."""
+    import hashlib
+
+    from nice_slam_torch.utils.imageio import imread_color
+
+    img = imread_color(CODEC_JPEG)
+    digest = hashlib.sha256(img.tobytes()).hexdigest()
+    log(f"codec: {os.path.relpath(CODEC_JPEG, REPO)} {img.shape} sha256 "
+        f"{digest} (cv2's {CODEC_JPEG_SHA256})")
+    fail_if(digest != CODEC_JPEG_SHA256,
+            "codec: the JPEG decode differs from cv2.imread's")
+    return digest
+
+
+def cv2_cross_check(log, ds):
+    """Where OpenCV imports (the port and this script need none), the
+    port's decode of the dataset's files against cv2.imread: printed, not
+    a gate, since another libjpeg build may round otherwise."""
+    try:
+        import cv2
+    except ImportError:
+        log("cv2: does not import here; no cross-check")
+        return None
+    import numpy as np
+
+    from nice_slam_torch.utils.imageio import imread_color, imread_depth
+
+    color = sum(np.array_equal(imread_color(p), cv2.cvtColor(
+        cv2.imread(p), cv2.COLOR_BGR2RGB)) for p in ds.color_paths)
+    depth = sum(np.array_equal(imread_depth(p), cv2.imread(
+        p, cv2.IMREAD_UNCHANGED)) for p in ds.depth_paths)
+    res = {"version": cv2.__version__, "files": len(ds.color_paths),
+           "color_equal": color, "depth_equal": depth}
+    log(f"cv2 {cv2.__version__} imports here: the port's decode equals "
+        f"its imread for {color}/{len(ds.color_paths)} colour and "
+        f"{depth}/{len(ds.depth_paths)} depth files")
+    return res
+
+
+def run_dataset(torch, fd, log, name, cfg_path, writer, n_frames=6):
+    """Phases 21-22: a fixture in the dataset's file layout, then the
+    shipped scene config, unchanged, through run_torch.py's command line
+    and config path with only --input_folder, --output and --frames
+    given; strict, full width, no mesh."""
+    import shutil
+
+    import numpy as np
+
+    import run_torch
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.utils.imageio import imread_color, imread_depth
+
+    data = os.path.join(REPO, "output", f"chip_smoke_{name}_data")
+    out = os.path.join(REPO, "output", f"chip_smoke_{name}")
+    shutil.rmtree(data, ignore_errors=True)
+    args = run_torch.build_parser().parse_args(
+        [cfg_path, "--input_folder", data, "--output", out,
+         "--frames", str(n_frames)])
+    cfg = run_torch.run_config(args)
+    t0 = time.perf_counter()
+    writer(data, n_frames, cfg["cam"])
+    fixture_s = time.perf_counter() - t0
+
+    eng = SlamEngine(cfg, device="cuda")
+    ds = eng.dataset
+    fail_if(len(ds) != n_frames or not ds.transfer_color_uint8,
+            f"{name}: {len(ds)} frames read, transfer_color_uint8 "
+            f"{ds.transfer_color_uint8}")
+    # host cost a frame: the decode alone (JPEG + PNG), the whole reader
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        imread_color(ds.color_paths[i])
+        imread_depth(ds.depth_paths[i])
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        _, color, depth, _ = ds[i]
+    reader_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    fail_if(not (np.isfinite(color).all() and np.isfinite(depth).all()),
+            f"{name}: the reader gave a non-finite value")
+    up_u8 = color.size + depth.nbytes
+    up_f32 = color.size * 4 + depth.nbytes
+    cv2_check = cv2_cross_check(log, ds)
+
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    fd.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(n_frames=args.frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fd.launch_counts()
+    fwd_kinds, bwd_kinds = fd.fwd_launch_kinds(), fd.bwd_launch_kinds()
+    exp_f, exp_b, exp_fk = expected_launches(cfg, n_frames)
+    res = {"path": name, "config": os.path.relpath(cfg_path, REPO),
+           "frames": n_frames, "hw": list(color.shape[:2]),
+           "wall_s": wall, "frames_per_s": n_frames / wall,
+           "timings": {k: eng.timings[k] for k in ("track", "map", "io",
+                                                   "ckpt")},
+           "ate_rmse_m": eng.ate()["rmse"],
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
+           "k1_by_kind": fwd_kinds, "k2_by_kind": bwd_kinds,
+           "decode_ms_per_frame": decode_ms,
+           "reader_ms_per_frame": reader_ms,
+           "upload_bytes_per_frame": {"uint8": up_u8, "f32": up_f32},
+           "fixture_s": fixture_s, "cv2": cv2_check}
+    log(f"{name}: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(res["k1"] == 0 or res["k2"] == 0,
+            f"{name}: a kernel of the path was never launched")
+    fail_if((res["k1"], res["k2"], fwd_kinds) != (exp_f, exp_b, exp_fk),
+            f"{name}: launches K1 {res['k1']} {fwd_kinds}, K2 {res['k2']}; "
+            f"schedule {exp_f} {exp_fk}, {exp_b}")
+    fail_if(not math.isfinite(res["ate_rmse_m"]),
+            f"{name}: ATE {res['ate_rmse_m']} not finite")
+    del eng
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: timing
 
 def cuda_time_ms(torch, fn, warmup=3, reps=9, inner=10):
@@ -2413,7 +2657,10 @@ def main() -> int:
         torch, fd, ws, dev, log,
         extra=((n_proxy, False, "none", 0, False),
                (4096, False, "middle+fine", 3, True),
-               (96000, True, "none", 0, True)))
+               (96000, True, "none", 0, True),
+               (240000, True, "color", 4, True),
+               (240000, True, "none", 0, True),
+               (240000, False, "none", 0, True)))
 
     counts, fwd_kinds, kinds, eng, strict_ate, wall = run_main_path(
         torch, fd, log)
@@ -2474,9 +2721,16 @@ def main() -> int:
     log("gs: the kernels' per-device shared-memory attribute and device "
         f"guard are not exercised here ({torch.cuda.device_count()} card)")
     vis = run_vis(torch, fd, log, main_ref)
+    # phases 21-22: the published Replica and ScanNet configs over
+    # fixtures in their datasets' file layouts
+    check_codec(log)
+    replica = run_dataset(torch, fd, log, "replica", ROOM0_CFG,
+                          write_replica_fixture)
+    scannet = run_dataset(torch, fd, log, "scannet", SCENE0000_CFG,
+                          write_scannet_fixture)
     by_path = {r["path"]: r for r in (loose, free, resumed, imap, mesh,
                                       repeat, gn, occ, pre, dp, pipe, gs,
-                                      vis)}
+                                      vis, replica, scannet)}
     # K1 at the panels' shapes against the plain version
     vis_kinds = sorted(k for k in vis["k1_by_kind"]
                        if k not in fwd_kinds)
@@ -2491,14 +2745,19 @@ def main() -> int:
     for path, kind in (("occ", f"fine n={n_proxy}"),
                        ("pretrain", "fine n=4096"),
                        ("gn", "color n=96000"),
-                       *(("vis", k) for k in vis_kinds)):
+                       *(("vis", k) for k in vis_kinds),
+                       ("scannet", "color n=240000"),
+                       ("scannet", "fine n=240000")):
         stage, n = kind.split(" n=")
         r = time_fwd(torch, fd, ws, dev, int(n), stage == "color", log)
         fwd_shapes.append({**r, "path": path, "launches":
                            by_path[path]["k1_by_kind"].get(kind, 0)})
     for path, kind, wc, live in (
             ("pretrain", "fine wgrad n=4096", False, 3),
-            ("gn", "color no-wgrad n=96000", True, 0)):
+            ("gn", "color no-wgrad n=96000", True, 0),
+            ("scannet", "color wgrad n=240000", True, 4),
+            ("scannet", "color no-wgrad n=240000", True, 0),
+            ("scannet", "fine no-wgrad n=240000", False, 0)):
         n = int(kind.split(" n=")[1])
         r = time_bwd(torch, fd, ws, dev, n, wc, live, log)
         shapes.append({**r, "path": path, "launches":

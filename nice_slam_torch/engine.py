@@ -76,7 +76,7 @@ from nice_slam_torch.parallel.multihost import rank_device, rank_world
 from nice_slam_torch.state import make_map_state
 from nice_slam_torch.tracking import track_step
 from nice_slam_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from nice_slam_torch.utils.datasets import get_dataset
+from nice_slam_torch.utils.datasets import get_dataset, quantize_color_u8
 from nice_slam_torch.utils.profiling import StageTimer
 
 
@@ -274,10 +274,18 @@ class SlamEngine:
 
     def _load_frame(self, idx: int):
         """Frame idx: colour and depth on the device, the GT pose on the
-        host."""
+        host.  8-bit-native colour (the dataset's transfer_color_uint8)
+        crosses to the device as uint8 and is dequantized there, bit-exact
+        with the f32 upload for 8-bit sources (the JAX engine's
+        _load_frame)."""
         with self.timer.time("io"):
             _, color, depth, gt_pose = self.dataset[idx]
-            return (self._to_dev(color), self._to_dev(depth),
+            if getattr(self.dataset, "transfer_color_uint8", False):
+                color = torch.from_numpy(quantize_color_u8(color)).to(
+                    self.device).float() / 255.0
+            else:
+                color = self._to_dev(color)
+            return (color, self._to_dev(depth),
                     np.asarray(gt_pose, np.float32))
 
     # -- tracking ----------------------------------------------------------

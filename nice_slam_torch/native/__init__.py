@@ -1,12 +1,15 @@
-"""Host (C++) kernels: the mesher's marching tetrahedra and the depth
-rasterizer of the reconstruction evaluation (tools/eval_recon.py).
+"""Host (C++) kernels: the mesher's marching tetrahedra, the depth
+rasterizer of the reconstruction evaluation (tools/eval_recon.py) and the
+image codec of the dataset readers (utils/imageio.py).
 
 `marching_cubes.cpp` and `rasterize.cpp` (the port's copies of the JAX
 package's nice_slam_tpu/native/) are built together with g++ at the first
 call (never at import) into one library under nice_slam_torch/_build/
 (listed in .gitignore), keyed on a hash of both sources, the flags and the
 host CPU's features, so a fresh checkout builds it and a later process on
-the same machine reuses the library.  A failed build raises: at the
+the same machine reuses the library.  `imgcodec.cpp` (JPEG decode and
+encode, PNG unfiltering) is a library of its own, built the same way
+(`get_codec_lib`).  A failed build raises: at the
 mesher's 256^3 volumes and the evaluation's 500x500 views of meshes of
 ~10^6 triangles the numpy versions would take hours (the JAX package's
 rasterize_depth falls back to numpy instead,
@@ -28,8 +31,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_SRCS = [Path(__file__).resolve().parent / name
-         for name in ("marching_cubes.cpp", "rasterize.cpp")]
+_HERE = Path(__file__).resolve().parent
+_SRCS = [_HERE / name for name in ("marching_cubes.cpp", "rasterize.cpp")]
+_CODEC_SRCS = [_HERE / "imgcodec.cpp"]
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # the JAX package's flags: with -march=native g++ contracts the vertex
 # interpolation into FMAs, so both libraries give the same vertices
@@ -37,6 +41,7 @@ GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_codec_lib: Optional[ctypes.CDLL] = None
 
 
 def _host_cpu() -> bytes:
@@ -50,26 +55,58 @@ def _host_cpu() -> bytes:
         return platform.processor().encode()
 
 
-def _lib_path() -> Path:
+def _lib_path(srcs=_SRCS, stem: str = "libnative") -> Path:
     h = hashlib.sha256()
-    for src in _SRCS:
+    for src in srcs:
         h.update(src.read_bytes())
     h.update(" ".join(GXX_FLAGS).encode())
     h.update(_host_cpu())
-    return BUILD_DIR / f"libnative-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def _build(out: Path) -> None:
+def _build(out: Path, srcs=_SRCS) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     r = subprocess.run(["g++"] + GXX_FLAGS + ["-o", str(tmp)]
-                       + [str(s) for s in _SRCS],
+                       + [str(s) for s in srcs],
                        capture_output=True, text=True, timeout=300)
     if r.returncode != 0:
         raise RuntimeError(f"g++ failed for "
-                           f"{', '.join(s.name for s in _SRCS)}:\n{r.stderr}")
+                           f"{', '.join(s.name for s in srcs)}:\n{r.stderr}")
     # concurrent builders each write their own file; the rename is atomic
     os.replace(tmp, out)
+
+
+def get_codec_lib() -> ctypes.CDLL:
+    """The loaded image codec library (imgcodec.cpp), built first if
+    needed."""
+    global _codec_lib
+    with _lock:
+        if _codec_lib is None:
+            out = _lib_path(_CODEC_SRCS, "libimgcodec")
+            if not out.exists():
+                _build(out, _CODEC_SRCS)
+            lib = ctypes.CDLL(str(out))
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.jpeg_info.restype = ctypes.c_int
+            lib.jpeg_info.argtypes = [u8p, ctypes.c_int64, i32p, i32p, i32p,
+                                      ctypes.c_char_p, ctypes.c_int]
+            lib.jpeg_decode.restype = ctypes.c_int
+            lib.jpeg_decode.argtypes = [u8p, ctypes.c_int64, u8p,
+                                        ctypes.c_int64, ctypes.c_char_p,
+                                        ctypes.c_int]
+            lib.jpeg_encode.restype = ctypes.c_int
+            lib.jpeg_encode.argtypes = [
+                u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_char_p, ctypes.c_int]
+            lib.png_unfilter.restype = ctypes.c_int
+            lib.png_unfilter.argtypes = [
+                u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
+                ctypes.c_int32, u8p, ctypes.c_char_p, ctypes.c_int]
+            _codec_lib = lib
+        return _codec_lib
 
 
 def get_lib() -> ctypes.CDLL:

@@ -8,8 +8,8 @@ a mesh's AABB +- 1 m or from back-projected depth frames.
     python -m nice_slam_torch.tools.prep_own_data <capture folder> \
         [--mesh mesh.ply] [--depth_scale 1000] [--output cfg.yaml]
 
-The mesh is read with the port's utils/plyio.py; depth frames need cv2,
-which is imported only on that path.
+The mesh is read with the port's utils/plyio.py, the depth frames with
+its utils/imageio.py (no OpenCV).
 """
 
 from __future__ import annotations
@@ -26,12 +26,7 @@ import yaml
 def bound_from_depths(folder, K, depth_scale, n_sample=20):
     """The AABB +- 1 m of the camera-frame points of up to ~n_sample of the
     folder's depth/*.png (every 8th pixel), or None without frames."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(
-            "the depth-frame bound needs OpenCV (cv2) to read depth/*.png; "
-            "pass --mesh instead, or install opencv-python") from e
+    from nice_slam_torch.utils.imageio import imread_depth
 
     paths = sorted(glob.glob(os.path.join(folder, "depth", "*.png")))
     if not paths:
@@ -39,7 +34,7 @@ def bound_from_depths(folder, K, depth_scale, n_sample=20):
     pts_all = []
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     for p in paths[:: max(len(paths) // n_sample, 1)]:
-        d = cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32) / depth_scale
+        d = imread_depth(p).astype(np.float32) / depth_scale
         H, W = d.shape
         jj, ii = np.meshgrid(np.arange(0, H, 8), np.arange(0, W, 8),
                              indexing="ij")

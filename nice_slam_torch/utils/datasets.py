@@ -1,4 +1,5 @@
-"""Host-side dataset readers (numpy/cv2 — I/O stays off-device).
+"""Host-side dataset readers (numpy and the port's own image codec in
+utils/imageio.py — I/O stays off-device).
 
 Same dataset families and preprocessing semantics as the reference
 (src/utils/datasets.py): PNG depth / png_depth_scale, optional color
@@ -6,6 +7,10 @@ undistortion, color resized to depth resolution, optional crop_size
 resize + crop_edge trim, pose translation scaling, and the column-flip of
 pose axes 1,2 into the internal (-y, -z) convention.  Plus a 'synthetic'
 dataset (utils/synthetic.py) used by tests/bench.
+
+The readers give the same arrays on every machine: JPEG and PNG go through
+utils/imageio.py, never OpenCV.  Only CoFusion's OpenEXR depth is read with
+cv2, imported on that path alone.
 """
 
 from __future__ import annotations
@@ -16,10 +21,38 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-try:
-    import cv2
-except Exception:  # pragma: no cover
-    cv2 = None
+from nice_slam_torch.utils.imageio import (
+    imread_color,
+    imread_depth,
+    resize_linear,
+    resize_nearest,
+    undistort,
+)
+
+
+def quantize_color_u8(color: np.ndarray) -> np.ndarray:
+    """f32 [0,1] color -> uint8, round-half-up: the rule of the uint8
+    host-to-device colour upload (the JAX package's
+    nice_slam_tpu/utils/datasets.py quantize_color_u8)."""
+    return np.clip(color * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _read_exr_depth(path: str) -> np.ndarray:
+    """OpenEXR depth (CoFusion's depth_noise/*.exr) through OpenCV: the one
+    format the port has no reader of its own for."""
+    try:
+        import cv2
+    except ImportError:
+        raise IOError(f"cannot read {path}: OpenEXR depth needs OpenCV "
+                      "(cv2), which is not installed") from None
+    os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
+    depth = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if depth is None:
+        raise IOError(f"cannot read EXR depth {path} "
+                      "(cv2 lacks OpenEXR support)")
+    if depth.ndim == 3:
+        depth = depth[..., 0]
+    return depth.astype(np.float32)
 
 
 def as_intrinsics_matrix(fx, fy, cx, cy) -> np.ndarray:
@@ -49,37 +82,35 @@ class BaseDataset:
         self.poses: List[np.ndarray] = []
         self.n_img = 0
 
+    # file-backed color is natively 8-bit: the engine uploads it as uint8
+    # (4x fewer bytes) and dequantizes on the device, bit-exact with the
+    # f32 upload for 8-bit sources.  The synthetic dataset overrides this
+    # (its color is continuous f32).
+    transfer_color_uint8 = True
+
     def __len__(self):
         return self.n_img
 
     def _read_depth(self, path: str) -> np.ndarray:
         if path.endswith(".exr"):
-            os.environ.setdefault("OPENCV_IO_ENABLE_OPENEXR", "1")
-            depth = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-            if depth is None:
-                raise IOError(f"cannot read EXR depth {path} "
-                              "(cv2 lacks OpenEXR support)")
-            if depth.ndim == 3:
-                depth = depth[..., 0]
-            return depth.astype(np.float32)
-        depth = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-        return depth.astype(np.float32) / self.png_depth_scale
+            return _read_exr_depth(path)
+        return imread_depth(path).astype(np.float32) / self.png_depth_scale
 
     def __getitem__(self, index: int):
-        color = cv2.imread(self.color_paths[index])
+        color = imread_color(self.color_paths[index])
         depth = self._read_depth(self.depth_paths[index])
         if self.distortion is not None:
             K = as_intrinsics_matrix(self.fx, self.fy, self.cx, self.cy)
-            color = cv2.undistort(color, K, self.distortion)
-        color = cv2.cvtColor(color, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+            color = undistort(color, K, self.distortion)
+        color = color.astype(np.float32) / 255.0
         depth = depth * self.scale
         H, W = depth.shape
         if color.shape[:2] != (H, W):
-            color = cv2.resize(color, (W, H))
+            color = resize_linear(color, H, W)
         if self.crop_size is not None:
             ch, cw = self.crop_size
-            color = cv2.resize(color, (cw, ch), interpolation=cv2.INTER_LINEAR)
-            depth = cv2.resize(depth, (cw, ch), interpolation=cv2.INTER_NEAREST)
+            color = resize_linear(color, ch, cw)
+            depth = resize_nearest(depth, ch, cw)
         e = self.crop_edge
         if e > 0:
             color = color[e:-e, e:-e]
@@ -231,6 +262,8 @@ class TUMRGBD(BaseDataset):
 
 class Synthetic(BaseDataset):
     """Procedurally ray-traced scene; renders frames lazily and caches."""
+
+    transfer_color_uint8 = False  # continuous f32 color, keep exact
 
     def __init__(self, cfg, input_folder=None, scale=1.0):
         super().__init__(cfg, input_folder, scale)

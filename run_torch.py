@@ -116,7 +116,7 @@ def _digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="nice-slam PyTorch port runner (NICE-SLAM and iMAP*, "
                     "strict/loose/free sync, checkpoint and resume, "
@@ -129,8 +129,12 @@ def main(argv=None):
                     help="overrides the input folder in the config")
     ap.add_argument("--output", type=str, default=None,
                     help="overrides the output folder in the config")
-    ap.add_argument("--imap", action="store_true",
-                    help="iMAP* mode (one density MLP, no grids)")
+    # run.py's mutually exclusive pair: NICE-SLAM (the default) or iMAP*
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--nice", action="store_true", default=True,
+                      help="NICE-SLAM mode (the default)")
+    mode.add_argument("--imap", action="store_false", dest="nice",
+                      help="iMAP* mode (one density MLP, no grids)")
     ap.add_argument("--resume", type=str, default=None, metavar="CKPT",
                     help="resume from a checkpoint .npz of either package, "
                          "or from the latest one in an output directory "
@@ -153,12 +157,14 @@ def main(argv=None):
     ap.add_argument("--profile", type=str, default=None, metavar="LOGDIR",
                     help="write a torch.profiler Chrome trace of the run to "
                          "LOGDIR/trace.json")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def run_config(args) -> dict:
+    """The resolved config of a parsed command line: the scene yaml with
+    the command line's overrides (input and output folders, seed, the
+    synthetic scene) and mode."""
     from nice_slam_torch.config import load_config
-    from nice_slam_torch.engine import SlamEngine
-    from nice_slam_torch.utils.checkpoint import latest_checkpoint
-    from nice_slam_torch.utils.retry import retry_transient
 
     overrides = {}
     if args.synthetic is not None:
@@ -175,8 +181,18 @@ def main(argv=None):
         overrides.setdefault("data", {})["input_folder"] = args.input_folder
     if args.output:
         overrides.setdefault("data", {})["output"] = args.output
+    return load_config(args.config, nice=args.nice, overrides=overrides)
 
-    cfg = load_config(args.config, nice=not args.imap, overrides=overrides)
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.utils.checkpoint import latest_checkpoint
+    from nice_slam_torch.utils.retry import retry_transient
+
+    cfg = run_config(args)
     n_local = local_ranks(cfg)
     if n_local > 1:
         import torch.multiprocessing as mp

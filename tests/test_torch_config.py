@@ -197,3 +197,30 @@ def test_imap_specs_reach_the_port():
         assert getattr(s.render, name) == getattr(j.render, name), name
     assert s.coarse_mapper is None and j.coarse_mapper is None
     assert not s.model.nice and not s.model.coarse
+
+
+def _run_torch_parser():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "run_torch_flags", os.path.join(REPO, "run_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build_parser()
+
+
+@pytest.mark.parametrize("flags, nice", [
+    ([], True), (["--nice"], True), (["--imap"], False),
+    (["--nice", "--imap"], None)])
+def test_run_torch_nice_imap_flags(flags, nice, capsys):
+    """run_torch.py takes run.py's mutually exclusive --nice / --imap
+    (run.py:26-28): NICE by default, and argparse exits with 2 when both
+    are given."""
+    ap = _run_torch_parser()
+    if nice is None:
+        with pytest.raises(SystemExit) as e:
+            ap.parse_args(["cfg.yaml"] + flags)
+        assert e.value.code == 2
+        assert "not allowed with argument" in capsys.readouterr().err
+    else:
+        assert ap.parse_args(["cfg.yaml"] + flags).nice is nice

@@ -12,8 +12,13 @@ package's tools/prep_own_data.py.
   newest checkpoint.
 - prep_own_data: an intrinsic.json and a mesh written by the port's
   plyio give the JAX tool's yaml, byte for byte; the depth-frame bound of
-  both tools with a stub cv2 (this machine has none) that returns the
-  test's depth arrays; without cv2 the port raises a clear error.
+  the port, which reads depth/*.png with its own codec (cv2 poisoned),
+  equals the JAX tool's with a stub cv2 that returns the same arrays; a
+  depth file that is not a PNG raises an error naming it.
+- quality_study: with run_torch.py's subprocess replaced by a stub,
+  finished (config, seed) pairs of study.json are skipped, failed seeds
+  are recorded and left out of the summary, and the command line is
+  run.py's with the port's runner and device.
 """
 
 import importlib.util
@@ -228,21 +233,25 @@ def test_mesh_bound_yaml_equals_jax(tmp_path, monkeypatch):
 
 
 def test_depth_bound_equals_jax_with_a_stub_cv2(tmp_path, monkeypatch):
+    from nice_slam_torch.utils.imageio import write_png
+
     folder = _capture(tmp_path)
     rng = np.random.RandomState(1)
     depths = {}
     for k in range(5):
         path = folder / "depth" / f"{k:05d}.png"
-        path.write_bytes(b"")
         d = rng.randint(0, 6000, (60, 80)).astype(np.uint16)
         d[::7, ::5] = 0               # holes
+        write_png(str(path), d)
         depths[str(path)] = d
+    K = np.array([[60.0, 0.0, 39.5], [0.0, 61.0, 29.5], [0.0, 0.0, 1.0]])
+    # the port reads the PNGs itself: no cv2
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    got = prep_own_data.bound_from_depths(str(folder), K, 1000.0)
     cv2 = types.ModuleType("cv2")
     cv2.IMREAD_UNCHANGED = -1
     cv2.imread = lambda p, flag: depths[str(p)].copy()
     monkeypatch.setitem(sys.modules, "cv2", cv2)
-    K = np.array([[60.0, 0.0, 39.5], [0.0, 61.0, 29.5], [0.0, 0.0, 1.0]])
-    got = prep_own_data.bound_from_depths(str(folder), K, 1000.0)
     want = _jax_tool().bound_from_depths(str(folder), K, 1000.0)
     assert got == want
     # the farthest sampled depth, 1 m beyond, bounds -z
@@ -251,6 +260,74 @@ def test_depth_bound_equals_jax_with_a_stub_cv2(tmp_path, monkeypatch):
 
 
 def test_depth_bound_without_cv2_raises(tmp_path, monkeypatch):
+    """Without cv2 the port still reads depth/*.png; a file there that is
+    not a PNG raises an error naming it."""
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="cv2"):
+    (tmp_path / "depth").mkdir()
+    bad = tmp_path / "depth" / "00000.png"
+    bad.write_bytes(b"not an image")
+    with pytest.raises(ValueError, match="00000.png"):
         prep_own_data.bound_from_depths(str(tmp_path), np.eye(3), 1000.0)
+
+
+# ---------------------------------------------------------------------------
+# quality_study
+
+def test_quality_study_skips_finished_seeds(tmp_path, monkeypatch, capsys):
+    from nice_slam_torch.tools import quality_study
+
+    (tmp_path / "study.json").write_text(json.dumps(
+        {"baseline": {"0": {"rmse": 0.05, "mean": 0.04, "max": 0.09}}}))
+    calls = []
+
+    def stub(yaml_path, seed, out_dir, frames, timeout, device):
+        calls.append((yaml_path, seed, out_dir, frames, device))
+        if seed == 2:
+            return None
+        return {"rmse": 0.01 * (seed + 1), "mean": 0.01, "max": 0.02}
+
+    monkeypatch.setattr(quality_study, "run_seed", stub)
+    summary = quality_study.main(["--seeds", "4", "--frames", "9",
+                                  "--workdir", str(tmp_path),
+                                  "--device", "cpu"])
+    assert [c[1] for c in calls] == [1, 2, 3]
+    assert calls[0] == (None, 1, str(tmp_path / "baseline_s1"), 9, "cpu")
+    study = json.loads((tmp_path / "study.json").read_text())
+    assert study["baseline"]["0"]["rmse"] == 0.05
+    assert study["baseline"]["2"] is None
+    assert summary == {"config": "baseline", "frames": 9, "seeds": 3,
+                       "rmse_per_seed": [0.05, 0.02, 0.04], "worst": 0.05,
+                       "mean": 0.0367}
+    out = capsys.readouterr().out
+    assert "baseline seed 2: FAIL" in out
+    assert json.loads(out.strip().splitlines()[-1]) == summary
+    # a second call finds every seed done and runs nothing
+    calls.clear()
+    assert quality_study.main(["--seeds", "4", "--frames", "9",
+                               "--workdir", str(tmp_path)]) == summary
+    assert calls == []
+
+
+def test_quality_study_runs_run_torch(tmp_path, monkeypatch):
+    """run_seed starts run_torch.py with run.py's study flags and reads the
+    run's ate.json; a failed run gives None."""
+    from nice_slam_torch.tools import quality_study
+
+    seen = []
+
+    def fake_run(cmd, cwd, timeout, stdout, stderr):
+        seen.append(cmd)
+        out = cmd[cmd.index("--output") + 1]
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "ate.json"), "w") as f:
+            json.dump({"rmse": 0.03, "mean": 0.02, "max": 0.05}, f)
+        return types.SimpleNamespace(returncode=len(seen) - 1)
+
+    monkeypatch.setattr(quality_study.subprocess, "run", fake_run)
+    out = str(tmp_path / "s0")
+    got = quality_study.run_seed("ab.yaml", 3, out, 120, 60, "cuda")
+    assert got == {"rmse": 0.03, "mean": 0.02, "max": 0.05}
+    assert seen[0][1:] == [os.path.join(REPO, "run_torch.py"), "ab.yaml",
+                           "--synthetic", "120", "--seed", "3",
+                           "--no-mesh", "--output", out, "--device", "cuda"]
+    assert quality_study.run_seed(None, 0, out, 120, 60) is None
