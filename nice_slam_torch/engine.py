@@ -42,8 +42,10 @@ mapper's grids are cut into X-slabs over the `model` ranks and its rays
 over the `data` ranks (parallel/grid_sharded.py; the coarse mapper and
 iMAP* stay dense on every rank).  Only rank 0 writes checkpoints and
 meshes (nice_slam_tpu/engine.py:157-160, 767-772).  World 1 is the dense
-path.  tpu.pipelined runs the tracker and the mapper on two devices
-(parallel/pipelined.py).
+path.  tpu.pipelined runs the tracker and the mapper at the same time,
+the mapper on a thread of its own (parallel/pipelined.py); its mapping
+events read the trajectory, GT poses and frame count handed to them
+through `map_side()`.
 
 `enable_visualizer()` draws the reference's debug panels (utils/
 visualizer.py) into <output>/tracking_vis and <output>/mapping_vis: per
@@ -61,6 +63,7 @@ barrier_every_groups, prefetch, fuse_track_map) and tpu.mesh_shape
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import replace
 from typing import Callable, Optional
 
@@ -196,8 +199,10 @@ class SlamEngine:
         self.est_c2w_dev = torch.zeros(self.n_img, 4, 4, device=self.device)
         self.gt_c2w = np.zeros((self.n_img, 4, 4), np.float32)
         self.frames_done = 0
-        # files this rank wrote, by kind (only the primary writes)
+        # files this rank wrote, by kind (only the primary writes); see
+        # count_written
         self.written = {"ckpt": 0, "mesh": 0}
+        self._written_lock = threading.Lock()
         # host seconds by stage (the mesher hook adds its parts)
         self.timer = StageTimer()
         self.timings = self.timer.totals
@@ -252,9 +257,18 @@ class SlamEngine:
         return self.est_c2w_dev.detach().cpu().numpy()
 
     def _sync(self, device=None):
+        """Wait for the work this thread has queued on `device`: its
+        current stream, not the whole device, whose other streams may hold
+        the pipelined engine's other side."""
         device = device or self.device
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            torch.cuda.current_stream(device).synchronize()
+
+    def count_written(self, kind: str) -> None:
+        """One more file of `kind` written (under a lock: the pipelined
+        engine's tracker and mapper both draw panels)."""
+        with self._written_lock:
+            self.written[kind] = self.written.get(kind, 0) + 1
 
     def _safe_est_pose(self, gt_pose, idx: int):
         """Non-finite GT poses (a ScanNet artifact) must not seed the
@@ -300,6 +314,13 @@ class SlamEngine:
         itself (the pipelined engine gives its snapshot)."""
         st = self.map_state
         return st.params, st.grids, self.bound, self.gen
+
+    def map_side(self):
+        """(trajectory, GT poses, frames tracked) that a mapping event
+        reads, refines in place (BA) and checkpoints, and that its mesher
+        and panels read: the engine's own (the pipelined engine gives the
+        copies its loop handed to the mapper)."""
+        return self.est_c2w_dev, self.gt_c2w, self.frames_done
 
     def track(self, idx: int, color, depth, gt_pose) -> None:
         """Track one frame against the frozen map; frame 0 and
@@ -349,7 +370,7 @@ class SlamEngine:
         s = self.specs
         st = self.map_state
         st.params, st.grids, losses, sel = mapping_step(
-            st.params, st.grids, self.bound, self.store, self.est_c2w_dev,
+            st.params, st.grids, self.bound, self.store, self.map_side()[0],
             idx, color, depth, lr_f, s.camera,
             stage_iters_of(mapspec, n_iters), mapspec, s.render, s.model,
             ba, gen=self.gen, insert_kf=insert_kf,
@@ -369,6 +390,7 @@ class SlamEngine:
         keyframe insertion) and the coarse mapper, then the checkpoint when
         one is due."""
         final = idx == self.n_img - 1
+        traj, gt_c2w, tracked = self.map_side()
         mapspec = self.specs.mapper
         coarse = self.specs.coarse_mapper
         c_iters = self.iters_first if first else self.iters
@@ -411,8 +433,7 @@ class SlamEngine:
                 # then keyframe insertion and the coarse mapper, in the order
                 # of the single-pass event
                 if want_insert:
-                    add_keyframe(self.store, color, depth,
-                                 self.est_c2w_dev[idx],
+                    add_keyframe(self.store, color, depth, traj[idx],
                                  self._to_dev(gt_pose), idx)
                 if coarse is not None:
                     self._map(idx, color, depth, coarse, c_iters, c_lr, False,
@@ -423,19 +444,19 @@ class SlamEngine:
         if self._event_hook is not None:
             self._event_hook(self, idx, color, depth)
 
-        if (idx % self.ckpt_freq == 0 and idx > 0) or final:
+        if self.is_primary and (
+                (idx % self.ckpt_freq == 0 and idx > 0) or final):
             # every frame up to idx is tracked by now; under strict sync
             # the loop bumps frames_done only after this event
-            self.frames_done = max(self.frames_done, idx + 1)
-            if self.is_primary:
-                with self.timer.time("ckpt"):
-                    self.save(os.path.join(self.output, "ckpts",
-                                           f"{idx:05d}.npz"))
-                self.written["ckpt"] += 1
+            with self.timer.time("ckpt"):
+                self._save(os.path.join(self.output, "ckpts",
+                                        f"{idx:05d}.npz"),
+                           traj, gt_c2w, max(tracked, idx + 1))
+            self.count_written("ckpt")
         if self.mesher_hook is not None and self.is_primary and (
                 (idx % self.mesh_freq == 0 and idx > 0) or final):
             self.mesher_hook(self, idx, final)
-            self.written["mesh"] += 1
+            self.count_written("mesh")
 
     def _map_panels(self, idx: int, color, depth, first: bool, mapspec):
         """The on_iter of a single-pass NICE mapping event that draws
@@ -449,7 +470,7 @@ class SlamEngine:
                 or (first and self.cfg["mapping"].get(
                     "no_vis_on_first_frame", True))):
             return None
-        c2w = self.est_c2w_dev[idx].clone()
+        c2w = self.map_side()[0][idx].clone()
 
         def on_iter(it, tree, decode_fn=None):
             if vis.iter_selected(it):
@@ -537,6 +558,7 @@ class SlamEngine:
             if idx == 0:
                 self._set_gt_pose(0, gt_pose)
                 self.mapping_event(0, color, depth, gt_pose, first=True)
+                self.frames_done = 1
                 continue
             self.track(idx, color, depth, gt_pose)
             midx = idx - self.map_lag
@@ -561,6 +583,11 @@ class SlamEngine:
     def save(self, path: str) -> None:
         """Write the engine state in the JAX package's checkpoint format
         (nice_slam_tpu/engine.py:1112-1139)."""
+        self._save(path, self.est_c2w_dev, self.gt_c2w, self.frames_done)
+
+    def _save(self, path: str, traj, gt_c2w, frames_done: int) -> None:
+        """The map and keyframes with the given trajectory, GT poses and
+        count of frames done."""
         self._sync()
         extra = {"kf_frame_ids": np.asarray(self.kf_frame_ids, np.int64)}
         if self.selected_keyframes:
@@ -576,8 +603,8 @@ class SlamEngine:
             extra["selkf_event_idx"] = np.asarray(ev, np.int64)
             extra["selkf_frames"] = mat
         save_checkpoint(path, self.map_state.params, self.map_state.grids,
-                        self.bound, self.est_c2w, self.gt_c2w, self.store,
-                        self.frames_done, extra=extra)
+                        self.bound, traj.detach().cpu().numpy(), gt_c2w,
+                        self.store, frames_done, extra=extra)
 
     def resume(self, path: str):
         """Load a checkpoint of either package (engine.py:1141-1167).  The

@@ -33,6 +33,7 @@ Semantics (as in the JAX package):
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -562,12 +563,25 @@ class FusedNiceDecode(torch.autograd.Function):
     backward kernels (the forward's occupancy sum and the backward's
     weight-gradient reduction belong to their launch); `fwd_kinds` splits
     the forward's by stage and points, `bwd_kinds` the backward's by stage,
-    weight gradients and points."""
+    weight gradients and points.  They change under a lock: the pipelined
+    engine launches from its tracker's and its mapper's threads, and the
+    backward runs on the autograd engine's device thread."""
 
     fwd_launches = 0
     bwd_launches = 0
     fwd_kinds: dict = {}
     bwd_kinds: dict = {}
+    count_lock = threading.Lock()
+
+    @staticmethod
+    def _count(direction: str, kind: str) -> None:
+        """One more launch of K1 ('fwd') or K2 ('bwd') of `kind`."""
+        cls = FusedNiceDecode
+        with cls.count_lock:
+            setattr(cls, f"{direction}_launches",
+                    getattr(cls, f"{direction}_launches") + 1)
+            kinds = getattr(cls, f"{direction}_kinds")
+            kinds[kind] = kinds.get(kind, 0) + 1
 
     @staticmethod
     def forward(ctx, with_color: bool, train_weights: bool, p, c_mid, c_fine,
@@ -578,10 +592,8 @@ class FusedNiceDecode(torch.autograd.Function):
             _check_cuda_inputs(p, c_mid, c_fine, c_color, weights)
             img = build_image(weights)
             out = _launch_fwd(with_color, p, c_mid, c_fine, c_color, img)
-            FusedNiceDecode.fwd_launches += 1
-            kind = f"{'color' if with_color else 'fine'} n={p.shape[0]}"
-            kinds = FusedNiceDecode.fwd_kinds
-            kinds[kind] = kinds.get(kind, 0) + 1
+            FusedNiceDecode._count(
+                "fwd", f"{'color' if with_color else 'fine'} n={p.shape[0]}")
             ctx.save_for_backward(p, c_mid, c_fine, c_color, img)
             return out
         for t in (c_mid, c_fine, c_color) + tuple(weights):
@@ -606,12 +618,10 @@ class FusedNiceDecode(torch.autograd.Function):
                                  f"{g.dtype} {tuple(g.shape)} on {g.device}")
             dp, dcm, dcf, dcc, wflat = _launch_bwd(
                 with_color, live, p, c_mid, c_fine, c_color, g, saved[4])
-            FusedNiceDecode.bwd_launches += 1
             ran = live & (7 if with_color else 3)
-            kind = (f"{'color' if with_color else 'fine'} "
-                    f"{'wgrad' if ran else 'no-wgrad'} n={p.shape[0]}")
-            kinds = FusedNiceDecode.bwd_kinds
-            kinds[kind] = kinds.get(kind, 0) + 1
+            FusedNiceDecode._count(
+                "bwd", f"{'color' if with_color else 'fine'} "
+                f"{'wgrad' if ran else 'no-wgrad'} n={p.shape[0]}")
             views = unpack_flat(wflat) if ran else None
             wgrads = []
             for d in range(3):
@@ -643,22 +653,26 @@ def fused_nice_decode(with_color: bool, train_weights: bool, p, c_mid,
 
 
 def reset_launch_counts() -> None:
-    FusedNiceDecode.fwd_launches = 0
-    FusedNiceDecode.bwd_launches = 0
-    FusedNiceDecode.fwd_kinds = {}
-    FusedNiceDecode.bwd_kinds = {}
+    with FusedNiceDecode.count_lock:
+        FusedNiceDecode.fwd_launches = 0
+        FusedNiceDecode.bwd_launches = 0
+        FusedNiceDecode.fwd_kinds = {}
+        FusedNiceDecode.bwd_kinds = {}
 
 
 def launch_counts() -> dict:
-    return {"fused_decode_fwd": FusedNiceDecode.fwd_launches,
-            "fused_decode_bwd": FusedNiceDecode.bwd_launches}
+    with FusedNiceDecode.count_lock:
+        return {"fused_decode_fwd": FusedNiceDecode.fwd_launches,
+                "fused_decode_bwd": FusedNiceDecode.bwd_launches}
 
 
 def fwd_launch_kinds() -> dict:
     """Forward launches by 'stage n=points'."""
-    return dict(FusedNiceDecode.fwd_kinds)
+    with FusedNiceDecode.count_lock:
+        return dict(FusedNiceDecode.fwd_kinds)
 
 
 def bwd_launch_kinds() -> dict:
     """Backward launches by 'stage wgrad|no-wgrad n=points'."""
-    return dict(FusedNiceDecode.bwd_kinds)
+    with FusedNiceDecode.count_lock:
+        return dict(FusedNiceDecode.bwd_kinds)

@@ -354,11 +354,12 @@ def engine_mesher_hook(engine, idx: int, final: bool):
         # Mapper.py:649-653, get_mask_use_all_frames=True).  Only keyframes
         # keep their depth, so the all-frames mask is frustum-only
         # (depth_test off) and the depths are 1x1 placeholders.
-        n = engine.frames_done
+        traj, _, tracked = engine.map_side()
+        n = max(tracked, idx + 1)
         extract_mesh(
             st.params, engine.specs.model, st.grids, engine.bound, mc_bound,
             engine.specs.camera, dc_replace(spec, depth_test=False),
-            kf_c2w=engine.est_c2w[:n],
+            kf_c2w=traj[:n].detach().cpu().numpy(),
             kf_depth=np.zeros((n, 1, 1), np.float32), n_keyframes=n,
             out_path=os.path.join(engine.output, "mesh",
                                   "final_mesh_eval_rec.ply"),

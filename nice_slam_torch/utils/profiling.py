@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -22,27 +23,33 @@ class StageTimer:
     """Accumulating wall-clock timers keyed by stage name.  A stage timed
     inside another counts only to itself: the outer stage's total leaves
     it out (the panels drawn inside a mapping event count under 'vis',
-    not 'map')."""
+    not 'map').  Nesting is per thread: the pipelined engine's tracker
+    and mapper time their stages at once, each into its own stack, and
+    the totals are kept under a lock."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
-        # [start, seconds of the stages nested in it] of each open stage
-        self._open: list = []
+        self._lock = threading.Lock()
+        # per thread: [start, seconds of the stages nested in it] of each
+        # open stage
+        self._local = threading.local()
 
     @contextlib.contextmanager
     def time(self, name: str):
+        stack = self._local.__dict__.setdefault("open", [])
         frame = [time.perf_counter(), 0.0]
-        self._open.append(frame)
+        stack.append(frame)
         try:
             yield
         finally:
-            self._open.pop()
+            stack.pop()
             dt = time.perf_counter() - frame[0]
-            self.totals[name] += dt - frame[1]
-            self.counts[name] += 1
-            if self._open:
-                self._open[-1][1] += dt
+            with self._lock:
+                self.totals[name] += dt - frame[1]
+                self.counts[name] += 1
+            if stack:
+                stack[-1][1] += dt
 
     def report(self) -> str:
         lines = []

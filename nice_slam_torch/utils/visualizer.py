@@ -185,7 +185,7 @@ class Visualizer:
             stem = os.path.join(self.vis_dir, f"{idx:05d}_{it:04d}")
             save_panel(stem, _host(gt_depth), gt_c, _host(depth),
                        _host(color))
-        engine.written["vis"] = engine.written.get("vis", 0) + 1
+        engine.count_written("vis")
         return stem
 
 
@@ -205,7 +205,7 @@ def make_engine_vis_hook(vis_dir: str, freq: int = 50,
         if not vis.frame_selected(key):
             return None
         return vis.render_panel(engine, idx, 0, color, depth,
-                                engine.est_c2w_dev[idx])
+                                engine.map_side()[0][idx])
 
     return hook
 

@@ -43,7 +43,8 @@ rank of such a group (parallel/multihost.py).  With tpu.grid_sharded
 ranks the same way, and the NICE mapper runs with its grids in X-slabs
 over the `model` ranks and its rays over the `data` ranks
 (parallel/grid_sharded.py); it takes precedence over tpu.data_parallel.
-tpu.pipelined runs the tracker and the mapper on two cards, or both on
+tpu.pipelined runs the tracker and the mapper at the same time, the
+mapper on a thread and CUDA stream of its own, on two cards or both on
 one (parallel/pipelined.py).
 
 --vis draws the reference's debug panels per optimisation iteration

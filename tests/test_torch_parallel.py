@@ -11,9 +11,14 @@
   mesh_shape [2]) of 6 frames: the ranks' trajectories and maps are
   bit-equal, the ATE is under 0.25 m and only rank 0 wrote files.
 - The pipelined engine's schedule against the JAX PipelinedSlamEngine's on
-  stubbed engines (JAX on two virtual CPU devices, the port on one), and a
-  real degraded run: ATE < 0.5 m (tests/test_parallel.py:159) with the
-  tracker's snapshot never sharing storage with the mapper's state.
+  stubbed engines (JAX on two virtual CPU devices, the port on one,
+  recorded where the port's loop hands events over, joins and
+  snapshots), and a real degraded run: ATE < 0.5 m
+  (tests/test_parallel.py:159) with the tracker's snapshot never sharing
+  storage with the mapper's state.  The mapper on its own thread equals
+  the sequential order (an inline worker) bit for bit, checkpoints
+  included; a mapper error leaves run() with no thread alive; the two
+  sides run at the same time; the stage timer under two threads.
 - multihost: initialize_from_cfg is a no-op without a config, and the
   backend on the CPU is gloo.
 
@@ -27,6 +32,8 @@ import json
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -362,6 +369,11 @@ def _pipe_overrides(n_frames=13, every=4):
 
 
 def _pipe_recorder(eng, poses, events):
+    """Record the order of work where the loop fixes it: tracked frames,
+    snapshots and mapping events.  The port's events are recorded where
+    its loop hands them to the mapper (their work is stubbed out on the
+    mapper's thread), with each join; the JAX engine's where it
+    dispatches them."""
     def frame_of(gt_pose):
         return int(np.argmin(np.abs(poses - np.asarray(gt_pose)).sum((1, 2))))
 
@@ -379,7 +391,22 @@ def _pipe_recorder(eng, poses, events):
         events.append(("map", idx, frame_of(gt_pose)))
 
     eng.track, eng._track_group = track, track_group
-    eng._snapshot, eng.mapping_event = snapshot, mapping_event
+    eng._snapshot = snapshot
+    if isinstance(eng, PipelinedSlamEngine):
+        submit, join = eng._submit_event, eng._join_event
+
+        def submit_event(idx, color, depth, gt_pose, **k):
+            events.append(("map", idx, frame_of(gt_pose)))
+            submit(idx, color, depth, gt_pose, **k)
+
+        def join_event():
+            events.append(("join",))
+            join()
+
+        eng._submit_event, eng._join_event = submit_event, join_event
+        eng.mapping_event = lambda *a, **k: None
+    else:
+        eng.mapping_event = mapping_event
 
 
 @pytest.mark.parametrize("every", [4, 5])
@@ -409,35 +436,48 @@ def test_pipelined_schedule_equals_jax(every, tmp_path):
         eng.run()
         got[pkg] = events
         assert eng.frames_done == 13
+    with_joins = got["torch"]
+    got["torch"] = [e for e in with_joins if e[0] != "join"]
     assert got["torch"] == got["jax"], got
     # one event of lag: frames 1..2*every are tracked before event every's
     # map is pulled
     assert got["torch"].index(("snap", every)) > got["torch"].index(
         ("track", 2 * every))
+    # every snapshot follows the join of the event it pulls, and one event
+    # at most is in flight
+    for i, e in enumerate(with_joins):
+        if e[0] == "snap":
+            assert with_joins[i - 1] == ("join",), with_joins
+    hand = [e[0] for e in with_joins if e[0] in ("map", "join")]
+    assert hand == ["map", "join"] * (len(hand) // 2), with_joins
 
 
 def _storages(tree) -> set:
     return {x.untyped_storage().data_ptr() for x in tree_leaves(tree)}
 
 
-def test_pipelined_degraded_run(tmp_path):
-    """tests/test_parallel.py:129-159 on one device: the run stays on the
-    trajectory, and at every mapping event the tracker's snapshot and
-    trajectory share no storage with the mapper's map and trajectory."""
-    cfg = load_config(overrides={
+def _degraded_cfg(ckpt_freq=10000):
+    return load_config(overrides={
         "dataset": "synthetic", "synthetic": {"n_frames": 9},
         "cam": {"H": 48, "W": 64, "fx": 48.0, "fy": 48.0, "cx": 31.5,
                 "cy": 23.5, "crop_edge": 0},
         "grid_len": GRID_LEN,
         "mapping": {"bound": BOUND, "every_frame": 3, "iters_first": 60,
                     "iters": 12, "pixels": 200, "mapping_window_size": 3,
-                    "keyframe_every": 3, "ckpt_freq": 10000,
+                    "keyframe_every": 3, "ckpt_freq": ckpt_freq,
                     "mesh_freq": 10000, "color_refine": False},
         "tracking": {"iters": 6, "pixels": 100, "ignore_edge_W": 4,
                      "ignore_edge_H": 4},
         "rendering": {"N_samples": 14, "N_surface": 7},
         "tpu": {"seed": 0, "pipelined": True}})
-    eng = PipelinedSlamEngine(cfg, output=str(tmp_path), device="cpu")
+
+
+def test_pipelined_degraded_run(tmp_path):
+    """tests/test_parallel.py:129-159 on one device: the run stays on the
+    trajectory, and at every mapping event the tracker's snapshot and
+    trajectory share no storage with the mapper's map and trajectory."""
+    eng = PipelinedSlamEngine(_degraded_cfg(), output=str(tmp_path),
+                              device="cpu")
     assert eng.dev_track == eng.dev_map
     shared = []
     orig = SlamEngine.mapping_event
@@ -445,10 +485,11 @@ def test_pipelined_degraded_run(tmp_path):
     def checked(self, idx, *a, **k):
         st = self.map_state
         mine = (_storages(st.params) | _storages(st.grids)
-                | {self.est_c2w_dev.untyped_storage().data_ptr(),
+                | {self.map_side()[0].untyped_storage().data_ptr(),
                    self.store.est_c2w.untyped_storage().data_ptr()})
         theirs = (_storages(self._params_t) | _storages(self._grids_t)
-                  | {self._bound_t.untyped_storage().data_ptr()})
+                  | {self._bound_t.untyped_storage().data_ptr(),
+                     self.est_c2w_dev.untyped_storage().data_ptr()})
         shared.append(bool(mine & theirs))
         return orig(self, idx, *a, **k)
 
@@ -463,6 +504,143 @@ def test_pipelined_degraded_run(tmp_path):
     rmse = eng.ate()["rmse"]
     assert np.isfinite(rmse) and rmse < 0.5, rmse
     assert len(eng.kf_frame_ids) >= 3
+
+
+class _InlineMapper:
+    """The sequential order of the same steps: a job runs when it is
+    handed over, on the caller's thread and stream."""
+
+    def __init__(self, device):
+        pass
+
+    def submit(self, job, *held):
+        job()
+
+    def join(self):
+        pass
+
+
+def _bits(t) -> bytes:
+    return t.detach().cpu().contiguous().numpy().tobytes()
+
+
+def test_pipelined_threads_equal_inline_bit_for_bit(tmp_path, monkeypatch):
+    """The mapper on its own thread against the sequential order (an
+    inline worker), on the degraded run's config with a checkpoint at
+    every event: the trajectory, the decoders, the grids, the keyframe
+    store, stats() and every array of every checkpoint are equal bit for
+    bit."""
+    from nice_slam_torch.parallel import pipelined
+
+    runs = {}
+    for name in ("threads", "inline"):
+        if name == "inline":
+            monkeypatch.setattr(pipelined, "MapperThread", _InlineMapper)
+        out = tmp_path / name
+        eng = PipelinedSlamEngine(_degraded_cfg(ckpt_freq=3),
+                                  output=str(out), device="cpu").run()
+        kf = eng.store
+        ckpts = {}
+        for f in sorted(os.listdir(out / "ckpts")):
+            with np.load(out / "ckpts" / f) as z:
+                ckpts[f] = {k: (z[k].dtype, z[k].shape, z[k].tobytes())
+                            for k in z.files}
+        runs[name] = {
+            "traj": _bits(eng.est_c2w_dev),
+            "map": [_bits(x) for x in tree_leaves(eng.map_state.params)
+                    + tree_leaves(eng.map_state.grids)],
+            "store": [_bits(x) for x in (kf.colors, kf.depths, kf.est_c2w,
+                                         kf.gt_c2w, kf.frame_idx)]
+            + [int(kf.count), list(eng.kf_frame_ids)],
+            "stats": eng.stats(), "ckpts": ckpts,
+            "frames_done": eng.frames_done}
+    a, b = runs["threads"], runs["inline"]
+    assert sorted(a["ckpts"]) == ["00003.npz", "00006.npz", "00008.npz"]
+    for key in a:
+        assert a[key] == b[key], key
+
+
+def test_pipelined_mapper_error_propagates(tmp_path):
+    """A mapping event that raises makes run() raise the same error, and
+    no mapper thread is left alive."""
+    eng = PipelinedSlamEngine(load_config(overrides=_pipe_overrides()),
+                              output=str(tmp_path), device="cpu")
+    eng.track = lambda *a, **k: None
+    failure = RuntimeError("mapping event 8 failed")
+
+    def mapping_event(idx, *a, **k):
+        if idx == 8:
+            raise failure
+
+    eng.mapping_event = mapping_event
+    with pytest.raises(RuntimeError) as e:
+        eng.run()
+    assert e.value is failure
+    assert not [t for t in threading.enumerate() if t.name == "mapper"]
+
+
+def test_pipelined_tracker_and_mapper_overlap(tmp_path):
+    """Each mapping event but the last waits until the tracker has
+    tracked a frame of the next group: it can go on only if the two run at
+    the same time.  Run one after the other, the wait times out and the
+    run fails (it does not hang)."""
+    every = 4
+    eng = PipelinedSlamEngine(load_config(overrides=_pipe_overrides(
+        every=every)), output=str(tmp_path), device="cpu")
+    tracked = {i: threading.Event() for i in range(eng.n_img)}
+    waited = []
+
+    def track(idx, *a, **k):
+        tracked[idx].set()
+
+    def mapping_event(idx, *a, **k):
+        if 0 < idx < eng.n_img - 1:
+            if not tracked[idx + 1].wait(timeout=20):
+                raise TimeoutError(f"event {idx}: frame {idx + 1} was not "
+                                   "tracked while the event ran")
+            waited.append(idx)
+
+    eng.track, eng.mapping_event = track, mapping_event
+    eng.run()
+    assert waited == [4, 8], waited
+
+
+def test_stage_timer_two_threads():
+    """One thread's stage does not nest into another thread's open stage,
+    and concurrent counts are not lost."""
+    from nice_slam_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    opened, done = threading.Event(), threading.Event()
+
+    def outer():
+        with timer.time("map"):
+            opened.set()
+            assert done.wait(timeout=20)
+
+    def inner():
+        assert opened.wait(timeout=20)
+        with timer.time("track"):
+            time.sleep(0.2)
+        done.set()
+
+    def count(name):
+        for _ in range(2000):
+            with timer.time(name):
+                pass
+
+    threads = [threading.Thread(target=f) for f in (outer, inner)]
+    threads += [threading.Thread(target=count, args=("n",))
+                for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert timer.totals["track"] >= 0.2
+    # the track stage ran inside map's span on another thread: map keeps it
+    assert timer.totals["map"] >= timer.totals["track"]
+    assert timer.counts["n"] == 4000
+    assert dict(timer.counts) == {"map": 1, "track": 1, "n": 4000}
 
 
 def test_pipelined_refuses_data_parallel():
