@@ -42,11 +42,16 @@
    phases 16 and 20 do): Python GC seconds and collections
    (gc.callbacks), the caching allocator's num_alloc_retries and
    num_device_alloc over the run and its segments at the end, and the
-   host RSS.
+   host RSS.  Every NICE path of the smoke replays its tracking and
+   mapping iterations as CUDA graphs (nice_slam_torch/graphs.py); each
+   phase that drives an engine prints its graphs, replays, eager steps,
+   capture seconds and the graph pools' MiB beside its peak.
 4. Profile: utils/profiling.torch_trace (torch.profiler, Chrome trace
    written to output/chip_smoke_profile/trace.json) over one more tracked
-   frame and mapping event of the trained engine gives the device busy
-   share and the top kernels.
+   frame and mapping event of the trained engine, through the engine's
+   graphed path, gives the device busy share and the top kernels; then
+   the same frame and event again with the graphs off (eager) for the
+   eager busy share.
 5. Timing phase: K1 at the main path's three shapes (48,000 colour,
    48,000 fine, 9,600 colour); K2 at the main path's four shapes (48,000
    colour with the colour decoder live; 48,000 colour, 48,000 fine and
@@ -92,9 +97,13 @@
    V, T and K1's launches by kind; K1 is timed at the mesh's shapes as in
    phase 5.
 11. Repeat: the strict path at full width for 6 frames (events 0 and 5)
-   twice in one process, from the same seed: the trajectories, the four
-   grids and the decoders must be bit-equal (the grid backward sums in a
-   fixed order).  Prints both ATEs and the grid backward's scatter
+   three times in one process, from the same seed: graphed, eager (the
+   engine's graph runners with capture off), graphed.  The trajectories,
+   the four grids, the decoders, the keyframe stores and the tracking
+   losses must be bit-equal (the grid backward sums in a fixed order; a
+   replay draws what the eager call drew), and the launches equal the
+   schedule in each.  Prints the three walls and ATEs, and the grid
+   backward's scatter
    (ops/grid.scatter_rows: sort, segment sum) timed against the
    index_add_ it replaced, at the mapping shape (48,000 points x 8
    corners into the middle and fine grids).
@@ -157,9 +166,10 @@
    and, at every event, the tracker's snapshot and trajectory share no
    storage with the mapper's map, trajectory and keyframe store; and
    unless the two runs' trajectories, decoders, grids, keyframe stores
-   and checkpoints are bit-equal.  Prints both walls, the host track and
-   map seconds, the overlap share (track + map - wall) / min(track, map),
-   the peak MiB and fault 3's counters.
+   and checkpoints are bit-equal.  Prints both walls and their ratio, the
+   host track and map seconds, the overlap share (track + map - wall) /
+   min(track, map), the peak MiB and fault 3's counters.  Both sides
+   replay CUDA graphs (each side its runner, pool and generator).
 17. Reconstruction evaluation (host only): phase 10's final_mesh.ply
    against the synthetic scene's ground-truth mesh (its room, spheres and
    box through the port's marching tetrahedra at 2 cm, a fixture of the
@@ -241,7 +251,17 @@
    scannet.yaml's 480x640 camera and configs/ScanNet/scene0000.yaml,
    unchanged: mapping at 5,000 pixels, so K1 and K2 run at 240,000
    points.  After it K1 and K2 are timed (as in phase 5) at 240,000.
-Phases 6-9, 11-16 and 19-22 each run in a device memory freed of the
+23. Graphs at reduced depth (run right after phase 11): strict, full
+   width, 13 frames, tracking 5 iterations, mapping 15, iters_first 30,
+   mapping.every_frame and keyframe_every 2, the coarse mapper and the
+   colour refinement on, so local BA runs at events 10 and 12: every
+   signature the engine captures (tracking; middle, fine, colour, colour
+   with BA, the coarse mapper, the refinement with BA).  Graphed, then
+   eager: fails unless the two runs are bit-equal (trajectory, decoders,
+   grids, keyframes, tracking losses), the launches equal the schedule in
+   both and BA ran at its events.  Prints the signatures captured by
+   side and stage, the seconds spent capturing and both walls.
+Phases 6-9, 11-16, 19-23 each run in a device memory freed of the
 earlier phases' engines and print their wall time, frames/s, ATE, peak
 device memory and launch counts.
 
@@ -602,6 +622,8 @@ def run_main_path(torch, fd, log):
         f"{n_frames / wall:.4f} frames/s, ATE rmse {ate:.5f} m, peak "
         f"device memory {peak / 2**20:.1f} MiB, timings {eng.timings}")
     log(f"main path fault 3 counters: {rc.result}")
+    log(f"main path CUDA graphs: {graph_info(eng)} (peak "
+        f"{peak / 2**20:.1f} MiB); by side {eng.graph_stats()}")
     log(f"main path launches: K1 {counts['fused_decode_fwd']} (schedule "
         f"{exp_f}), K2 {counts['fused_decode_bwd']} (schedule {exp_b}); K1 "
         f"by kind {fwd_kinds} (schedule {exp_fk}); K2 by kind {kinds}")
@@ -626,47 +648,51 @@ def run_main_path(torch, fd, log):
 def profile_window(torch, eng, log):
     """Device busy share of the main path's work, read with torch.profiler
     over one tracked frame and one mapping event of the trained engine
-    (the last frame again).  The profiler adds host time, so the idle
-    share it gives is an upper bound."""
+    (the last frame again), through the engine's graphed path (every
+    iteration a replay), then with the graphs off.  The profiler adds
+    host time, so the idle share it gives is an upper bound."""
     from torch.autograd import DeviceType
 
-    from nice_slam_torch.tracking import track_step
     from nice_slam_torch.utils.profiling import torch_trace
 
     s = eng.specs
     idx = eng.n_img - 1
-    color, depth, _ = eng._load_frame(idx)
-    st = eng.map_state
-    logdir = os.path.join(REPO, "output", "chip_smoke_profile")
-    torch.cuda.synchronize()
-    with torch_trace(logdir) as prof:
-        t0 = time.perf_counter()
-        track_step(st.params, st.grids, eng.bound, eng.est_c2w_dev, idx,
-                   color, depth, s.camera, s.track, s.render, s.model,
-                   gen=eng.gen)
-        eng._map(idx, color, depth, s.mapper, eng.iters, eng.lr_factor,
-                 False, record=False)
+    color, depth, gt_pose = eng._load_frame(idx)
+    shares = {}
+    for name in ("graphed", "eager"):
+        if name == "eager":
+            eager_engine(eng)
+        logdir = os.path.join(REPO, "output", f"chip_smoke_profile_{name}")
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    trace = os.path.join(logdir, "trace.json")
-    fail_if(not os.path.exists(trace), f"profile: {trace} not written")
-    log(f"profile: torch_trace wrote {trace} "
-        f"({os.path.getsize(trace) / 2**20:.1f} MiB)")
-    # kernel rows only: an operator's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    dev_s = sum(r[1] for r in rows) / 1e6
-    if dev_s == 0.0:
-        log("profile: the profiler recorded no device time; device busy "
-            "share not measured")
-        return
-    log(f"profile (one tracked frame + one mapping event, profiler on): "
-        f"wall {wall:.4f} s, device kernel time {dev_s:.4f} s, busy "
-        f"share {dev_s / wall:.4f}, idle share <= {1 - dev_s / wall:.4f}")
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
-        log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
+        with torch_trace(logdir) as prof:
+            t0 = time.perf_counter()
+            eng.track(idx, color, depth, gt_pose)
+            eng._map(idx, color, depth, s.mapper, eng.iters, eng.lr_factor,
+                     False, record=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        trace = os.path.join(logdir, "trace.json")
+        fail_if(not os.path.exists(trace), f"profile: {trace} not written")
+        log(f"profile ({name}): torch_trace wrote {trace} "
+            f"({os.path.getsize(trace) / 2**20:.1f} MiB)")
+        # kernel rows only: an operator's row repeats its kernels' time
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        dev_s = sum(r[1] for r in rows) / 1e6
+        if dev_s == 0.0:
+            log(f"profile ({name}): the profiler recorded no device time; "
+                "device busy share not measured")
+            continue
+        shares[name] = dev_s / wall
+        log(f"profile ({name}; one tracked frame + one mapping event, "
+            f"profiler on): wall {wall:.4f} s, device kernel time "
+            f"{dev_s:.4f} s, busy share {dev_s / wall:.4f}, idle share <= "
+            f"{1 - dev_s / wall:.4f}")
+        for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
+            log(f"  {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}")
+    return shares
 
 
 # ---------------------------------------------------------------------------
@@ -679,6 +705,28 @@ def _release(torch):
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def graph_info(eng) -> dict:
+    """The engine's CUDA-graph runners (tracking and mapping, both
+    sides): graphs captured, replays, eager steps and capture seconds, and
+    their memory pools' MiB."""
+    runners = (eng._track_graphs, eng._map_graphs)
+    out = {k: sum(r.stats()[k] for r in runners)
+           for k in ("graphs", "replays", "eager_steps", "capture_s")}
+    out["pool_mib"] = sum(r.pool_bytes() for r in runners) / 2**20
+    return out
+
+
+def eager_engine(eng):
+    """The engine with its CUDA graphs off: runners that run every
+    iteration eagerly (the eager runs of phases 4, 11 and 23)."""
+    from nice_slam_torch.graphs import StepGraphs
+
+    eng._track_graphs = StepGraphs(eng._track_graphs.device, capture=False)
+    eng._map_graphs = StepGraphs(eng._map_graphs.device, capture=False,
+                                 max_iters=eng._map_graphs.max_iters)
+    return eng
 
 
 class RunCounters:
@@ -757,7 +805,8 @@ def _drive(torch, fd, eng, log, name, n_frames, first_frame=0):
            "ate_rmse_m": eng.ate()["rmse"],
            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
            "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
-           "events": events, "timings": dict(eng.timings)}
+           "events": events, "timings": dict(eng.timings),
+           "graphs": graph_info(eng)}
     log(f"{name}: " + ", ".join(f"{k} {v}" for k, v in res.items()))
     return res
 
@@ -933,43 +982,111 @@ def time_scatter(torch, log, grid_shape, n):
     return res
 
 
+def run_digest(eng) -> tuple:
+    """(sha256 of the trajectory, decoders, grids and keyframe store,
+    every tracked frame's [first, last, best] loss)."""
+    return pipe_digest(eng), [[r[k] for k in ("first_loss", "last_loss",
+                                              "best_loss")]
+                              for r in eng.stats()]
+
+
 def run_repeat(torch, fd, log, n_frames=6):
-    """The strict path twice from the same seed: bit-equal states."""
+    """Phase 11: the strict path three times from the same seed, graphed,
+    eager, graphed: bit-equal states and losses."""
     from nice_slam_torch.config import load_config
     from nice_slam_torch.engine import SlamEngine
-    from nice_slam_torch.ops.tree import tree_leaves
 
     runs = []
-    for k in range(2):
+    for k, graphed in enumerate((True, False, True)):
         cfg = load_config(SYN_CFG, overrides={
             "synthetic": {"n_frames": n_frames},
             "data": {"output": os.path.join(REPO, "output",
                                             f"chip_smoke_repeat{k}")}})
         eng = SlamEngine(cfg, device="cuda")
-        res = _drive(torch, fd, eng, log, f"repeat{k}", n_frames)
+        if not graphed:
+            eager_engine(eng)
+        name = f"repeat{k} ({'graphed' if graphed else 'eager'})"
+        res = _drive(torch, fd, eng, log, name, n_frames)
         _check_lagged(cfg, res, n_frames, 0, 0, 0.25)
-        st = eng.map_state
-        runs.append((res, eng.est_c2w_dev.clone(),
-                     {k_: v.clone() for k_, v in st.grids.items()},
-                     [x.clone() for x in tree_leaves(st.params)]))
-        del eng, st
-    (r0, c0, g0, p0), (r1, c1, g1, p1) = runs
-    differ = ([] if torch.equal(c0, c1) else ["est_c2w"]) + [
-        f"grids/{k}" for k in g0 if not torch.equal(g0[k], g1[k])]
-    if len(p0) != len(p1) or not all(torch.equal(a, b)
-                                     for a, b in zip(p0, p1)):
-        differ.append("params")
-    log(f"repeat: ATE {r0['ate_rmse_m']!r} and {r1['ate_rmse_m']!r}; "
-        f"{len(g0)} grids; differ: {differ or 'none'}")
-    fail_if(len(g0) != 4, f"repeat: {len(g0)} grids, want 4")
-    fail_if(bool(differ), f"repeat: two runs differ at {differ}")
-    scatter = [time_scatter(torch, log, tuple(g0[name].shape[:3]), 48000)
+        fail_if((res["graphs"]["replays"] > 0) != graphed,
+                f"{name}: {res['graphs']['replays']} graph replays")
+        shapes = {n: tuple(g.shape[:3]) for n, g in
+                  eng.map_state.grids.items()}
+        runs.append((res, run_digest(eng)))
+        del eng
+    walls = [r["wall_s"] for r, _ in runs]
+    same = [d == runs[0][1] for _, d in runs]
+    log(f"repeat: walls graphed {walls[0]:.3f} s, eager {walls[1]:.3f} s, "
+        f"graphed {walls[2]:.3f} s (eager / graphed "
+        f"{walls[1] / walls[0]:.4f}, {walls[1] / walls[2]:.4f}); ATE "
+        f"{[r['ate_rmse_m'] for r, _ in runs]!r}; {len(shapes)} grids; "
+        f"equal to the first run: {same}")
+    fail_if(len(shapes) != 4, f"repeat: {len(shapes)} grids, want 4")
+    fail_if(not all(same), "repeat: the graphed and eager runs differ in "
+            "trajectory, decoders, grids, keyframes or tracking losses")
+    scatter = [time_scatter(torch, log, shapes[name], 48000)
                for name in ("middle", "fine")]
-    del runs, c0, c1, g0, g1, p0, p1
-    return {"path": "repeat", "ate_rmse_m": [r0["ate_rmse_m"],
-                                             r1["ate_rmse_m"]],
-            "wall_s": [r0["wall_s"], r1["wall_s"]], "k1": r0["k1"],
-            "k2": r0["k2"], "scatter": scatter}
+    r0 = runs[0][0]
+    return {"path": "repeat", "ate_rmse_m": [r["ate_rmse_m"] for r, _ in runs],
+            "wall_s": walls, "graphed": [True, False, True],
+            "k1": r0["k1"], "k2": r0["k2"], "scatter": scatter,
+            "graphs": [r["graphs"] for r, _ in runs]}
+
+
+def run_reduced(torch, fd, log, n_frames=13):
+    """Phase 23: every captured signature at reduced depth, graphed then
+    eager, bit-equal."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+
+    runs = []
+    for graphed in (True, False):
+        cfg = load_config(SYN_CFG, overrides={
+            "synthetic": {"n_frames": n_frames},
+            "mapping": {"every_frame": 2, "keyframe_every": 2,
+                        "iters": 15, "iters_first": 30},
+            "tracking": {"iters": 5},
+            "data": {"output": os.path.join(
+                REPO, "output",
+                f"chip_smoke_reduced_{'graphed' if graphed else 'eager'}")}})
+        eng = SlamEngine(cfg, device="cuda")
+        if not graphed:
+            eager_engine(eng)
+        ba = []
+        orig = eng._map
+
+        def _map(idx, color, depth, mapspec, *a, _orig=orig, **k):
+            if not mapspec.coarse_mapper and a[2]:
+                ba.append(idx)
+            return _orig(idx, color, depth, mapspec, *a, **k)
+
+        eng._map = _map
+        name = f"reduced ({'graphed' if graphed else 'eager'})"
+        res = _drive(torch, fd, eng, log, name, n_frames)
+        _check_lagged(cfg, res, n_frames, 0, 0, 0.25)
+        events = map_events(n_frames, 2, 0)
+        want_ba = ba_events(cfg, n_frames, events)
+        fail_if(sorted(set(ba)) != want_ba,
+                f"{name}: BA at {sorted(set(ba))}, schedule {want_ba}")
+        sig = {side: sorted(str(k[2]) if side == "map" else "track"
+                            for k in getattr(eng, f"_{side}_graphs")._graphs)
+               for side in ("track", "map")}
+        runs.append((res, run_digest(eng), sig))
+        del eng
+    (g, d_g, sig), (e, d_e, _) = runs
+    log(f"reduced: signatures captured {sig} ({g['graphs']['graphs']} "
+        f"graphs, {g['graphs']['capture_s']:.3f} s capturing, pools "
+        f"{g['graphs']['pool_mib']:.1f} MiB, peak {g['peak_mib']:.1f} "
+        f"MiB); walls graphed {g['wall_s']:.3f} s, eager {e['wall_s']:.3f} "
+        f"s; BA at {want_ba}; bit-equal: {d_g == d_e}")
+    fail_if(e["graphs"]["replays"] != 0 or g["graphs"]["replays"] == 0,
+            "reduced: graph replays in the wrong run")
+    fail_if(set(sig["map"]) != {"middle", "fine", "color", "coarse"}
+            or not sig["track"], f"reduced: signatures {sig}")
+    fail_if(d_g != d_e, "reduced: the graphed and eager runs differ in "
+            "trajectory, decoders, grids, keyframes or tracking losses")
+    return {**g, "path": "reduced", "eager_wall_s": e["wall_s"],
+            "signatures": sig, "ba_events": want_ba}
 
 
 # ---------------------------------------------------------------------------
@@ -1581,7 +1698,8 @@ def _launch_ranks(torch, log, name, tpu, world, n_frames, device,
            "peak_mib": [s["peak_mib"] for s in ranks],
            "k1": k1[0], "k2": k2[0], "k1_by_rank": k1, "k2_by_rank": k2,
            "timings": [s["timings_s"] for s in ranks],
-           "written": [s["written"] for s in ranks]}
+           "written": [s["written"] for s in ranks],
+           "graphs": [s["graphs"] for s in ranks]}
     fail_if(any(s["world"] != world for s in ranks), f"{name}: world size")
     fail_if(any((s["traj_sha256"], s["map_sha256"])
                 != (s0["traj_sha256"], s0["map_sha256"]) for s in ranks),
@@ -1985,7 +2103,7 @@ def _pipelined_run(torch, fd, log, cfg, name):
            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
            "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
            "shared_storages": shared, "fault3": rc.result,
-           "timings": dict(tm)}
+           "timings": dict(tm), "graphs": graph_info(eng)}
     log(f"pipelined ({name}): " + ", ".join(f"{k} {v}"
                                            for k, v in res.items()))
     return res, seq, eng
@@ -2403,7 +2521,7 @@ def run_vis(torch, fd, log, main_ref, n_frames=11):
            "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
            "k1_by_kind": fwd_kinds, "k1_per_panel": per_panel,
            "matplotlib": mpl, "files": names, "fault3": rc.result,
-           "timings": dict(eng.timings)}
+           "timings": dict(eng.timings), "graphs": graph_info(eng)}
     log("vis: " + ", ".join(f"{k} {v}" for k, v in res.items()))
     fail_if(names["tracking_vis"] != sorted(n + e for n in want_t
                                            for e in exts)
@@ -2641,7 +2759,8 @@ def run_dataset(torch, fd, log, name, cfg_path, writer, n_frames=6):
            "decode_ms_per_frame": decode_ms,
            "reader_ms_per_frame": reader_ms,
            "upload_bytes_per_frame": {"uint8": up_u8, "f32": up_f32},
-           "fixture_s": fixture_s, "cv2": cv2_check}
+           "fixture_s": fixture_s, "cv2": cv2_check,
+           "graphs": graph_info(eng)}
     log(f"{name}: " + ", ".join(f"{k} {v}" for k, v in res.items()))
     fail_if(res["k1"] == 0 or res["k2"] == 0,
             f"{name}: a kernel of the path was never launched")
@@ -2832,7 +2951,7 @@ def main() -> int:
                       make_inputs(torch, int(n), 77, dev)[:4])
         log(f"kernel check K1 {kind} (mesh): ok (fwd err {e:.3g})")
         err_f = max(err_f, e)
-    profile_window(torch, eng, log)
+    busy = profile_window(torch, eng, log)
 
     # K1 at the main path's three shapes, then at the mesh's
     fwd_shapes = []
@@ -2860,6 +2979,7 @@ def main() -> int:
     resumed = run_resume(torch, fd, log, loose_cfg, 11)
     imap = run_imap(torch, fd, log)
     repeat = run_repeat(torch, fd, log)
+    reduced = run_reduced(torch, fd, log)
     gn = run_gn(torch, fd, log)
     occ = run_occ(torch, fd, log, strict_ate)
     pre = run_pretrain(torch, fd, log, dev)
@@ -2886,8 +3006,8 @@ def main() -> int:
     scannet = run_dataset(torch, fd, log, "scannet", SCENE0000_CFG,
                           write_scannet_fixture)
     by_path = {r["path"]: r for r in (loose, free, resumed, imap, mesh,
-                                      repeat, gn, occ, pre, dp, pipe, gs,
-                                      vis, replica, scannet)}
+                                      repeat, reduced, gn, occ, pre, dp,
+                                      pipe, gs, vis, replica, scannet)}
     # K1 at the panels' shapes against the plain version
     vis_kinds = sorted(k for k in vis["k1_by_kind"]
                        if k not in fwd_kinds)
@@ -2946,6 +3066,10 @@ def main() -> int:
          "launches_by_kind": kinds,
          "launches_by_path": paths("fused_decode_bwd"), "shapes": shapes},
     ]
+    log(f"busy share of one frame + event (phase 4): {busy}; phase 3 "
+        f"wall {wall:.3f} s, phase 11 walls {repeat['wall_s']} (graphed, "
+        f"eager, graphed), phase 16 threads / inline "
+        f"{pipe['wall_s'] / pipe['inline']['wall_s']:.4f}")
     log(f"grid scatter: {json.dumps(repeat['scatter'])}")
     log(f"recon: {json.dumps(recon)}")
     log(f"smoke wall: {time.perf_counter() - t_start:.1f} s (the kernels' "

@@ -55,6 +55,16 @@ panels changes no result: a run with them equals one without, bit for
 bit.  Their render time counts under the stage 'vis', not 'track' or
 'map'.
 
+CUDA graphs.  On a card each optimiser iteration of tracking and of the
+dense NICE mapper is a captured CUDA graph replayed `iters` times
+(graphs.py: one runner a side, `_track_graphs` and `_map_graphs`), the
+counterpart of the JAX package's jitted `lax.scan` bodies.  The tracker
+reads its own copy of the map (`_params_t`, `_grids_t`, `_bound_t`), at
+addresses that do not move, refreshed when the map changes.  The eager
+paths, chosen by mode: iMAP*, occupancy-guided sampling, the
+Gauss-Newton polish, the visualiser panels, and data-parallel and
+grid-sharded mapping.  `graph_stats()` reads the runners.
+
 The JAX package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
 barrier_every_groups, prefetch, fuse_track_map) and tpu.mesh_shape
 (run_torch.py reads it to launch local ranks) are accepted and ignored.
@@ -71,10 +81,11 @@ import numpy as np
 import torch
 
 from nice_slam_torch.config import SlamSpecs, specs_from_config
+from nice_slam_torch.graphs import StepGraphs
 from nice_slam_torch.keyframes import KeyframeStore, add_keyframe, make_store
 from nice_slam_torch.mapping import mapping_step, stage_iters_of
 from nice_slam_torch.ops.se3 import cam_from_tensor, to_homogeneous
-from nice_slam_torch.ops.tree import tree_map
+from nice_slam_torch.ops.tree import tree_leaves, tree_map
 from nice_slam_torch.parallel.multihost import rank_device, rank_world
 from nice_slam_torch.state import make_map_state
 from nice_slam_torch.tracking import track_step
@@ -215,6 +226,13 @@ class SlamEngine:
         # per-event hook
         self._track_vis = self._map_vis = None
         self._frame_hook = self._event_hook = None
+        # the CUDA graphs of each side's iterations, and the tracker's
+        # copy of the map with the map tensors it was copied from
+        self._track_graphs = StepGraphs(self.device)
+        self._map_graphs = StepGraphs(
+            self.device, max_iters=max(self.iters_first, self.iters))
+        self._params_t = self._grids_t = self._bound_t = None
+        self._track_src: list = []
 
     def _load_pretrained_decoders(self):
         """NICE decoder weights, in the JAX package's order of sources
@@ -310,10 +328,47 @@ class SlamEngine:
             self._safe_est_pose(gt_pose, idx), self.est_c2w_dev.device)
 
     def _tracking_map(self):
-        """(params, grids, bound, generator) the tracker reads: the map
-        itself (the pipelined engine gives its snapshot)."""
+        """(params, grids, bound, generator) the tracker reads: its copy
+        of the map, refreshed when a map tensor changed since the last
+        copy (the pipelined engine gives its snapshot)."""
+        src = self._map_tensors()
+        if (len(src) != len(self._track_src)
+                or any(a is not b for a, b in zip(src, self._track_src))):
+            self._load_track_map(self.device)
+        return self._params_t, self._grids_t, self._bound_t, self.gen
+
+    def _map_tensors(self) -> list:
         st = self.map_state
-        return st.params, st.grids, self.bound, self.gen
+        return tree_leaves(st.params) + list(st.grids.values()) + [st.bound]
+
+    @torch.no_grad()
+    def _load_track_map(self, device) -> None:
+        """Copy the map into the tracker's copy on `device`, in place when
+        the shapes match (a graph reads the copy by address), else into
+        new tensors."""
+        st = self.map_state
+        src = self._map_tensors()
+        dst = ([] if self._params_t is None else
+               tree_leaves(self._params_t) + list(self._grids_t.values())
+               + [self._bound_t])
+        if (list(st.grids) == list(self._grids_t or {})
+                and [x.shape for x in src] == [x.shape for x in dst]):
+            for d, x in zip(dst, src):
+                d.copy_(x)
+        else:
+            def copy(x):
+                return x.detach().to(device, copy=True)
+
+            self._params_t = tree_map(copy, st.params)
+            self._grids_t = {n: copy(g) for n, g in st.grids.items()}
+            self._bound_t = copy(st.bound)
+        self._track_src = src
+
+    def graph_stats(self) -> dict:
+        """The CUDA-graph runners of tracking and mapping: graphs,
+        captures, replays, eager steps, capture seconds."""
+        return {"track": self._track_graphs.stats(),
+                "map": self._map_graphs.stats()}
 
     def map_side(self):
         """(trajectory, GT poses, frames tracked) that a mapping event
@@ -336,7 +391,8 @@ class SlamEngine:
         with self.timer.time("track"):
             out = track_step(params, grids, bound, self.est_c2w_dev, idx,
                              color, depth, s.camera, s.track, s.render,
-                             s.model, gen=gen, return_cams=panels)
+                             s.model, gen=gen, return_cams=panels,
+                             graphs=self._track_graphs)
             self._sync(self.est_c2w_dev.device)
         losses, cams = out if panels else (out, None)
         self.tracking_stats.append({"idx": idx, "losses": losses})
@@ -379,7 +435,7 @@ class SlamEngine:
             coarse_stage_iters=(stage_iters_of(coarse_spec, coarse_iters)
                                 if coarse_spec is not None else ()),
             coarse_lr_factor=coarse_lr_factor, dp=self.dp, gs=self.gs,
-            on_iter=on_iter)
+            on_iter=on_iter, graphs=self._map_graphs)
         if self.save_selected_kf and record:
             self.selected_keyframes[idx] = sel
         return losses

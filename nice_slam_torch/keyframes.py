@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from nice_slam_torch.camera import Camera
+from nice_slam_torch.ops.consts import const
 from nice_slam_torch.ops.rays import gather_pixels, rays_from_uv, sample_pixels
 
 
@@ -78,8 +79,8 @@ def se3_inverse(c2w: torch.Tensor) -> torch.Tensor:
     Rt = R.transpose(-1, -2)
     ti = -(Rt @ t[..., None])[..., 0]
     top = torch.cat([Rt, ti[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=c2w.dtype,
-                          device=c2w.device).expand(top.shape[:-2] + (1, 4))
+    bottom = const([0.0, 0.0, 0.0, 1.0], c2w.dtype, c2w.device).expand(
+        top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 
@@ -168,10 +169,11 @@ def build_window(store: KeyframeStore, slots, valid, cur_color, cur_depth,
     carry zero weight.  Returns a dict of stacked tensors, leading dim
     k+2."""
     dev = cur_depth.device
-    last = torch.tensor([max(store.count - 1, 0)], device=dev)
+    last = torch.full((1,), max(store.count - 1, 0), dtype=torch.int64,
+                      device=dev)
     slots_full = torch.cat([slots, last])
-    valid_full = torch.cat([valid, torch.tensor([store.count > 0],
-                                                device=dev)])
+    valid_full = torch.cat([valid, torch.full((1,), store.count > 0,
+                                              dtype=torch.bool, device=dev)])
     colors = store.colors[slots_full].to(torch.float32) / 255.0
     colors = torch.cat([colors, cur_color[None]], dim=0)
     depths = torch.cat([store.depths[slots_full], cur_depth[None]], dim=0)

@@ -29,17 +29,29 @@ free space empty.
 Leaves whose learning rate is structurally zero are frozen: they get no
 gradient and no update; so is every grid without a learning rate, such
 as the occupancy proxy.
+
+`map_optimize` copies the map, the window cameras, the window and the
+masks into static buffers at the start of a call and out at its end;
+every iteration updates them in place (Adam's moments and step counter
+too), so on a card each stage's iteration is a CUDA graph (graphs.py)
+replayed for the stage's iterations: the counterpart of the JAX
+package's three `lax.scan`s (nice_slam_tpu/mapping.py:444-471).  iMAP*,
+occupancy-guided sampling, the panels' `on_iter`, given `pixels` and the
+data-parallel `shard` run the same step eagerly, and the Gauss-Newton
+polish runs eagerly after the staged Adam.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from nice_slam_torch.camera import Camera
+from nice_slam_torch.graphs import StepGraphs
 from nice_slam_torch.keyframes import (
     KeyframeStore,
     add_keyframe,
@@ -49,7 +61,7 @@ from nice_slam_torch.keyframes import (
     select_keyframes_overlap,
 )
 from nice_slam_torch.models.decoders import ModelSpec, model_apply
-from nice_slam_torch.ops.optim import adam_init, adam_update
+from nice_slam_torch.ops.optim import adam_step_, bias_tables
 from nice_slam_torch.ops.rays import ray_aabb_far
 from nice_slam_torch.ops.se3 import (
     cam_from_tensor,
@@ -383,11 +395,55 @@ def imap_lr_scale(step: int) -> float:
 # ---------------------------------------------------------------------------
 # The mapping optimisation
 
+def _map_buffers(graphs: StepGraphs, params, grids, window, n_iters: int):
+    """The static buffers of the mapping loop (made once per runner, map
+    shapes, window shape and capacity): the tree {"params", "grids",
+    "cams"}, Adam's moments and step counter, bias tables, the losses, the
+    window (colours, depths, valid), a frustum mask per grid, the BA
+    learning-rate mask and the bound."""
+    cap = max(n_iters, graphs.max_iters)
+    leaves = tree_leaves(params)
+    dev = window["depths"].device
+    key = ("map", cap, tuple(window["colors"].shape),
+           tuple(window["depths"].shape), dev,
+           tuple(tuple(x.shape) for x in leaves),
+           tuple((n, tuple(g.shape)) for n, g in grids.items()))
+
+    def make():
+        wn = window["colors"].shape[0]
+        tree = {"params": tree_map(torch.empty_like, params),
+                "grids": {n: torch.empty_like(g) for n, g in grids.items()},
+                "cams": torch.empty(wn, 7, device=dev)}
+        return SimpleNamespace(
+            tree=tree, m=tree_map(torch.zeros_like, tree),
+            v=tree_map(torch.zeros_like, tree),
+            step=torch.zeros((), dtype=torch.int64, device=dev),
+            tables=bias_tables(cap, dev),
+            losses=torch.zeros(max(cap, 1), device=dev),
+            window={k: torch.empty_like(window[k])
+                    for k in ("colors", "depths", "valid")},
+            masks={n: torch.ones(g.shape[:3] + (1,), dtype=g.dtype,
+                                 device=dev) for n, g in grids.items()},
+            cam_lr_mask=torch.empty(wn, device=dev),
+            bound=torch.empty(3, 2, device=dev))
+
+    return key, graphs.buffers(key, make)
+
+
+def graph_mapping(mapspec: MapSpec, rspec: RenderSpec) -> bool:
+    """Whether mapping iterations are CUDA graphs (on a card): NICE mode
+    without occupancy-guided sampling.  iMAP* (its StepLR scale and
+    regulation term) and the proxy's sampling run the same step eagerly
+    (ROADMAP's queue of eager paths)."""
+    return mapspec.nice and not rspec.occ_guided
+
+
 def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                  lr_factor: float, camera: Camera, stage_iters,
                  mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                  ba: bool = True, gen: Optional[torch.Generator] = None,
-                 pixels=None, shard=None, on_iter=None):
+                 pixels=None, shard=None, on_iter=None,
+                 graphs: Optional[StepGraphs] = None):
     """Run the staged mapping optimisation.  Adam is fresh per call and its
     moments persist across the stages.  `pixels` optionally gives every
     iteration's window draws, in order.  With BA on, NICE mode and
@@ -409,71 +465,102 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
     (utils/visualizer.py).  It must change nothing and draw nothing from
     `gen`, so a run with it equals one without, bit for bit.
 
-    Returns (params, grids, cams, losses (n_iters,))."""
-    tree = {"params": params, "grids": grids, "cams": cams0.detach()}
-    wn = window["colors"].shape[0]
-    opt = adam_init(tree)
+    `graphs` (the engine's mapping runner) replays each stage's iteration
+    as a captured CUDA graph on a card (not with `pixels`, `shard` or
+    `on_iter`, nor where `graph_mapping` says no); without it the loop
+    runs eagerly.
+
+    Returns (params, grids, cams, losses (n_iters,)): new tensors."""
     if not ba:
         mapspec = dataclasses.replace(mapspec, ba=False)
-    losses = []
+    n_iters = sum(n for _, n in stage_iters)
+    graphs = graphs or StepGraphs(cams0.device, capture=False)
+    bkey, b = _map_buffers(graphs, params, grids, window, n_iters)
+    with torch.no_grad():
+        tree_map(lambda d, x: d.copy_(x), b.tree["params"], params)
+        for n, g in grids.items():
+            b.tree["grids"][n].copy_(g)
+        b.tree["cams"].copy_(cams0)
+        for mom in (b.m, b.v):
+            tree_map(lambda x: x.zero_(), mom)
+        b.step.zero_()
+        for k in ("colors", "depths", "valid"):
+            b.window[k].copy_(window[k])
+        for n, mk in masks.items():
+            b.masks[n].copy_(mk)
+        b.cam_lr_mask.copy_(cam_lr_mask)
+        b.bound.copy_(bound)
+    wn = window["colors"].shape[0]
+    graphed = (graph_mapping(mapspec, rspec) and pixels is None
+               and shard is None and on_iter is None)
+
+    def step(stage, rspec_stage, it_all, pix):
+        lr_tree, frozen = _lr_tree(b.tree, stage, mapspec, lr_factor,
+                                   b.cam_lr_mask)
+        tr = tree_map(lambda x, f: x if f else
+                      x.detach().requires_grad_(True), b.tree, frozen)
+        live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
+                if not f]
+        reg_u = max_d = None
+        if shard is not None:
+            pix, reg_u, max_d = shard.loss_draws(
+                b.window, camera, mapspec.pixels // wn, rspec, gen, pix)
+        loss = mapping_loss(
+            tr, b.window, b.bound, camera, stage, mapspec, rspec_stage,
+            mspec, gen=gen, pix=pix, reg_u=reg_u, max_depth=max_d)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        if shard is not None:
+            loss, *grads = shard.reduce(
+                [loss] + [torch.zeros_like(x) if gg is None else gg
+                          for x, gg in zip(live, grads)], stage)
+        gl = iter(grads)
+        g = tree_map(lambda x, f: None if f else next(gl), tr, frozen)
+        for n in g["grids"]:
+            if g["grids"][n] is not None:
+                g["grids"][n] = g["grids"][n] * b.masks[n]
+        g = tree_map(lambda x, gg: torch.zeros_like(x)
+                     if gg is None and x.requires_grad else gg, tr, g)
+        # the data-parallel step clips nothing and scales no LR, as
+        # the JAX package's (data_parallel.py:92-101)
+        if mapspec.grad_clip > 0.0 and shard is None:
+            gn = torch.sqrt(sum(torch.sum(x * x)
+                                for x in tree_leaves(g) if x is not None))
+            scale = torch.clamp(mapspec.grad_clip / (gn + 1e-12), max=1.0)
+            g = tree_map(lambda x: None if x is None else x * scale, g)
+        if not mapspec.nice and shard is None:
+            scale = imap_lr_scale(it_all)
+            lr_tree = {**lr_tree, "params": tree_map(
+                lambda lr: lr * scale, lr_tree["params"])}
+        with torch.no_grad():
+            b.losses.index_copy_(0, b.step.view(1), loss.detach().view(1))
+            adam_step_(b.tree, g, b.m, b.v, b.step, b.tables, lr_tree,
+                       frozen=frozen)
+
     it_all = 0
-    for stage, n_iters in stage_iters:
-        lr_tree, frozen = _lr_tree(tree, stage, mapspec, lr_factor,
-                                   cam_lr_mask)
+    for stage, n_stage in stage_iters:
         # NICE decoders only train in the colour stage
         rspec_stage = dataclasses.replace(
             rspec, train_decoders=(stage == "color" or not mapspec.nice))
-        for _ in range(n_iters):
+        key = (("map", bkey, stage, mapspec, rspec_stage, mspec, camera,
+                lr_factor, id(gen)) if graphed else None)
+        for _ in range(n_stage):
             if on_iter is not None:
-                on_iter(it_all, tree)
-            tr = tree_map(lambda x, f: x if f else
-                          x.detach().requires_grad_(True), tree, frozen)
-            live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
-                    if not f]
+                on_iter(it_all, b.tree)
             pix = None if pixels is None else pixels[it_all]
-            reg_u = max_d = None
-            if shard is not None:
-                pix, reg_u, max_d = shard.loss_draws(
-                    window, camera, mapspec.pixels // wn, rspec, gen, pix)
-            loss = mapping_loss(
-                tr, window, bound, camera, stage, mapspec, rspec_stage,
-                mspec, gen=gen, pix=pix, reg_u=reg_u, max_depth=max_d)
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
-            if shard is not None:
-                loss, *grads = shard.reduce(
-                    [loss] + [torch.zeros_like(x) if gg is None else gg
-                              for x, gg in zip(live, grads)], stage)
-            gl = iter(grads)
-            g = tree_map(lambda x, f: None if f else next(gl), tr, frozen)
-            for n in g["grids"]:
-                if g["grids"][n] is not None:
-                    g["grids"][n] = g["grids"][n] * masks[n]
-            g = tree_map(lambda x, gg: torch.zeros_like(x)
-                         if gg is None and x.requires_grad else gg, tr, g)
-            # the data-parallel step clips nothing and scales no LR, as
-            # the JAX package's (data_parallel.py:92-101)
-            if mapspec.grad_clip > 0.0 and shard is None:
-                gn = torch.sqrt(sum(torch.sum(x * x)
-                                    for x in tree_leaves(g) if x is not None))
-                scale = torch.clamp(mapspec.grad_clip / (gn + 1e-12), max=1.0)
-                g = tree_map(lambda x: None if x is None else x * scale, g)
-            lr_it = lr_tree
-            if not mapspec.nice and shard is None:
-                scale = imap_lr_scale(opt.step)
-                lr_it = {**lr_tree, "params": tree_map(
-                    lambda lr: lr * scale, lr_tree["params"])}
-            tree, opt = adam_update(tree, g, opt, lr_it, frozen=frozen)
-            losses.append(loss.detach())
+            graphs.step(key, lambda st=stage, rs=rspec_stage, it=it_all,
+                        pix=pix: step(st, rs, it, pix), (gen,))
             it_all += 1
-    out = torch.stack(losses) if losses else torch.zeros(0)
+    out = b.losses[:n_iters].clone()
+    params = tree_map(torch.clone, b.tree["params"])
+    grids = {n: g.clone() for n, g in b.tree["grids"].items()}
+    cams = b.tree["cams"].clone()
     if ba and mapspec.pose_gn_iters > 0 and mapspec.nice:
-        tree["cams"] = schur_ba.schur_pose_refine(
-            tree["params"], tree["grids"], bound, window, tree["cams"],
-            cam_lr_mask, camera,
+        cams = schur_ba.schur_pose_refine(
+            params, grids, bound, window, cams, cam_lr_mask, camera,
             dataclasses.replace(rspec, train_decoders=False), mspec,
             mapspec.pose_gn_iters, mapspec.pose_gn_pixels,
             mapspec.pose_gn_damping, gen=gen, shard=shard)
-    return tree["params"], tree["grids"], tree["cams"], out
+    return params, grids, cams, out
 
 
 def _one_map_optimize(params, grids, bound, store: KeyframeStore,
@@ -481,7 +568,7 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
                       lr_factor: float, camera: Camera, stage_iters,
                       mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                       ba: bool, gen: Optional[torch.Generator] = None,
-                      dp=None, gs=None, on_iter=None):
+                      dp=None, gs=None, on_iter=None, graphs=None):
     """One keyframe-window optimisation: selection + frustum masks + staged
     Adam + BA write-back (store and est_c2w updated in place).  With `dp`
     (a parallel/data_parallel.RayShard; the engine gives one when its
@@ -491,8 +578,9 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
     `gs` (a parallel/grid_sharded.GridShard; the engine then gives no
     `dp`) the NICE mapper's staged Adam is `gs_map_once`, without
     Gauss-Newton; the coarse mapper and iMAP* stay dense and local (their
-    draws are in lockstep, so every rank computes the same).  `on_iter`:
-    see `map_optimize` (under `gs` it also gets the sharded decode).
+    draws are in lockstep, so every rank computes the same).  `on_iter`
+    and `graphs`: see `map_optimize` (under `gs` on_iter also gets the
+    sharded decode).
     Returns (params, grids, losses, sel_frames): sel_frames is the
     window's frame ids (the current frame included, -2 = empty slot;
     Mapper.py:274-287)."""
@@ -522,7 +610,7 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
         params, grids, cams, losses = map_optimize(
             params, grids, bound, window, cams0, masks, cam_lr_mask,
             lr_factor, camera, stage_iters, mapspec, rspec, mspec, ba=ba,
-            gen=gen, on_iter=on_iter)
+            gen=gen, on_iter=on_iter, graphs=graphs)
     if ba:
         with torch.no_grad():
             new_c2w = to_homogeneous(cam_from_tensor(cams))
@@ -540,19 +628,20 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
                  insert_kf: bool = False, gt_pose=None,
                  coarse_spec: Optional[MapSpec] = None,
                  coarse_stage_iters=(), coarse_lr_factor: float = 1.0,
-                 dp=None, gs=None, on_iter=None):
+                 dp=None, gs=None, on_iter=None, graphs=None):
     """One mapping event in the reference's order: the mapping optimisation
     (+BA) -> the occupancy proxy's refresh (occupancy-guided runs) ->
     keyframe insertion (insert_kf) -> the coarse mapper
     (coarse_spec; the reference's third process, NICE_SLAM.py:278-286),
     which sees the post-BA poses and the new keyframe.  `dp`, `gs`,
-    `on_iter` (the mapper's optimisation only, not the coarse mapper's):
-    see `_one_map_optimize`.
+    `on_iter` (the mapper's optimisation only, not the coarse mapper's)
+    and `graphs`: see `_one_map_optimize`.
 
     Returns (params, grids, losses, sel_frames)."""
     params, grids, losses, sel_frames = _one_map_optimize(
         params, grids, bound, store, est_c2w, idx, color, depth, lr_factor,
-        camera, stage_iters, mapspec, rspec, mspec, ba, gen, dp, gs, on_iter)
+        camera, stage_iters, mapspec, rspec, mspec, ba, gen, dp, gs, on_iter,
+        graphs)
     if mapspec.nice and not mapspec.coarse_mapper and "occ_proxy" in grids:
         grids = dict(grids)
         grids["occ_proxy"] = refresh_occ_proxy(params, grids, bound, mspec)
@@ -562,7 +651,7 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
         params, grids, _, _ = _one_map_optimize(
             params, grids, bound, store, est_c2w, idx, color, depth,
             coarse_lr_factor, camera, coarse_stage_iters, coarse_spec,
-            rspec, mspec, False, gen, dp, gs)
+            rspec, mspec, False, gen, dp, gs, graphs=graphs)
     return params, grids, losses, sel_frames
 
 

@@ -12,10 +12,45 @@ from __future__ import annotations
 import torch
 
 
+class _CumprodNonzero(torch.autograd.Function):
+    """torch.cumprod over the last dim of a tensor without zeros, with the
+    derivatives PyTorch takes for such a tensor (`cumprod_backward`: the
+    reversed cumulative sum of output * grad, divided by the input;
+    `cumprod_jvp`: the cumulative sum of tangent / input, times the
+    output), bit for bit, but without the check for zeros that comes
+    first there: that check reads a flag from the device, which stalls
+    the host and is illegal inside a CUDA-graph capture."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        return torch.cumprod(x, dim=-1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+        ctx.save_for_forward(inputs[0], output)
+
+    @staticmethod
+    def jvp(ctx, t):
+        x, out = ctx.saved_tensors
+        return (t / x).cumsum(-1) * out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        if x.numel() <= 1 or x.shape[-1] == 1:
+            return g
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
-    """cumprod shifted right by one with a leading 1 (transmittance)."""
+    """cumprod shifted right by one with a leading 1 (transmittance).  x
+    must hold no zero: `raw2outputs` passes 1 - alpha + 1e-10 with alpha
+    in [0, 1]."""
     ones = torch.ones_like(x[..., :1])
-    return torch.cumprod(torch.cat([ones, x[..., :-1]], dim=-1), dim=-1)
+    return _CumprodNonzero.apply(torch.cat([ones, x[..., :-1]], dim=-1))
 
 
 def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor,

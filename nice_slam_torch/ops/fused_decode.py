@@ -32,6 +32,7 @@ Semantics (as in the JAX package):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import List, Sequence, Tuple
@@ -565,7 +566,11 @@ class FusedNiceDecode(torch.autograd.Function):
     the forward's by stage and points, `bwd_kinds` the backward's by stage,
     weight gradients and points.  They change under a lock: the pipelined
     engine launches from its tracker's and its mapper's threads, and the
-    backward runs on the autograd engine's device thread."""
+    backward runs on the autograd engine's device thread.  A launch made
+    while a CUDA graph is captured on a stream that `count_captured`
+    watches goes into that capture's record instead: the capture runs
+    nothing, and each replay of the graph credits the record
+    (`credit_launches`)."""
 
     fwd_launches = 0
     bwd_launches = 0
@@ -574,13 +579,26 @@ class FusedNiceDecode(torch.autograd.Function):
     count_lock = threading.Lock()
 
     @staticmethod
-    def _count(direction: str, kind: str) -> None:
-        """One more launch of K1 ('fwd') or K2 ('bwd') of `kind`."""
+    def _count(direction: str, kind: str, device) -> None:
+        """One more launch of K1 ('fwd') or K2 ('bwd') of `kind` on
+        `device`'s current stream: into the record of the capture on that
+        stream, if one is watched, else into the counts.  A launch into an
+        unwatched capture raises: no replay would count it."""
         cls = FusedNiceDecode
+        stream, capturing = _stream_state(device)
         with cls.count_lock:
-            setattr(cls, f"{direction}_launches",
-                    getattr(cls, f"{direction}_launches") + 1)
-            kinds = getattr(cls, f"{direction}_kinds")
+            rec = _captures.get(stream)
+            if rec is None and capturing:
+                raise RuntimeError(
+                    "a fused-decode launch is being captured on a stream "
+                    "that no count_captured watches")
+            if rec is None:
+                setattr(cls, f"{direction}_launches",
+                        getattr(cls, f"{direction}_launches") + 1)
+                kinds = getattr(cls, f"{direction}_kinds")
+            else:
+                rec[direction] += 1
+                kinds = rec[f"{direction}_kinds"]
             kinds[kind] = kinds.get(kind, 0) + 1
 
     @staticmethod
@@ -593,7 +611,8 @@ class FusedNiceDecode(torch.autograd.Function):
             img = build_image(weights)
             out = _launch_fwd(with_color, p, c_mid, c_fine, c_color, img)
             FusedNiceDecode._count(
-                "fwd", f"{'color' if with_color else 'fine'} n={p.shape[0]}")
+                "fwd", f"{'color' if with_color else 'fine'} n={p.shape[0]}",
+                p.device)
             ctx.save_for_backward(p, c_mid, c_fine, c_color, img)
             return out
         for t in (c_mid, c_fine, c_color) + tuple(weights):
@@ -621,7 +640,7 @@ class FusedNiceDecode(torch.autograd.Function):
             ran = live & (7 if with_color else 3)
             FusedNiceDecode._count(
                 "bwd", f"{'color' if with_color else 'fine'} "
-                f"{'wgrad' if ran else 'no-wgrad'} n={p.shape[0]}")
+                f"{'wgrad' if ran else 'no-wgrad'} n={p.shape[0]}", p.device)
             views = unpack_flat(wflat) if ran else None
             wgrads = []
             for d in range(3):
@@ -650,6 +669,47 @@ def fused_nice_decode(with_color: bool, train_weights: bool, p, c_mid,
     weights require a gradient get one."""
     return FusedNiceDecode.apply(with_color, train_weights, p, c_mid, c_fine,
                                  c_color, *weights)
+
+
+# stream handle -> launches recorded while a graph is captured there
+_captures: dict = {}
+
+
+def _stream_state(device):
+    """(handle of `device`'s current stream, whether it is capturing)."""
+    with torch.cuda.device(device):
+        return (torch.cuda.current_stream().cuda_stream,
+                torch.cuda.is_current_stream_capturing())
+
+
+@contextlib.contextmanager
+def count_captured(stream):
+    """Record the launches captured on `stream` in this block (the
+    backward's too: the autograd engine runs a node on its forward's
+    stream) instead of counting them; yields the record for
+    `credit_launches`."""
+    rec = {"fwd": 0, "bwd": 0, "fwd_kinds": {}, "bwd_kinds": {}}
+    with FusedNiceDecode.count_lock:
+        _captures[stream.cuda_stream] = rec
+    try:
+        yield rec
+    finally:
+        with FusedNiceDecode.count_lock:
+            del _captures[stream.cuda_stream]
+
+
+def credit_launches(rec: dict) -> None:
+    """Count the launches of one replay of a captured graph."""
+    if not (rec["fwd"] or rec["bwd"]):
+        return
+    cls = FusedNiceDecode
+    with cls.count_lock:
+        cls.fwd_launches += rec["fwd"]
+        cls.bwd_launches += rec["bwd"]
+        for direction in ("fwd", "bwd"):
+            kinds = getattr(cls, f"{direction}_kinds")
+            for kind, n in rec[f"{direction}_kinds"].items():
+                kinds[kind] = kinds.get(kind, 0) + n
 
 
 def reset_launch_counts() -> None:

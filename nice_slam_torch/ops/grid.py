@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from nice_slam_torch.ops.consts import const
+
 
 def normalize_coords(p: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
     """World coords (..., 3) -> [-1, 1]^3 w.r.t. AABB `bound` (3, 2)."""
@@ -27,7 +29,7 @@ def normalize_coords(p: torch.Tensor, bound: torch.Tensor) -> torch.Tensor:
 
 
 def _sizes(shape, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(shape, dtype=like.dtype, device=like.device)
+    return const(shape, like.dtype, like.device)
 
 
 def grid_coords(p_nor: torch.Tensor, shape) -> torch.Tensor:
@@ -47,11 +49,11 @@ def _cell(grid_shape, p_nor: torch.Tensor):
     sizes = _sizes(shape, p_nor)
     u_raw = (p_nor + 1.0) * 0.5 * (sizes - 1.0)
     u = torch.minimum(torch.clamp(u_raw, min=0.0), sizes - 1.0)
-    hi0 = torch.tensor([max(n - 2, 0) for n in shape], device=p_nor.device)
+    hi0 = const([max(n - 2, 0) for n in shape], torch.int64, p_nor.device)
     i0 = torch.minimum(torch.clamp(torch.floor(u).long(), min=0), hi0)
     f = u - i0.to(u.dtype)
-    i1 = torch.minimum(i0 + 1, torch.tensor([n - 1 for n in shape],
-                                            device=p_nor.device))
+    i1 = torch.minimum(i0 + 1, const([n - 1 for n in shape], torch.int64,
+                                     p_nor.device))
     inside = (u_raw >= 0.0) & (u_raw <= sizes - 1.0)
     du = torch.where(inside, 0.5 * (sizes - 1.0), torch.zeros_like(u))
     return i0, i1, f, du
@@ -102,7 +104,7 @@ class _TrilinearInterp(torch.autograd.Function):
         nx, ny, nz, C = grid.shape
         i0, i1, f, du = _cell(shape, p_nor)
         if x_offset:
-            shift = torch.tensor([x_offset, 0, 0], device=i0.device)
+            shift = const([x_offset, 0, 0], torch.int64, i0.device)
             i0, i1 = i0 - shift, i1 - shift
         rows = _corner_rows(grid.shape, i0, i1)
         flat = grid.reshape(nx * ny * nz, C)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from nice_slam_torch.ops.consts import const
+
 
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     """Quaternion(s) (..., 4) [w x y z] -> rotation matrices (..., 3, 3).
@@ -70,7 +72,6 @@ def tensor_from_cam(c2w: torch.Tensor) -> torch.Tensor:
 
 def to_homogeneous(c2w34: torch.Tensor) -> torch.Tensor:
     """(..., 3, 4) -> (..., 4, 4) with a [0 0 0 1] bottom row."""
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=c2w34.dtype,
-                          device=c2w34.device)
+    bottom = const([0.0, 0.0, 0.0, 1.0], c2w34.dtype, c2w34.device)
     bottom = bottom.expand(*c2w34.shape[:-2], 1, 4)
     return torch.cat([c2w34, bottom], dim=-2)

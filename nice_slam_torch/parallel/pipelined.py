@@ -33,6 +33,10 @@ writes BA poses into its trajectory and keyframe store in place (mapping.py
 `_one_map_optimize`), and `Tensor.to` returns the same tensor when the
 device already matches, so every copy here is explicit (the torch form of
 the aliasing the JAX package met on one chip, tests/test_parallel.py:162).
+The snapshot is the tracker's copy of the map (`_load_track_map`), copied
+into in place, so the tracker's CUDA graphs read it where they were
+captured; each side has its own graph runner (the tracker's on
+devices[0] with `gen_track`) and memory pool.
 
 What each side touches.  The loop's thread: the tracker's trajectory, its
 snapshot and generator (`gen_track`, seeded with tpu.seed + 1),
@@ -64,7 +68,7 @@ from typing import Optional, Sequence
 import torch
 
 from nice_slam_torch.engine import SlamEngine
-from nice_slam_torch.ops.tree import tree_map
+from nice_slam_torch.graphs import StepGraphs
 
 
 def group_end(cur: int, every_frame: int, n: int) -> int:
@@ -173,6 +177,7 @@ class PipelinedSlamEngine(SlamEngine):
         self._side = None
         self.gen_track = torch.Generator(device=self.dev_track)
         self.gen_track.manual_seed(int(cfg["tpu"]["seed"]) + 1)
+        self._track_graphs = StepGraphs(self.dev_track)
         self._worker = None
         self._snapshot(None)
 
@@ -185,15 +190,11 @@ class PipelinedSlamEngine(SlamEngine):
         return self._side
 
     def _snapshot(self, idx: Optional[int]) -> None:
-        """Copy the mapper's map to the tracking device (the analogue of
-        Tracker.update_para_from_mapping) and fold the BA-refined pose of
-        frame `idx` into the tracker's trajectory."""
-        st = self.map_state
-        self._params_t = tree_map(lambda x: _copy_to(x, self.dev_track),
-                                  st.params)
-        self._grids_t = tree_map(lambda x: _copy_to(x, self.dev_track),
-                                 st.grids)
-        self._bound_t = _copy_to(st.bound, self.dev_track)
+        """Copy the mapper's map into the tracker's copy on the tracking
+        device (the analogue of Tracker.update_para_from_mapping) and fold
+        the BA-refined pose of frame `idx` into the tracker's
+        trajectory."""
+        self._load_track_map(self.dev_track)
         if idx is not None:
             self.est_c2w_dev[idx] = self._side[0][idx].to(self.dev_track)
 

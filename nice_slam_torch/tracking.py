@@ -6,19 +6,29 @@ The ray/AABB prefilter (Tracker.py:93-104) is a loss mask, so shapes do
 not depend on the data.  The selection stays on the device (no host sync
 per iteration).  With gn_iters > 0 the kept camera then takes that many
 guarded Gauss-Newton steps (parallel/schur_ba.py, a one-frame window).
+
+The loop's state (camera, Adam moments and step counter, the best camera
+and loss, the per-iteration losses, the frame) lives in static buffers
+that each iteration updates in place, so on a card one iteration is a
+CUDA graph (graphs.py) replayed `iters` times: the counterpart of the JAX
+package's one jitted `lax.scan` (nice_slam_tpu/tracking.py:164-212).
+iMAP* mode, occupancy-guided sampling and a frame that records its
+iterations' cameras for the panels run the same step eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
 
 from nice_slam_torch.camera import Camera
+from nice_slam_torch.graphs import StepGraphs, tensor_key
 from nice_slam_torch.models.decoders import ModelSpec
-from nice_slam_torch.ops.optim import adam_init, adam_update
+from nice_slam_torch.ops.optim import adam_step_, bias_tables
 from nice_slam_torch.ops.rays import (
     gather_pixels,
     ray_aabb_far,
@@ -30,6 +40,7 @@ from nice_slam_torch.ops.se3 import (
     tensor_from_cam,
     to_homogeneous,
 )
+from nice_slam_torch.ops.tree import tree_leaves
 from nice_slam_torch.parallel import schur_ba
 from nice_slam_torch.render import RenderSpec, render_rays
 
@@ -66,7 +77,9 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     srt, _ = torch.sort(big)
     n = torch.sum(mask.to(torch.int64))
     idx = torch.clamp((n - 1) // 2, min=0)
-    return srt[idx]
+    # index_select, not srt[idx]: indexing by a 0-dim tensor may read it
+    # on the host
+    return srt.index_select(0, idx.view(1))[0]
 
 
 def _track_pixels(gen, tspec: TrackSpec, camera: Camera):
@@ -131,10 +144,48 @@ def tracking_depth_median(cam, params, grids, bound, gt_depth,
     return masked_median(torch.abs(batch_d - depth), batch_d > 0)
 
 
+def _track_buffers(graphs: StepGraphs, tspec: TrackSpec, gt_color,
+                   gt_depth):
+    """The static buffers of the tracking loop (made once per runner and
+    frame shape): camera, Adam moments and step counter, bias tables, best
+    camera and loss, the per-iteration losses, the learning rates and the
+    frame."""
+    dev = gt_depth.device
+    key = ("track", tuple(gt_color.shape), tuple(gt_depth.shape),
+           tspec.iters, tspec.lr, tspec.seperate_lr, dev)
+
+    def make():
+        if tspec.seperate_lr:
+            # quaternion LR is 0.2x the translation LR (Tracker.py:202-213)
+            lr = torch.cat([torch.full((4,), tspec.lr * 0.2, device=dev),
+                            torch.full((3,), tspec.lr, device=dev)])
+        else:
+            lr = torch.full((7,), tspec.lr, device=dev)
+        z = torch.zeros(7, device=dev)
+        return SimpleNamespace(
+            cam=z.clone(), m=z.clone(), v=z.clone(), best_cam=z.clone(),
+            step=torch.zeros((), dtype=torch.int64, device=dev),
+            best_loss=torch.zeros((), device=dev),
+            losses=torch.zeros(max(tspec.iters, 1), device=dev),
+            tables=bias_tables(tspec.iters, dev), lr=lr,
+            color=torch.empty_like(gt_color), depth=torch.empty_like(gt_depth))
+
+    return key, graphs.buffers(key, make)
+
+
+def graph_tracking(tspec: TrackSpec, rspec: RenderSpec,
+                   mspec: ModelSpec) -> bool:
+    """Whether tracking iterations are CUDA graphs (on a card): NICE mode
+    without occupancy-guided sampling.  iMAP* and the proxy's sampling
+    run the same step eagerly (ROADMAP's queue of eager paths)."""
+    return mspec.nice and not rspec.occ_guided
+
+
 def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
                 camera: Camera, tspec: TrackSpec, rspec: RenderSpec,
                 mspec: ModelSpec, gen: Optional[torch.Generator] = None,
-                return_cams: bool = False):
+                return_cams: bool = False,
+                graphs: Optional[StepGraphs] = None):
     """Optimise one frame's camera.  Returns (best_cam, first_loss,
     last_loss, best_loss), all on the device, plus with return_cams the
     (iters, 7) PRE-step camera of every iteration (what the reference's
@@ -142,35 +193,54 @@ def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
 
     The candidate kept is the post-step camera whose pre-step loss was
     minimal (Tracker.py:232-247).  The decoders are frozen, so the fused
-    decode is told that no weight gradient is wanted."""
+    decode is told that no weight gradient is wanted.
+
+    `graphs` (the engine's tracking runner) replays each iteration as a
+    captured CUDA graph on a card; the map (params, grids, bound) must
+    then stay where it is between frames (the engine's tracking copy):
+    the signature holds its addresses.  Without it the loop runs
+    eagerly.  A frame that records its cameras (return_cams, the panels)
+    runs eagerly too."""
     rspec = dataclasses.replace(rspec, train_decoders=False)
-    dev = cam0.device
-    if tspec.seperate_lr:
-        # quaternion LR is 0.2x the translation LR (Tracker.py:202-213)
-        lr = torch.cat([torch.full((4,), tspec.lr * 0.2, device=dev),
-                        torch.full((3,), tspec.lr, device=dev)])
-    else:
-        lr = torch.full((7,), tspec.lr, device=dev)
-    cam = cam0.detach()
-    opt = adam_init(cam)
-    best_cam = cam
-    best_loss = torch.tensor(float("inf"), device=dev)
-    losses, cams = [], []
-    for _ in range(tspec.iters):
-        cams.append(cam)
-        c = cam.clone().requires_grad_(True)
-        loss = tracking_loss(c, params, grids, bound, gt_color, gt_depth,
+    graphs = graphs or StepGraphs(cam0.device, capture=False)
+    bkey, b = _track_buffers(graphs, tspec, gt_color, gt_depth)
+    with torch.no_grad():
+        b.cam.copy_(cam0)
+        b.best_cam.copy_(cam0)
+        b.m.zero_()
+        b.v.zero_()
+        b.step.zero_()
+        b.best_loss.fill_(float("inf"))
+        b.color.copy_(gt_color)
+        b.depth.copy_(gt_depth)
+
+    def step():
+        c = b.cam.clone().requires_grad_(True)
+        loss = tracking_loss(c, params, grids, bound, b.color, b.depth,
                              camera, tspec, rspec, mspec, gen=gen)
         (g,) = torch.autograd.grad(loss, c)
-        loss = loss.detach()
-        new_cam, opt = adam_update(cam, g, opt, lr)
-        better = loss < best_loss
-        best_cam = torch.where(better, new_cam, best_cam)
-        best_loss = torch.where(better, loss, best_loss)
-        losses.append(loss)
-        cam = new_cam
-    res = ((best_cam, losses[0], losses[-1], best_loss) if losses
-           else (best_cam, best_loss, best_loss, best_loss))
+        with torch.no_grad():
+            loss = loss.detach()
+            b.losses.index_copy_(0, b.step.view(1), loss.view(1))
+            better = loss < b.best_loss
+            adam_step_(b.cam, g, b.m, b.v, b.step, b.tables, b.lr)
+            b.best_cam.copy_(torch.where(better, b.cam, b.best_cam))
+            b.best_loss.copy_(torch.where(better, loss, b.best_loss))
+
+    key = None
+    if graph_tracking(tspec, rspec, mspec) and not return_cams:
+        key = ("track", bkey, tspec, rspec, mspec, camera, id(gen),
+               tensor_key(tree_leaves(params) + tree_leaves(grids)
+                          + [bound]))
+    cams = []
+    for _ in range(tspec.iters):
+        if return_cams:
+            cams.append(b.cam.clone())
+        graphs.step(key, step, (gen,))
+    best = b.best_loss.clone()
+    res = (b.best_cam.clone(),
+           b.losses[0].clone() if tspec.iters else best,
+           b.losses[tspec.iters - 1].clone() if tspec.iters else best, best)
     if return_cams:
         return res + (torch.stack(cams) if cams else cam0.new_zeros(0, 7),)
     return res
@@ -187,12 +257,14 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
                gt_color, gt_depth, camera: Camera, tspec: TrackSpec,
                rspec: RenderSpec, mspec: ModelSpec,
                gen: Optional[torch.Generator] = None,
-               return_cams: bool = False):
+               return_cams: bool = False,
+               graphs: Optional[StepGraphs] = None):
     """Track frame `idx` from the poses already in est_c2w (n, 4, 4) and
     write its pose there.  Returns the device tensor [first, last, best]
     of the tracking losses, and with return_cams also `track_frame`'s
     (iters, 7) pre-step cameras (the Gauss-Newton polish comes after
-    them)."""
+    them).  `graphs`: see `track_frame` (the candidate renders of
+    init_select and the Gauss-Newton polish run eagerly)."""
     pre = est_c2w[idx - 1]
     init_c2w = pre
     if tspec.const_speed and idx >= 2:
@@ -214,7 +286,8 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
             init_c2w = torch.where(keep, init_c2w, pre)
     best_cam, first, last, best, *pre_cams = track_frame(
         params, grids, bound, tensor_from_cam(init_c2w), gt_color, gt_depth,
-        camera, tspec, rspec, mspec, gen=gen, return_cams=return_cams)
+        camera, tspec, rspec, mspec, gen=gen, return_cams=return_cams,
+        graphs=graphs)
     if tspec.gn_iters > 0:
         # the polish of nice_slam_tpu/tracking.py:333-346: a one-frame
         # window over the whole image, the map frozen

@@ -62,8 +62,9 @@ ends the launch, and --resume <output> restarts it.
 
 Every rank prints a JSON summary (ate_rmse_m, ate_mean_m, frames,
 timings_s, its rank and world size, the group's backend, digests of its
-trajectory and of its map, the fused decode's launches, the all_reduce's
-bytes and seconds, the files it wrote, ...); only rank 0 writes files:
+trajectory and of its map, the fused decode's launches, its CUDA-graph
+runners' counts, the all_reduce's bytes and seconds, the files it wrote,
+...); only rank 0 writes files:
 <output>/ate.json, the estimated trajectory <output>/traj_est.npy
 ((frames, 4, 4) camera-to-world), checkpoints and meshes.
 """
@@ -285,6 +286,7 @@ def main(argv=None):
         "map_sha256": _digest(tree_leaves(st.params)
                               + tree_leaves(st.grids)),
         "launches": fused_decode.launch_counts(),
+        "graphs": eng.graph_stats(),
         "peak_mib": (torch.cuda.max_memory_allocated(eng.device) / 2**20
                      if eng.device.type == "cuda" else None),
         "allreduce": eng.dp.stats() if eng.dp else None,

@@ -641,3 +641,65 @@ def test_grid_backward_repeats_on_cuda(cuda_device):
     first = run()
     for _ in range(19):
         assert torch.equal(run(), first)
+
+
+@pytest.mark.cuda
+def test_engine_graphs_equal_eager_on_cuda(cuda_device):
+    """The strict path with its tracking and mapping iterations replayed as
+    CUDA graphs (every signature: tracking, middle, fine, colour, the
+    coarse mapper, the colour refinement) against the same run with the
+    graphs off: trajectory, decoders, grids and tracking losses bit for
+    bit, and the same kernel launch counts."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.graphs import StepGraphs
+    from nice_slam_torch.ops.tree import tree_leaves
+
+    cfg = load_config(overrides={
+        "dataset": "synthetic", "synthetic": {"n_frames": 5},
+        "cam": {"H": 60, "W": 80, "fx": 60.0, "fy": 60.0, "cx": 39.5,
+                "cy": 29.5, "crop_edge": 0},
+        "grid_len": {"coarse": 1.0},
+        "mapping": {"bound": [[-0.5, 4.5], [-0.5, 3.5], [-0.5, 4.5]],
+                    "every_frame": 2, "iters_first": 30, "iters": 10,
+                    "pixels": 300, "keyframe_every": 2},
+        "tracking": {"iters": 8, "pixels": 100, "ignore_edge_W": 5,
+                     "ignore_edge_H": 5},
+        "rendering": {"N_samples": 16, "N_surface": 8}})
+    runs = []
+    for graphed in (True, False):
+        eng = SlamEngine(cfg, device="cuda")
+        if not graphed:
+            eng._track_graphs = StepGraphs(cuda_device, capture=False)
+            eng._map_graphs = StepGraphs(cuda_device, capture=False,
+                                         max_iters=30)
+        fd.reset_launch_counts()
+        eng.run()
+        torch.cuda.synchronize()
+        st = eng.map_state
+        runs.append(([eng.est_c2w_dev] + tree_leaves(st.params)
+                     + list(st.grids.values()),
+                     [r["best_loss"] for r in eng.stats()],
+                     fd.launch_counts(), eng.graph_stats()))
+    (s_g, l_g, c_g, g_g), (s_e, l_e, c_e, g_e) = runs
+    assert g_g["track"]["replays"] > 0 and g_g["map"]["replays"] > 0
+    assert g_e["track"]["graphs"] == g_e["map"]["graphs"] == 0
+    assert all(torch.equal(a, b) for a, b in zip(s_g, s_e))
+    assert l_g == l_e and c_g == c_e
+
+
+@pytest.mark.cuda
+def test_bias_reciprocal_matches_cuda_division(cuda_device):
+    """Adam's bias corrections as the port's loops apply them (a multiply
+    by ops/optim.inv_bias, read from a device table) equal the division of
+    a float32 tensor by the host scalar 1 - b**step on the card, bit for
+    bit, at every step of a 500-iteration call."""
+    from nice_slam_torch.ops.optim import bias_tables
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    m = torch.randn(1 << 16, device=cuda_device, generator=gen) * 1e-3
+    tab = bias_tables(500, cuda_device)
+    for r, b in enumerate((0.9, 0.999)):
+        for step in range(1, 501):
+            assert torch.equal(m * tab[r, step], m / (1.0 - b ** step)), (
+                b, step)
