@@ -81,9 +81,13 @@
 9. iMAP*: load_config(synthetic.yaml, nice=False) with scale 1.0 and 5
    frames, at iMAP*'s full width (one 256-wide, 4-block MLP, 32 + 12
    samples per ray; tracking 200 px x 50 iters, mapping 1000 px x 60
-   iters as 3 passes of 20, iters_first 500).  Fails unless K1 and K2 never
-   launch (iMAP* decodes in plain fp32 torch.matmul) and the ATE is finite
-   and under 0.5 m.
+   iters as 3 passes of 20, iters_first 500, so StepLR's steps 200 and
+   400 fall inside the first event).  Fails unless K1 and K2 never launch
+   (iMAP* decodes in plain fp32 torch.matmul), the ATE is finite and
+   under 0.5 m and the run replayed graphs of its tracking, init_select
+   and middle, fine and colour steps (phases 12, 13 and 20 hold their
+   runs to their signatures the same way, and each prints its graphs,
+   replays, eager steps and signatures).
 10. Mesh (run right after phase 3, on its trained engine):
    utils/mesher.engine_mesher_hook at the config's meshing.resolution
    (256): the occupancy of 256^3 points in chunks of 65,536 through K1
@@ -118,8 +122,11 @@
    and b through the kernels match the plain route's (reverse mode
    through reference_nice_decode) on the card: relative Frobenius error
    <= 1e-3 over the rays whose Jacobian rows agree, at most
-   max(2, rays / 1000) rows differing by a ReLU flip.  Prints the share of
-   GN steps the guard accepted and GN's share of track and map time.
+   max(2, rays / 1000) rows differing by a ReLU flip.  Every GN
+   iteration is a graph of the signature "gn" on each side; prints the
+   share of GN steps the guard accepted (from the runner's accept
+   buffer) and GN's share of track and map time (each GN step timed
+   between two synchronisations).
 13. Occupancy-guided: strict, 11 frames, rendering.occupancy_guided.
    Fails unless the proxy is refreshed after each NICE mapping pass (7:
    events 0 and 5 and the refinement's five passes; min < 0.5 after the
@@ -261,7 +268,22 @@
    grids, keyframes, tracking losses), the launches equal the schedule in
    both and BA ran at its events.  Prints the signatures captured by
    side and stage, the seconds spent capturing and both walls.
-Phases 6-9, 11-16, 19-23 each run in a device memory freed of the
+24. The other modes' graphs at reduced depth (run right after phase 23):
+   iMAP* (4 frames, iters_first 210, so StepLR's step 200 falls inside
+   one call; iters 30, tracking 10), occupancy-guided (6 frames: events 0
+   and 5, the proxy refreshed six times; iters 15, iters_first 30,
+   tracking 5) and GN + BA (phase 12's cadence at phase 23's depth, BA
+   at events 10 and 12), each eager, then graphed.  In the eager run the
+   second iteration of each signature (the one a graphed run captures;
+   the first, its warm-up, makes the constants) runs under
+   torch.cuda.set_sync_debug_mode("error"): the sweep for host reads a
+   capture would refuse; it must cover every signature captured.  Fails unless the two runs are bit-equal
+   (trajectory, decoders, grids with the proxy, keyframes, tracking
+   losses), the launches equal the schedule in both (K1 also by kind)
+   and the graphed run captured each of its signatures.  Prints both
+   walls and the signatures checked.
+
+Phases 6-9, 11-16, 19-24 each run in a device memory freed of the
 earlier phases' engines and print their wall time, frames/s, ATE, peak
 device memory and launch counts.
 
@@ -700,10 +722,13 @@ def profile_window(torch, eng, log):
 
 def _release(torch):
     """Free the engines of earlier phases (their recorders hold them in
-    reference cycles) and the allocator's cached blocks, so that the next
-    phase's peak device memory is its own."""
+    reference cycles), the cuBLAS workspaces (one a stream that ran a
+    product: each graph runner's side stream adds one, and PyTorch keeps
+    them for the process) and the allocator's cached blocks, so that the
+    next phase's peak device memory is its own."""
     gc.collect()
     torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
 
 
@@ -727,6 +752,61 @@ def eager_engine(eng):
     eng._map_graphs = StepGraphs(eng._map_graphs.device, capture=False,
                                  max_iters=eng._map_graphs.max_iters)
     return eng
+
+
+def signatures(eng) -> dict:
+    """The step signatures each side of `eng` captured, by name: "track",
+    "init_select" and "gn", or the mapping stage."""
+    return {side: sorted({k[2] if k[0] == "map" else k[0] for k in
+                          getattr(eng, f"_{side}_graphs")._graphs})
+            for side in ("track", "map")}
+
+
+def check_graphed(log, name: str, eng, res, want: dict) -> dict:
+    """Print a graphed run's graphs, replays, eager steps and signatures;
+    fail unless it captured graphs and every signature of `want` ({side:
+    names})."""
+    g, sig = res["graphs"], signatures(eng)
+    log(f"{name}: graphs {g['graphs']}, replays {g['replays']}, eager "
+        f"steps {g['eager_steps']}, signatures {sig}, pools "
+        f"{g['pool_mib']:.1f} MiB")
+    missing = {s: sorted(set(n) - set(sig[s])) for s, n in want.items()}
+    fail_if(g["graphs"] == 0 or g["replays"] == 0
+            or any(missing.values()),
+            f"{name}: not graphed: {g['graphs']} graphs, signatures "
+            f"{sig}, missing {missing}")
+    return sig
+
+
+def sync_check_runner(graphs):
+    """A runner like `graphs` with capture off (an eager run) whose second
+    iteration of each signature (the one a graphed run captures; the
+    first is its warm-up, which makes the constants) runs under
+    torch.cuda.set_sync_debug_mode("error"): a host read inside a step,
+    which a capture would refuse, raises there naming its op.  Its
+    `checked` lists the signatures so checked."""
+    import torch
+
+    from nice_slam_torch.graphs import StepGraphs
+
+    class SyncChecked(StepGraphs):
+        def step(self, key, fn, generators=()):
+            if key is None or key in self.checked:
+                return super().step(key, fn, generators)
+            if key not in self.seen:
+                self.seen.append(key)
+                return super().step(key, fn, generators)
+            self.checked.append(key)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return super().step(key, fn, generators)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    out = SyncChecked(graphs.device, capture=False,
+                      max_iters=graphs.max_iters)
+    out.seen, out.checked = [], []
+    return out
 
 
 class RunCounters:
@@ -793,6 +873,9 @@ def _drive(torch, fd, eng, log, name, n_frames, first_frame=0):
         eng.dataset[i]   # the dataset renders frames on the host
     _release(torch)
     torch.cuda.reset_peak_memory_stats()
+    # what is still allocated when the run starts (this engine's state and
+    # what earlier phases hold): part of the peak, not of the run
+    held = torch.cuda.memory_allocated() / 2**20
     fd.reset_launch_counts()
     t0 = time.perf_counter()
     eng.run(n_frames)
@@ -804,6 +887,7 @@ def _drive(torch, fd, eng, log, name, n_frames, first_frame=0):
            "frames_per_s": (n_frames - first_frame) / wall,
            "ate_rmse_m": eng.ate()["rmse"],
            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "held_mib": held,
            "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
            "events": events, "timings": dict(eng.timings),
            "graphs": graph_info(eng)}
@@ -880,16 +964,65 @@ def run_resume(torch, fd, log, cfg, n_frames):
     return res
 
 
-def run_imap(torch, fd, log, n_frames=5):
-    from nice_slam_torch.config import load_config
+# The paths of phases 9, 12, 13 and 20 (load_config's nice, frames,
+# overrides of the synthetic config), and the depth phase 24 cuts them to
+# (frames, overrides): iMAP*'s first event keeps more than 200
+# iterations, so StepLR's first step falls inside one call.
+PATHS = {
+    "imap": (False, 5, {"scale": 1.0}),
+    "gn": (True, 13, {"mapping": {"every_frame": 2, "keyframe_every": 2,
+                                  "pose_GN_iters": 2},
+                      "tracking": {"pose_GN_iters": 2}}),
+    "occ": (True, 11, {"rendering": {"occupancy_guided": True}}),
+    "vis": (True, 11, {"tracking": {"vis_freq": 5, "vis_inside_freq": 25},
+                       "mapping": {"vis_freq": 5, "vis_inside_freq": 25}}),
+}
+REDUCED = {
+    "imap": (4, {"mapping": {"iters_first": 210, "iters": 30},
+                 "tracking": {"iters": 10}}),
+    "gn": (13, {"mapping": {"iters": 15, "iters_first": 30},
+                "tracking": {"iters": 5}}),
+    "occ": (6, {"mapping": {"iters": 15, "iters_first": 30},
+                "tracking": {"iters": 5}}),
+}
+# the signatures each path's graphed run must capture, by side
+PATH_SIGS = {
+    "imap": {"track": ["track", "init_select"],
+             "map": ["middle", "fine", "color"]},
+    "gn": {"track": ["track", "init_select", "gn"],
+           "map": ["middle", "fine", "color", "coarse", "gn"]},
+    "occ": {"track": ["track", "init_select"],
+            "map": ["middle", "fine", "color", "coarse"]},
+    "vis": {"track": ["track", "init_select"],
+            "map": ["middle", "fine", "color", "coarse"]},
+}
+
+
+def path_cfg(name: str, reduced: bool = False, tag: str = ""):
+    """(config, frames) of a path at its phase's depth or reduced; its
+    output under output/chip_smoke_<name>[_reduced][_<tag>]."""
+    from nice_slam_torch.config import load_config, update_recursive
+
+    nice, n_frames, over = PATHS[name]
+    over = json.loads(json.dumps(over))
+    if reduced:
+        n_frames, cut = REDUCED[name]
+        update_recursive(over, json.loads(json.dumps(cut)))
+    sub = "_".join(x for x in (f"chip_smoke_{name}",
+                               "reduced" if reduced else "", tag) if x)
+    over.update(synthetic={"n_frames": n_frames},
+                data={"output": os.path.join(REPO, "output", sub)})
+    return load_config(SYN_CFG, nice=nice, overrides=over), n_frames
+
+
+def run_imap(torch, fd, log):
     from nice_slam_torch.engine import SlamEngine
 
-    cfg = load_config(SYN_CFG, nice=False, overrides={
-        "scale": 1.0, "synthetic": {"n_frames": n_frames},
-        "data": {"output": os.path.join(REPO, "output",
-                                        "chip_smoke_imap")}})
+    cfg, n_frames = path_cfg("imap")
     eng = SlamEngine(cfg, device="cuda")
     res = _drive(torch, fd, eng, log, "imap", n_frames)
+    res["signatures"] = check_graphed(log, "imap", eng, res,
+                                      PATH_SIGS["imap"])
     fail_if(res["k1"] != 0 or res["k2"] != 0,
             f"imap: the fused decode launched ({res['k1']}, {res['k2']})")
     fail_if(eng.frames_done != n_frames, "imap: frames_done")
@@ -1068,9 +1201,7 @@ def run_reduced(torch, fd, log, n_frames=13):
         want_ba = ba_events(cfg, n_frames, events)
         fail_if(sorted(set(ba)) != want_ba,
                 f"{name}: BA at {sorted(set(ba))}, schedule {want_ba}")
-        sig = {side: sorted(str(k[2]) if side == "map" else "track"
-                            for k in getattr(eng, f"_{side}_graphs")._graphs)
-               for side in ("track", "map")}
+        sig = signatures(eng)
         runs.append((res, run_digest(eng), sig))
         del eng
     (g, d_g, sig), (e, d_e, _) = runs
@@ -1199,22 +1330,47 @@ def check_gn_system(torch, fd, args, log):
     return max(eh, eb)
 
 
-def run_gn(torch, fd, log, n_frames=13):
-    """Phase 12: strict, GN in tracking and mapping, BA on from event 10."""
-    from nice_slam_torch.config import load_config
+def gn_schedule(cfg, n_frames: int) -> dict:
+    """The launches of a strict GN + BA run: the base schedule plus GN's
+    (`gn_launches`) at the BA events."""
+    m = cfg["mapping"]
+    events = map_events(n_frames, m["every_frame"], 0)
+    want_ba = ba_events(cfg, n_frames, events)
+    base_f, base_b, base_k = expected_launches(cfg, n_frames, events=events)
+    gn_f, gn_b, gn_k = gn_launches(cfg, n_frames, range(1, n_frames),
+                                   want_ba)
+    return {"k1": base_f + gn_f, "k2": base_b + gn_b, "gn_k1": gn_f,
+            "gn_k2": gn_b, "k1_by_kind": _merge_kinds(base_k, gn_k),
+            "ba_events": want_ba}
+
+
+def occ_schedule(cfg, n_frames: int, nodes: int) -> dict:
+    """The launches of a strict occupancy-guided run: the base schedule
+    plus one K1 at the proxy's nodes (fine) per refresh, one a NICE
+    mapping pass (the colour refinement has five)."""
+    m = cfg["mapping"]
+    events = map_events(n_frames, m["every_frame"], 0)
+    passes = sum(5 if i == n_frames - 1 and m["color_refine"] else 1
+                 for i in events)
+    base_f, base_b, base_k = expected_launches(cfg, n_frames, events=events)
+    return {"k1": base_f + passes, "k2": base_b, "refreshes": passes,
+            "k1_by_kind": _merge_kinds(base_k, {f"fine n={nodes}": passes})}
+
+
+def run_gn(torch, fd, log):
+    """Phase 12: strict, GN in tracking and mapping, BA on from event 10.
+    Each GN iteration is a replayed graph: its time is read around the
+    runner's step (synchronised), its accept flags from the runner's
+    buffer."""
     from nice_slam_torch.engine import SlamEngine
     from nice_slam_torch.parallel import schur_ba
 
-    cfg = load_config(SYN_CFG, overrides={
-        "synthetic": {"n_frames": n_frames},
-        "mapping": {"every_frame": 2, "keyframe_every": 2,
-                    "pose_GN_iters": 2},
-        "tracking": {"pose_GN_iters": 2},
-        "data": {"output": os.path.join(REPO, "output", "chip_smoke_gn")}})
+    cfg, n_frames = path_cfg("gn")
     eng = SlamEngine(cfg, device="cuda")
-    ba_calls, gn = [], []
+    ba_calls, gn, cur = [], [], {}
     check = {}
     orig_map, orig_iter = eng._map, schur_ba.gn_iteration
+    orig_refine = schur_ba.schur_pose_refine
 
     def _map(idx, color, depth, mapspec, *a, **k):
         if not mapspec.coarse_mapper:
@@ -1222,38 +1378,56 @@ def run_gn(torch, fd, log, n_frames=13):
         return orig_map(idx, color, depth, mapspec, *a, **k)
 
     def gn_iteration(*a, **k):
+        # the first call is the first tracked frame's eager warm-up
         if not check:
             t0 = time.perf_counter()
             check["err"] = check_gn_system(torch, fd, a, log)
             check["s"] = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig_iter(*a, **k)
-        torch.cuda.synchronize()
-        gn.append({"wn": int(a[4].shape[0]), "s": time.perf_counter() - t0,
-                   "accepted": int(out[2].sum()),
-                   "live": int((a[5] > 0).sum())})
-        return out
+        return orig_iter(*a, **k)
+
+    def schur_pose_refine(*a, **k):
+        cams, mask = a[4], a[5]
+        cur.update(wn=int(cams.shape[0]), live=int((mask > 0).sum()),
+                   acc=("gn_accept", cams.shape[0], cams.device))
+        return orig_refine(*a, **k)
+
+    def timed(runner):
+        orig_step = runner.step
+
+        def step(key, fn, generators=()):
+            if key is None or key[0] != "gn":
+                return orig_step(key, fn, generators)
+            torch.cuda.synchronize()
+            s0 = check.get("s", 0.0)
+            t0 = time.perf_counter()
+            orig_step(key, fn, generators)
+            torch.cuda.synchronize()
+            gn.append({"wn": cur["wn"], "live": cur["live"],
+                       "s": time.perf_counter() - t0
+                       - (check.get("s", 0.0) - s0),
+                       "accepted": int(runner._buffers[cur["acc"]].sum())})
+
+        runner.step = step
 
     eng._map = _map
+    timed(eng._track_graphs)
+    timed(eng._map_graphs)
     schur_ba.gn_iteration = gn_iteration
+    schur_ba.schur_pose_refine = schur_pose_refine
     try:
         res = _drive(torch, fd, eng, log, "gn", n_frames)
     finally:
         schur_ba.gn_iteration = orig_iter
+        schur_ba.schur_pose_refine = orig_refine
+    res["signatures"] = check_graphed(log, "gn", eng, res, PATH_SIGS["gn"])
     kinds_f, kinds_b = fd.fwd_launch_kinds(), fd.bwd_launch_kinds()
     res.update({"k1_by_kind": kinds_f, "k2_by_kind": kinds_b})
     # the H/b check ran inside the first tracked frame: not the path's time
     res["wall_s"] -= check["s"]
     res["frames_per_s"] = res["frames"] / res["wall_s"]
     m = cfg["mapping"]
-    events = map_events(n_frames, m["every_frame"], 0)
-    want_ba = ba_events(cfg, n_frames, events)
+    want = gn_schedule(cfg, n_frames)
     got_ba = sorted({i for i, b in ba_calls if b})
-    tracked = range(1, n_frames)
-    base_f, base_b, base_k = expected_launches(cfg, n_frames, events=events)
-    gn_f, gn_b, gn_k = gn_launches(cfg, n_frames, tracked, want_ba)
-    want_k = _merge_kinds(base_k, gn_k)
     gn_track = sum(g["s"] for g in gn if g["wn"] == 1)
     gn_map = sum(g["s"] for g in gn if g["wn"] > 1)
     timings = res["timings"]
@@ -1266,21 +1440,23 @@ def run_gn(torch, fd, log, n_frames=13):
         "gn_share_of_track": gn_track / (timings["track"] - check["s"]),
         "gn_share_of_map": gn_map / timings["map"],
         "hb_rel_err": check["err"],
-        "schedule": {"k1": base_f + gn_f, "k2": base_b + gn_b,
-                     "gn_k1": gn_f, "gn_k2": gn_b}})
-    log(f"gn: BA at events {got_ba} (schedule {want_ba}), "
+        "schedule": {k: want[k] for k in ("k1", "k2", "gn_k1", "gn_k2")}})
+    log(f"gn: BA at events {got_ba} (schedule {want['ba_events']}), "
         f"{res['ba_passes']} BA passes; GN iterations "
         f"{res['gn_iterations']}, accepted share "
         f"{res['gn_accepted_share']:.4f}, share of track time "
         f"{res['gn_share_of_track']:.4f}, of map time "
         f"{res['gn_share_of_map']:.4f}; launches K1 {res['k1']} = "
-        f"{base_f} + GN {gn_f}, K2 {res['k2']} = {base_b} + GN {gn_b} "
+        f"{want['k1'] - want['gn_k1']} + GN {want['gn_k1']}, K2 "
+        f"{res['k2']} = {want['k2'] - want['gn_k2']} + GN {want['gn_k2']} "
         f"(GN: per iteration K1 x2, K2 x1); K1 by kind {kinds_f} (schedule "
-        f"{want_k}); K2 by kind {kinds_b}; wall without the check "
-        f"{res['wall_s']:.3f} s")
-    fail_if(got_ba != want_ba, f"gn: BA at {got_ba}, schedule {want_ba}")
-    fail_if((res["k1"], res["k2"]) != (base_f + gn_f, base_b + gn_b)
-            or kinds_f != want_k, "gn: launches differ from the schedule")
+        f"{want['k1_by_kind']}); K2 by kind {kinds_b}; wall without the "
+        f"check {res['wall_s']:.3f} s")
+    fail_if(got_ba != want["ba_events"],
+            f"gn: BA at {got_ba}, schedule {want['ba_events']}")
+    fail_if((res["k1"], res["k2"], kinds_f)
+            != (want["k1"], want["k2"], want["k1_by_kind"]),
+            "gn: launches differ from the schedule")
     r = cfg["rendering"]
     refine_n = (2 * m["mapping_window_size"] * m.get("pose_GN_pixels", 200)
                 * (r["N_samples"] + r["N_surface"]))
@@ -1293,16 +1469,12 @@ def run_gn(torch, fd, log, n_frames=13):
     return res
 
 
-def run_occ(torch, fd, log, strict_ate, n_frames=11):
+def run_occ(torch, fd, log, strict_ate):
     """Phase 13: strict, occupancy-guided sampling."""
     from nice_slam_torch import mapping
-    from nice_slam_torch.config import load_config
     from nice_slam_torch.engine import SlamEngine
 
-    cfg = load_config(SYN_CFG, overrides={
-        "synthetic": {"n_frames": n_frames},
-        "rendering": {"occupancy_guided": True},
-        "data": {"output": os.path.join(REPO, "output", "chip_smoke_occ")}})
+    cfg, n_frames = path_cfg("occ")
     eng = SlamEngine(cfg, device="cuda")
     shape = tuple(eng.map_state.grids["occ_proxy"].shape[:3])
     nodes = shape[0] * shape[1] * shape[2]
@@ -1319,26 +1491,24 @@ def run_occ(torch, fd, log, strict_ate, n_frames=11):
         res = _drive(torch, fd, eng, log, "occ", n_frames)
     finally:
         mapping.refresh_occ_proxy = orig
+    res["signatures"] = check_graphed(log, "occ", eng, res,
+                                      PATH_SIGS["occ"])
     kinds = fd.fwd_launch_kinds()
     res.update({"k1_by_kind": kinds, "k2_by_kind": fd.bwd_launch_kinds()})
-    m = cfg["mapping"]
-    events = map_events(n_frames, m["every_frame"], 0)
-    # one refresh per NICE mapping pass: the colour refinement has five
-    passes = sum(5 if i == n_frames - 1 and m["color_refine"] else 1
-                 for i in events)
-    base_f, base_b, base_k = expected_launches(cfg, n_frames, events=events)
-    want_k = _merge_kinds(base_k, {f"fine n={nodes}": passes})
+    want = occ_schedule(cfg, n_frames, nodes)
+    passes = want["refreshes"]
     res.update({"proxy_shape": list(shape), "refreshes": len(refreshed),
                 "proxy_min_after_each": refreshed,
                 "strict_ate_rmse_m": strict_ate})
     log(f"occ: proxy {shape} ({nodes} nodes), {len(refreshed)} refreshes "
         f"(schedule {passes}), min after each {refreshed}; K1 by kind "
-        f"{kinds} (schedule {want_k}); ATE {res['ate_rmse_m']} m against "
-        f"strict {strict_ate} m")
+        f"{kinds} (schedule {want['k1_by_kind']}); ATE {res['ate_rmse_m']} "
+        f"m against strict {strict_ate} m")
     fail_if(len(refreshed) != passes or not refreshed[0] < 0.5,
             "occ: the proxy was not refreshed as scheduled")
-    fail_if((res["k1"], res["k2"]) != (base_f + passes, base_b)
-            or kinds != want_k, "occ: launches differ from the schedule")
+    fail_if((res["k1"], res["k2"], kinds)
+            != (want["k1"], want["k2"], want["k1_by_kind"]),
+            "occ: launches differ from the schedule")
     ate = res["ate_rmse_m"]
     fail_if(not math.isfinite(ate) or ate > 0.3,
             f"occ: ATE {ate} not finite or above 0.3 m")
@@ -1352,6 +1522,73 @@ def run_occ(torch, fd, log, strict_ate, n_frames=11):
     log(f"occ: save/load: {len(eng.map_state.grids)} grids bit-equal, "
         "occ_proxy among them")
     return res
+
+
+def run_reduced_modes(torch, fd, log):
+    """Phase 24: iMAP*, occupancy-guided and GN + BA at full width and
+    reduced depth (REDUCED), eager (each signature's second iteration,
+    the one a graphed run captures, under sync-debug "error": the sweep
+    for host reads), then graphed: bit-equal, launches the schedule's in
+    both, and the sweep must have covered every signature the graphed
+    run captured."""
+    from nice_slam_torch.engine import SlamEngine
+
+    out = {}
+    for name in ("imap", "occ", "gn"):
+        runs = []
+        for graphed in (False, True):
+            tag = "graphed" if graphed else "eager"
+            cfg, n_frames = path_cfg(name, reduced=True, tag=tag)
+            eng = SlamEngine(cfg, device="cuda")
+            if not graphed:
+                eng._track_graphs = sync_check_runner(eng._track_graphs)
+                eng._map_graphs = sync_check_runner(eng._map_graphs)
+            label = f"{name} reduced ({tag})"
+            res = _drive(torch, fd, eng, log, label, n_frames)
+            if name == "imap":
+                want = {"k1": 0, "k2": 0}
+            elif name == "gn":
+                want = gn_schedule(cfg, n_frames)
+            else:
+                g = eng.map_state.grids["occ_proxy"]
+                want = occ_schedule(cfg, n_frames, math.prod(g.shape[:3]))
+            kinds = fd.fwd_launch_kinds()
+            fail_if((res["k1"], res["k2"]) != (want["k1"], want["k2"])
+                    or kinds != want.get("k1_by_kind", {}),
+                    f"{label}: launches K1 {res['k1']} {kinds} K2 "
+                    f"{res['k2']}, schedule {want}")
+            ate = res["ate_rmse_m"]
+            fail_if(not math.isfinite(ate), f"{label}: ATE {ate}")
+            if graphed:
+                res["signatures"] = check_graphed(log, label, eng, res,
+                                                  PATH_SIGS[name])
+            else:
+                res["sync_checked"] = sorted(
+                    {k[2] if k[0] == "map" else k[0]
+                     for r in (eng._track_graphs, eng._map_graphs)
+                     for k in r.checked})
+                fail_if(res["graphs"]["replays"] != 0,
+                        f"{label}: graph replays in the eager run")
+            runs.append((res, run_digest(eng)))
+            del eng
+        (e, d_e), (g, d_g) = runs
+        log(f"{name} reduced: walls graphed {g['wall_s']:.3f} s, eager "
+            f"{e['wall_s']:.3f} s (eager / graphed "
+            f"{e['wall_s'] / g['wall_s']:.4f}); signatures "
+            f"{g['signatures']}; sync-debug \"error\" over the second "
+            f"eager iteration of {e['sync_checked']}: no host read; "
+            f"bit-equal: {d_g == d_e}")
+        fail_if(set(e["sync_checked"]) != {n for side in g["signatures"]
+                                          .values() for n in side},
+                f"{name} reduced: sync-debug checked {e['sync_checked']}, "
+                f"graphed {g['signatures']}")
+        fail_if(d_g != d_e, f"{name} reduced: the graphed and eager runs "
+                "differ in trajectory, decoders, grids, keyframes or "
+                "tracking losses")
+        out[name] = {**g, "path": f"{name}_reduced",
+                     "eager_wall_s": e["wall_s"],
+                     "sync_checked": e["sync_checked"]}
+    return out
 
 
 def _reference_state(dec: dict, prefix: str) -> dict:
@@ -2295,10 +2532,6 @@ def run_recon(log, mesh_path, ckpt_path, cam, n_views=50,
 # ---------------------------------------------------------------------------
 # Phase 20: visualiser and replay
 
-VIS_CFG = {"tracking": {"vis_freq": 5, "vis_inside_freq": 25},
-           "mapping": {"vis_freq": 5, "vis_inside_freq": 25}}
-
-
 def state_digest(eng) -> str:
     """sha256 of the trajectory, the decoders and the grids."""
     import hashlib
@@ -2442,21 +2675,18 @@ def run_replay(log, main_ref):
     return res
 
 
-def run_vis(torch, fd, log, main_ref, n_frames=11):
+def run_vis(torch, fd, log, main_ref):
     """Phase 20: the main path's run with per-iteration panels, against
     phase 3's state; the panels through K1 against the plain decode; the
     replay of phase 3's run."""
     import numpy as np
 
-    from nice_slam_torch.config import load_config
     from nice_slam_torch.engine import SlamEngine
     from nice_slam_torch.ops.tree import tree_map
     from nice_slam_torch.utils.visualizer import have_matplotlib, load_panel
 
-    out = os.path.join(REPO, "output", "chip_smoke_vis")
-    cfg = load_config(SYN_CFG, overrides={
-        **VIS_CFG, "synthetic": {"n_frames": n_frames},
-        "data": {"output": out}})
+    cfg, n_frames = path_cfg("vis")
+    out = cfg["data"]["output"]
 
     eng = SlamEngine(cfg, device="cuda").enable_visualizer()
     want_t, want_m = vis_schedule(cfg, n_frames)
@@ -2523,6 +2753,8 @@ def run_vis(torch, fd, log, main_ref, n_frames=11):
            "matplotlib": mpl, "files": names, "fault3": rc.result,
            "timings": dict(eng.timings), "graphs": graph_info(eng)}
     log("vis: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    res["signatures"] = check_graphed(log, "vis", eng, res,
+                                      PATH_SIGS["vis"])
     fail_if(names["tracking_vis"] != sorted(n + e for n in want_t
                                            for e in exts)
             or names["mapping_vis"] != sorted(n + e for n in want_m
@@ -2980,6 +3212,7 @@ def main() -> int:
     imap = run_imap(torch, fd, log)
     repeat = run_repeat(torch, fd, log)
     reduced = run_reduced(torch, fd, log)
+    modes = run_reduced_modes(torch, fd, log)
     gn = run_gn(torch, fd, log)
     occ = run_occ(torch, fd, log, strict_ate)
     pre = run_pretrain(torch, fd, log, dev)
@@ -3006,8 +3239,9 @@ def main() -> int:
     scannet = run_dataset(torch, fd, log, "scannet", SCENE0000_CFG,
                           write_scannet_fixture)
     by_path = {r["path"]: r for r in (loose, free, resumed, imap, mesh,
-                                      repeat, reduced, gn, occ, pre, dp,
-                                      pipe, gs, vis, replica, scannet)}
+                                      repeat, reduced, *modes.values(), gn,
+                                      occ, pre, dp, pipe, gs, vis, replica,
+                                      scannet)}
     # K1 at the panels' shapes against the plain version
     vis_kinds = sorted(k for k in vis["k1_by_kind"]
                        if k not in fwd_kinds)

@@ -56,14 +56,16 @@ bit.  Their render time counts under the stage 'vis', not 'track' or
 'map'.
 
 CUDA graphs.  On a card each optimiser iteration of tracking and of the
-dense NICE mapper is a captured CUDA graph replayed `iters` times
-(graphs.py: one runner a side, `_track_graphs` and `_map_graphs`), the
-counterpart of the JAX package's jitted `lax.scan` bodies.  The tracker
-reads its own copy of the map (`_params_t`, `_grids_t`, `_bound_t`), at
-addresses that do not move, refreshed when the map changes.  The eager
-paths, chosen by mode: iMAP*, occupancy-guided sampling, the
-Gauss-Newton polish, the visualiser panels, and data-parallel and
-grid-sharded mapping.  `graph_stats()` reads the runners.
+dense mapper is a captured CUDA graph replayed `iters` times (graphs.py:
+one runner a side, `_track_graphs` and `_map_graphs`), the counterpart
+of the JAX package's jitted `lax.scan` bodies, in NICE and iMAP* mode,
+with occupancy-guided sampling and with the panels; so are init_select's
+candidate renders and each Gauss-Newton iteration of tracking and BA.
+The tracker reads its own copy of the map (`_params_t`, `_grids_t`,
+`_bound_t`, the occupancy proxy among the grids), at addresses that do
+not move, refreshed in place when the map changes.  Only data-parallel
+and grid-sharded mapping (a gloo all_reduce inside the step) run their
+mapping steps eagerly.  `graph_stats()` reads the runners.
 
 The JAX package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
 barrier_every_groups, prefetch, fuse_track_map) and tpu.mesh_shape

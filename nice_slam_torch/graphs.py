@@ -1,7 +1,14 @@
 """CUDA graphs of the optimiser iterations: the port's counterpart of the
 JAX package's jitted `lax.scan` bodies (nice_slam_tpu/tracking.py:164-212,
 nice_slam_tpu/mapping.py:444-471), which compile one optimiser iteration
-once and replay it as one program.
+once and replay it as one program.  Every step that runs on one card is
+graphed, in every mode (NICE, iMAP*, occupancy-guided sampling, with the
+panels): the tracking iteration ("track"), init_select's candidate
+renders ("init_select"), each Gauss-Newton iteration of tracking and BA
+("gn") and each mapping stage's iteration ("map").  Only the
+data-parallel mapping step, whose gloo all_reduce a capture cannot hold,
+passes no key and runs eagerly (grid-sharded mapping has a loop of its
+own and no runner).
 
 `StepGraphs` keeps, for each *signature* of a step, a captured
 `torch.cuda.CUDAGraph` of one iteration.  A signature's key holds every
@@ -68,8 +75,7 @@ class StepGraphs:
 
     `buffers(key, make)` caches a step's static buffers (made once by
     `make()`).  `step(key, fn, generators)` runs one iteration `fn()` of
-    the signature `key` (None: eagerly, the static choice of the paths
-    that are not graphed).  `max_iters` sizes the step counters' tables
+    the signature `key` (None: eagerly, the data-parallel step).  `max_iters` sizes the step counters' tables
     and loss records of the buffers made through this runner (at least the
     iterations of one optimisation call)."""
 

@@ -35,10 +35,12 @@ masks into static buffers at the start of a call and out at its end;
 every iteration updates them in place (Adam's moments and step counter
 too), so on a card each stage's iteration is a CUDA graph (graphs.py)
 replayed for the stage's iterations: the counterpart of the JAX
-package's three `lax.scan`s (nice_slam_tpu/mapping.py:444-471).  iMAP*,
-occupancy-guided sampling, the panels' `on_iter`, given `pixels` and the
-data-parallel `shard` run the same step eagerly, and the Gauss-Newton
-polish runs eagerly after the staged Adam.
+package's three `lax.scan`s (nice_slam_tpu/mapping.py:444-471), in
+every mode: iMAP* reads its StepLR rate from a device table at the step
+counter, the occupancy proxy is one of the static grids, and each
+Gauss-Newton iteration after the staged Adam is a step of its own.  Only
+the data-parallel `shard` (a gloo all_reduce inside the step) and given
+`pixels` run the same step eagerly.
 """
 
 from __future__ import annotations
@@ -312,7 +314,9 @@ def mapping_loss(tree, window, bound, camera: Camera, stage: str,
         sigma = regulation_sigma(params, mspec, grids, bound, rays_o, rays_d,
                                  gt_d, rspec.n_samples, stage, gen=gen,
                                  u=reg_u)
-        sig_m = torch.repeat_interleave(m, rspec.n_samples)
+        # m repeated n_samples times each, without repeat_interleave's
+        # read of the output size from the device
+        sig_m = m[:, None].expand(-1, rspec.n_samples).reshape(-1)
         loss = loss + 0.0005 * torch.sum(torch.abs(sigma) * sig_m)
     return loss
 
@@ -392,6 +396,15 @@ def imap_lr_scale(step: int) -> float:
     return 0.8 ** (step // 200)
 
 
+def imap_lr_table(lr: float, n: int, device) -> torch.Tensor:
+    """(n,) float32: the decoder learning rate at Adam steps 0..n-1,
+    float32(lr * imap_lr_scale(k)) taken in double: the value that a
+    multiply by the host scalar lr * scale rounds it to.  The JAX package
+    takes 0.8 ** k in float32 (nice_slam_tpu/mapping.py:462)."""
+    return torch.tensor([lr * imap_lr_scale(k) for k in range(n)],
+                        dtype=torch.float64).to(torch.float32).to(device)
+
+
 # ---------------------------------------------------------------------------
 # The mapping optimisation
 
@@ -430,14 +443,6 @@ def _map_buffers(graphs: StepGraphs, params, grids, window, n_iters: int):
     return key, graphs.buffers(key, make)
 
 
-def graph_mapping(mapspec: MapSpec, rspec: RenderSpec) -> bool:
-    """Whether mapping iterations are CUDA graphs (on a card): NICE mode
-    without occupancy-guided sampling.  iMAP* (its StepLR scale and
-    regulation term) and the proxy's sampling run the same step eagerly
-    (ROADMAP's queue of eager paths)."""
-    return mapspec.nice and not rspec.occ_guided
-
-
 def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                  lr_factor: float, camera: Camera, stage_iters,
                  mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
@@ -461,13 +466,14 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
 
     `on_iter(it, tree)`, when given, is called before the step of every
     iteration `it` (counted over the stages from 0) with the current
-    {"params", "grids", "cams"}: the per-iteration mapping panels
-    (utils/visualizer.py).  It must change nothing and draw nothing from
-    `gen`, so a run with it equals one without, bit for bit.
+    {"params", "grids", "cams"} (the static buffers, between two
+    replays): the per-iteration mapping panels (utils/visualizer.py).  It
+    must change nothing and draw nothing from `gen`, so a run with it
+    equals one without, bit for bit.
 
     `graphs` (the engine's mapping runner) replays each stage's iteration
-    as a captured CUDA graph on a card (not with `pixels`, `shard` or
-    `on_iter`, nor where `graph_mapping` says no); without it the loop
+    (not with `pixels` or `shard`) and each Gauss-Newton iteration (not
+    with `shard`) as a captured CUDA graph on a card; without it the loop
     runs eagerly.
 
     Returns (params, grids, cams, losses (n_iters,)): new tensors."""
@@ -491,10 +497,17 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
         b.cam_lr_mask.copy_(cam_lr_mask)
         b.bound.copy_(bound)
     wn = window["colors"].shape[0]
-    graphed = (graph_mapping(mapspec, rspec) and pixels is None
-               and shard is None and on_iter is None)
+    graphed = pixels is None and shard is None
+    # iMAP*'s StepLR rate at each step (the data-parallel step takes none)
+    imap_lr = None
+    if not mapspec.nice and shard is None:
+        cap = max(n_iters, graphs.max_iters)
+        imap_lr = graphs.buffers(
+            ("imap_lr", cap, mapspec.imap_decoders_lr, b.step.device),
+            lambda: imap_lr_table(mapspec.imap_decoders_lr, cap,
+                                  b.step.device))
 
-    def step(stage, rspec_stage, it_all, pix):
+    def step(stage, rspec_stage, pix):
         lr_tree, frozen = _lr_tree(b.tree, stage, mapspec, lr_factor,
                                    b.cam_lr_mask)
         tr = tree_map(lambda x, f: x if f else
@@ -527,10 +540,11 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                                 for x in tree_leaves(g) if x is not None))
             scale = torch.clamp(mapspec.grad_clip / (gn + 1e-12), max=1.0)
             g = tree_map(lambda x: None if x is None else x * scale, g)
-        if not mapspec.nice and shard is None:
-            scale = imap_lr_scale(it_all)
+        if imap_lr is not None:
+            # read at the step counter before adam_step_ advances it
+            lr = imap_lr.index_select(0, b.step.view(1))[0]
             lr_tree = {**lr_tree, "params": tree_map(
-                lambda lr: lr * scale, lr_tree["params"])}
+                lambda _: lr, lr_tree["params"])}
         with torch.no_grad():
             b.losses.index_copy_(0, b.step.view(1), loss.detach().view(1))
             adam_step_(b.tree, g, b.m, b.v, b.step, b.tables, lr_tree,
@@ -547,19 +561,21 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
             if on_iter is not None:
                 on_iter(it_all, b.tree)
             pix = None if pixels is None else pixels[it_all]
-            graphs.step(key, lambda st=stage, rs=rspec_stage, it=it_all,
-                        pix=pix: step(st, rs, it, pix), (gen,))
+            graphs.step(key, lambda st=stage, rs=rspec_stage,
+                        pix=pix: step(st, rs, pix), (gen,))
             it_all += 1
+    cams = b.tree["cams"].clone()
+    if ba and mapspec.pose_gn_iters > 0 and mapspec.nice:
+        # on the static buffers with the map frozen
+        cams = schur_ba.schur_pose_refine(
+            b.tree["params"], b.tree["grids"], b.bound, b.window, cams,
+            b.cam_lr_mask, camera,
+            dataclasses.replace(rspec, train_decoders=False), mspec,
+            mapspec.pose_gn_iters, mapspec.pose_gn_pixels,
+            mapspec.pose_gn_damping, gen=gen, shard=shard, graphs=graphs)
     out = b.losses[:n_iters].clone()
     params = tree_map(torch.clone, b.tree["params"])
     grids = {n: g.clone() for n, g in b.tree["grids"].items()}
-    cams = b.tree["cams"].clone()
-    if ba and mapspec.pose_gn_iters > 0 and mapspec.nice:
-        cams = schur_ba.schur_pose_refine(
-            params, grids, bound, window, cams, cam_lr_mask, camera,
-            dataclasses.replace(rspec, train_decoders=False), mspec,
-            mapspec.pose_gn_iters, mapspec.pose_gn_pixels,
-            mapspec.pose_gn_damping, gen=gen, shard=shard)
     return params, grids, cams, out
 
 

@@ -63,10 +63,11 @@ def eval_points(params, mspec: ModelSpec, grids, bound, p: torch.Tensor,
 
 def _zvals(rays_o, rays_d, gt_depth, bound, rspec: RenderSpec,
            with_depth: bool, gen: Optional[torch.Generator] = None,
-           occ_proxy=None, max_depth=None):
+           occ_proxy=None, max_depth=None, u=None):
     """Sample depths along each ray.  Returns (N, S) sorted z values.
     max_depth: the sensor depth that caps far and spans the depth-hole
-    samples, a scalar or (N, 1) (default the batch's max)."""
+    samples, a scalar or (N, 1) (default the batch's max); u: the
+    stratified jitter's uniforms (N, n_samples), else drawn from gen."""
     far_bb = ray_aabb_far(rays_o.detach(), rays_d.detach(),
                           bound)[:, None] + 0.01
     if with_depth:
@@ -88,7 +89,7 @@ def _zvals(rays_o, rays_d, gt_depth, bound, rspec: RenderSpec,
     else:
         z_vals = stratified_zvals(near, far, rspec.n_samples, rspec.lindisp)
     if rspec.perturb > 0.0:
-        z_vals = perturb_zvals(z_vals, gen)
+        z_vals = perturb_zvals(z_vals, gen, u)
     if with_depth and rspec.n_surface > 0:
         z_surf = surface_zvals(gt_depth, rspec.n_surface, max_d)
         z_vals, _ = torch.sort(torch.cat([z_vals, z_surf], dim=-1), dim=-1)
@@ -100,7 +101,7 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
                 rspec: RenderSpec, stage: str,
                 gt_depth: Optional[torch.Tensor] = None,
                 gen: Optional[torch.Generator] = None, max_depth=None,
-                decode_fn=None):
+                decode_fn=None, draws=None):
     """Render a batch of rays.
 
     gt_depth=None (e.g. the coarse mapper) disables surface sampling and
@@ -108,7 +109,9 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
     stratified jitter when rspec.perturb > 0, and the importance draws
     (det when perturb == 0).  max_depth (scalar or (N, 1)) replaces the
     batch's max sensor depth, so rays of several frames render in one
-    batch as each frame's alone would (parallel/schur_ba.py).
+    batch as each frame's alone would (parallel/schur_ba.py).  `draws`
+    (`render_draws`) gives the uniforms that the render would draw from
+    `gen`, so two renders can take the same ones.
 
     decode_fn: (M, 3) points -> raw (M, 4) in place of `eval_points`,
     with the out-of-AABB occupancy forcing (the grid-sharded decode,
@@ -126,8 +129,9 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
     occ_proxy = (grids.get("occ_proxy")
                  if (rspec.occ_guided and stage != "coarse"
                      and isinstance(grids, dict)) else None)
+    u, u_imp = draws if draws is not None else (None, None)
     z_vals = _zvals(rays_o, rays_d, gt_depth if with_depth else None, bound,
-                    rspec, with_depth, gen, occ_proxy, max_depth)
+                    rspec, with_depth, gen, occ_proxy, max_depth, u)
     pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     n, s, _ = pts.shape
     raw = decode_fn(pts.reshape(-1, 3))
@@ -136,13 +140,28 @@ def render_rays(params, mspec: ModelSpec, grids, bound,
         weights = out[3]
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
         z_imp = sample_pdf(z_mid, weights[..., 1:-1], rspec.n_importance,
-                           det=rspec.perturb == 0.0, gen=gen).detach()
+                           det=rspec.perturb == 0.0, gen=gen,
+                           u=u_imp).detach()
         z_vals, _ = torch.sort(torch.cat([z_vals, z_imp], dim=-1), dim=-1)
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
         raw = decode_fn(pts.reshape(-1, 3))
         out = raw2outputs(raw.reshape(n, s + rspec.n_importance, 4), z_vals,
                           rays_d, rspec.occupancy)
     return out
+
+
+def render_draws(gen: Optional[torch.Generator], n: int, rspec: RenderSpec,
+                 device):
+    """The uniforms that `render_rays` of n rays draws from `gen`, drawn
+    here in its order, as its `draws`: the stratified jitter (n,
+    n_samples) and the importance samples' (n, n_importance), each None
+    where that render draws nothing (perturb 0)."""
+    if rspec.perturb <= 0.0:
+        return None, None
+    u = torch.rand((n, rspec.n_samples), generator=gen, device=device)
+    u_imp = (torch.rand((n, rspec.n_importance), generator=gen,
+                        device=device) if rspec.n_importance > 0 else None)
+    return u, u_imp
 
 
 def regulation_sigma(params, mspec: ModelSpec, grids, bound, rays_o, rays_d,

@@ -8,12 +8,15 @@ per iteration).  With gn_iters > 0 the kept camera then takes that many
 guarded Gauss-Newton steps (parallel/schur_ba.py, a one-frame window).
 
 The loop's state (camera, Adam moments and step counter, the best camera
-and loss, the per-iteration losses, the frame) lives in static buffers
-that each iteration updates in place, so on a card one iteration is a
-CUDA graph (graphs.py) replayed `iters` times: the counterpart of the JAX
-package's one jitted `lax.scan` (nice_slam_tpu/tracking.py:164-212).
-iMAP* mode, occupancy-guided sampling and a frame that records its
-iterations' cameras for the panels run the same step eagerly.
+and loss, the per-iteration losses and pre-step cameras, the frame)
+lives in static buffers that each iteration updates in place, so on a
+card one iteration is a CUDA graph (graphs.py) replayed `iters` times:
+the counterpart of the JAX package's one jitted `lax.scan`
+(nice_slam_tpu/tracking.py:164-212), in every mode (NICE, iMAP*,
+occupancy-guided sampling, with or without the panels).  init_select's
+two candidate renders are one more step a frame, and each Gauss-Newton
+iteration another (`schur_ba.schur_pose_refine`), as the JAX package
+computes them inside the same jit (`_track_step_body`).
 """
 
 from __future__ import annotations
@@ -148,8 +151,10 @@ def _track_buffers(graphs: StepGraphs, tspec: TrackSpec, gt_color,
                    gt_depth):
     """The static buffers of the tracking loop (made once per runner and
     frame shape): camera, Adam moments and step counter, bias tables, best
-    camera and loss, the per-iteration losses, the learning rates and the
-    frame."""
+    camera and loss, the per-iteration losses and pre-step cameras, the
+    learning rates and the frame; init_select's two candidate poses and
+    the chosen initial camera; the Gauss-Newton polish's valid flag and
+    mask."""
     dev = gt_depth.device
     key = ("track", tuple(gt_color.shape), tuple(gt_depth.shape),
            tspec.iters, tspec.lr, tspec.seperate_lr, dev)
@@ -167,18 +172,19 @@ def _track_buffers(graphs: StepGraphs, tspec: TrackSpec, gt_color,
             step=torch.zeros((), dtype=torch.int64, device=dev),
             best_loss=torch.zeros((), device=dev),
             losses=torch.zeros(max(tspec.iters, 1), device=dev),
+            cams=torch.zeros(max(tspec.iters, 1), 7, device=dev),
             tables=bias_tables(tspec.iters, dev), lr=lr,
-            color=torch.empty_like(gt_color), depth=torch.empty_like(gt_depth))
+            color=torch.empty_like(gt_color), depth=torch.empty_like(gt_depth),
+            init_c2w=torch.zeros(4, 4, device=dev),
+            pre_c2w=torch.zeros(4, 4, device=dev), cam0=z.clone(),
+            gn_valid=torch.ones(1, dtype=torch.bool, device=dev),
+            gn_mask=torch.ones(1, device=dev))
 
     return key, graphs.buffers(key, make)
 
 
-def graph_tracking(tspec: TrackSpec, rspec: RenderSpec,
-                   mspec: ModelSpec) -> bool:
-    """Whether tracking iterations are CUDA graphs (on a card): NICE mode
-    without occupancy-guided sampling.  iMAP* and the proxy's sampling
-    run the same step eagerly (ROADMAP's queue of eager paths)."""
-    return mspec.nice and not rspec.occ_guided
+def _map_key(params, grids, bound) -> tuple:
+    return tensor_key(tree_leaves(params) + tree_leaves(grids) + [bound])
 
 
 def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
@@ -198,9 +204,9 @@ def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
     `graphs` (the engine's tracking runner) replays each iteration as a
     captured CUDA graph on a card; the map (params, grids, bound) must
     then stay where it is between frames (the engine's tracking copy):
-    the signature holds its addresses.  Without it the loop runs
-    eagerly.  A frame that records its cameras (return_cams, the panels)
-    runs eagerly too."""
+    the signature holds its addresses.  Every iteration records its
+    pre-step camera, so a frame with return_cams replays the same graph.
+    Without a runner the loop runs eagerly."""
     rspec = dataclasses.replace(rspec, train_decoders=False)
     graphs = graphs or StepGraphs(cam0.device, capture=False)
     bkey, b = _track_buffers(graphs, tspec, gt_color, gt_depth)
@@ -222,27 +228,22 @@ def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
         with torch.no_grad():
             loss = loss.detach()
             b.losses.index_copy_(0, b.step.view(1), loss.view(1))
+            b.cams.index_copy_(0, b.step.view(1), b.cam.view(1, 7))
             better = loss < b.best_loss
             adam_step_(b.cam, g, b.m, b.v, b.step, b.tables, b.lr)
             b.best_cam.copy_(torch.where(better, b.cam, b.best_cam))
             b.best_loss.copy_(torch.where(better, loss, b.best_loss))
 
-    key = None
-    if graph_tracking(tspec, rspec, mspec) and not return_cams:
-        key = ("track", bkey, tspec, rspec, mspec, camera, id(gen),
-               tensor_key(tree_leaves(params) + tree_leaves(grids)
-                          + [bound]))
-    cams = []
+    key = ("track", bkey, tspec, rspec, mspec, camera, id(gen),
+           _map_key(params, grids, bound))
     for _ in range(tspec.iters):
-        if return_cams:
-            cams.append(b.cam.clone())
         graphs.step(key, step, (gen,))
     best = b.best_loss.clone()
     res = (b.best_cam.clone(),
            b.losses[0].clone() if tspec.iters else best,
            b.losses[tspec.iters - 1].clone() if tspec.iters else best, best)
     if return_cams:
-        return res + (torch.stack(cams) if cams else cam0.new_zeros(0, 7),)
+        return res + (b.cams[:tspec.iters].clone(),)
     return res
 
 
@@ -263,8 +264,14 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
     write its pose there.  Returns the device tensor [first, last, best]
     of the tracking losses, and with return_cams also `track_frame`'s
     (iters, 7) pre-step cameras (the Gauss-Newton polish comes after
-    them).  `graphs`: see `track_frame` (the candidate renders of
-    init_select and the Gauss-Newton polish run eagerly)."""
+    them).  `graphs`: see `track_frame`; init_select's candidate renders
+    are one step of it (the signature "init_select") and each
+    Gauss-Newton iteration another ("gn")."""
+    graphs = graphs or StepGraphs(gt_depth.device, capture=False)
+    bkey, b = _track_buffers(graphs, tspec, gt_color, gt_depth)
+    with torch.no_grad():
+        b.color.copy_(gt_color)
+        b.depth.copy_(gt_depth)
     pre = est_c2w[idx - 1]
     init_c2w = pre
     if tspec.const_speed and idx >= 2:
@@ -273,34 +280,41 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
             # keep the extrapolation unless it renders catastrophically
             # worse than the previous pose on the same pixels (margin x,
             # the previous pose's median floored at 1 cm)
-            pix = _track_pixels(gen, tspec, camera)
             eval_rspec = dataclasses.replace(rspec, train_decoders=False)
-            med_cs = tracking_depth_median(
-                tensor_from_cam(init_c2w), params, grids, bound, gt_depth,
-                camera, tspec, eval_rspec, mspec, pix=pix)
-            med_pre = tracking_depth_median(
-                tensor_from_cam(pre), params, grids, bound, gt_depth,
-                camera, tspec, eval_rspec, mspec, pix=pix)
-            keep = med_cs <= tspec.init_select_margin * torch.clamp(
-                med_pre, min=0.01)
-            init_c2w = torch.where(keep, init_c2w, pre)
+            with torch.no_grad():
+                b.init_c2w.copy_(init_c2w)
+                b.pre_c2w.copy_(pre)
+
+            def select():
+                pix = _track_pixels(gen, tspec, camera)
+                med_cs = tracking_depth_median(
+                    tensor_from_cam(b.init_c2w), params, grids, bound,
+                    b.depth, camera, tspec, eval_rspec, mspec, pix=pix)
+                med_pre = tracking_depth_median(
+                    tensor_from_cam(b.pre_c2w), params, grids, bound,
+                    b.depth, camera, tspec, eval_rspec, mspec, pix=pix)
+                keep = med_cs <= tspec.init_select_margin * torch.clamp(
+                    med_pre, min=0.01)
+                b.init_c2w.copy_(torch.where(keep, b.init_c2w, b.pre_c2w))
+
+            graphs.step(("init_select", bkey, tspec, eval_rspec, mspec,
+                         camera, id(gen), _map_key(params, grids, bound)),
+                        select, (gen,))
+            init_c2w = b.init_c2w
+    with torch.no_grad():
+        b.cam0.copy_(tensor_from_cam(init_c2w))
     best_cam, first, last, best, *pre_cams = track_frame(
-        params, grids, bound, tensor_from_cam(init_c2w), gt_color, gt_depth,
-        camera, tspec, rspec, mspec, gen=gen, return_cams=return_cams,
-        graphs=graphs)
+        params, grids, bound, b.cam0, b.color, b.depth, camera, tspec,
+        rspec, mspec, gen=gen, return_cams=return_cams, graphs=graphs)
     if tspec.gn_iters > 0:
         # the polish of nice_slam_tpu/tracking.py:333-346: a one-frame
         # window over the whole image, the map frozen
-        dev = best_cam.device
-        window = {"depths": gt_depth[None],
-                  "valid": torch.ones(1, dtype=torch.bool, device=dev)}
-        refined = schur_ba.schur_pose_refine(
-            params, grids, bound, window, best_cam[None],
-            torch.ones(1, device=dev), camera,
+        window = {"depths": b.depth[None], "valid": b.gn_valid}
+        best_cam = schur_ba.schur_pose_refine(
+            params, grids, bound, window, best_cam[None], b.gn_mask, camera,
             dataclasses.replace(rspec, train_decoders=False), mspec,
-            tspec.gn_iters, tspec.gn_pixels, tspec.gn_damping, gen=gen)
-        best_cam = refined[0]
+            tspec.gn_iters, tspec.gn_pixels, tspec.gn_damping, gen=gen,
+            graphs=graphs)[0]
     est_c2w[idx] = to_homogeneous(cam_from_tensor(best_cam))
     losses = torch.stack([first, last, best])
     return (losses, pre_cams[0]) if return_cams else losses
-

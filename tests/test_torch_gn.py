@@ -270,23 +270,41 @@ def test_guarded_iteration_never_increases_sse():
 
 def test_guard_takes_the_same_jitter(monkeypatch):
     """With stratified jitter on (perturb > 0) the candidate's SSE is taken
-    on the jitter of the system's render, as JAX reuses the frame's key: a
-    candidate that cannot move (mask 0) has the current SSE exactly."""
+    on the jitter of the system's render, as JAX reuses the frame's key:
+    both renders get the same uniforms, drawn once from the generator
+    right after the pixels (the draw the system's render made before, so
+    the stream advances as it did), and a candidate that cannot move
+    (mask 0) has the current SSE exactly."""
     specs, state, window, cams0, cam, rspec = _setup()
-    seen = []
-    orig = schur_ba.residual_sse
+    rspec = dataclasses.replace(rspec, perturb=1.0)
+    seen, sses = [], []
+    orig_render, orig_sse = schur_ba.render_rays, schur_ba.residual_sse
+
+    def render(*a, **k):
+        seen.append(k["draws"])
+        return orig_render(*a, **k)
 
     def capture(*a, **k):
-        seen.append(orig(*a, **k))
-        return seen[-1]
+        sses.append(orig_sse(*a, **k))
+        return sses[-1]
 
+    monkeypatch.setattr(schur_ba, "render_rays", render)
     monkeypatch.setattr(schur_ba, "residual_sse", capture)
+    gen = _gen(5)
     cams1, sse, accept = schur_ba.gn_iteration(
         state.params, state.grids, state.bound, window, cams0,
-        torch.zeros(3), cam, dataclasses.replace(rspec, perturb=1.0),
-        specs.model, 64, 1e-3, gen=_gen(5))
+        torch.zeros(3), cam, rspec, specs.model, 64, 1e-3, gen=gen)
     assert not bool(accept.any()) and torch.equal(cams1, cams0)
-    assert float(sse[0]) > 0 and torch.equal(seen[0], sse)
+    assert float(sse[0]) > 0 and torch.equal(sses[0], sse)
+    # the system's render and the candidate's: the same uniforms
+    assert len(seen) == 2 and seen[0] is seen[1]
+    u, u_imp = seen[0]
+    assert u_imp is None and u.shape == (3 * 64, rspec.n_samples)
+    ref = _gen(5)
+    schur_ba.window_pixels(ref, 3, 64, cam, "cpu")
+    assert torch.equal(u, torch.rand((3 * 64, rspec.n_samples),
+                                     generator=ref))
+    assert torch.equal(gen.get_state(), ref.get_state())
 
 
 def test_frozen_rows_untouched():

@@ -59,11 +59,11 @@ CFG = {
 }
 
 
-def _cfg(**over):
+def _cfg(nice=True, **over):
     cfg = {k: (dict(v) if isinstance(v, dict) else v) for k, v in CFG.items()}
     for k, v in over.items():
         cfg[k] = {**cfg.get(k, {}), **v}
-    return load_config(overrides=cfg)
+    return load_config(nice=nice, overrides=cfg)
 
 
 @pytest.fixture(scope="module")
@@ -342,6 +342,133 @@ def test_double_run_equals_eager_and_keeps_the_books(tmp_path):
         assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
 
 
+# Each mode's engine run through the double equals its eager run: (the
+# config's overrides, load_config's nice, each side's signatures)
+MODES = {
+    # the first event's 201 iterations in one call cross StepLR's step 200
+    "imap": (dict(synthetic={"n_frames": 4},
+                  mapping={"iters_first": 201, "pixels": 40},
+                  tracking={"pixels": 40}), False,
+             {"track", "init_select"}, {"middle", "fine", "color"}),
+    # three events, the proxy refreshed after each
+    "occ": (dict(rendering={"occupancy_guided": True}), True,
+            {"track", "init_select"}, {"middle", "fine", "color", "coarse"}),
+    # BA with GN at events 5 and 6 (the refinement's five passes)
+    "gn": (dict(synthetic={"n_frames": 7},
+                mapping={"every_frame": 1, "keyframe_every": 1, "iters": 3,
+                         "pose_GN_iters": 2, "pose_GN_pixels": 20},
+                tracking={"pose_GN_iters": 2, "pose_GN_pixels": 40}), True,
+           {"track", "init_select", "gn"},
+           {"middle", "fine", "color", "coarse", "gn"}),
+    # per-iteration panels of tracking and mapping
+    "panels": (dict(tracking={"vis_freq": 2, "vis_inside_freq": 2},
+                    mapping={"vis_freq": 3, "vis_inside_freq": 4}), True,
+               {"track", "init_select"},
+               {"middle", "fine", "color", "coarse"}),
+}
+
+
+def _panels(out):
+    from pathlib import Path
+
+    found = {}
+    for f in sorted(Path(out).glob("*_vis/*.npz")):
+        with np.load(f) as z:
+            found[f"{f.parent.name}/{f.name}"] = {k: z[k] for k in z.files}
+    return found
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_double_run_equals_eager_in_every_mode(tmp_path, monkeypatch, mode):
+    """An engine run of iMAP* (its StepLR crossing step 200 in one call),
+    occupancy-guided sampling (the proxy refreshed in place in the
+    tracker's copy), Gauss-Newton in tracking and BA, and the panels of
+    tracking and mapping, whose runners capture into FakeGraph, equals
+    the eager run bit for bit: trajectory, decoders, grids (the proxy
+    among them), keyframes, tracking losses and the panels' arrays.
+    Every step of each signature after the first two is a replay of the
+    closure captured at the second, so a value of a later iteration that
+    the step took from Python would differ."""
+    import sys
+
+    over, nice, want_track, want_map = MODES[mode]
+    cfg = _cfg(nice=nice, **over)
+    for name in [m for m in sys.modules if m.split(".")[0] == "matplotlib"]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    runs = []
+    for doubled in (False, True):
+        out = str(tmp_path / ("double" if doubled else "eager"))
+        eng = SlamEngine(cfg, output=out, device="cpu")
+        if doubled:
+            _doubled(eng)
+        if mode == "panels":
+            eng.enable_visualizer()
+        ptrs = []
+        orig = eng._load_track_map
+
+        def load(device, _orig=orig, _eng=eng, _ptrs=ptrs):
+            _orig(device)
+            _ptrs.append([x.data_ptr() for x in tree_leaves(_eng._params_t)
+                          + list(_eng._grids_t.values())])
+
+        eng._load_track_map = load
+        eng.run()
+        runs.append((eng, ptrs, out))
+    (plain, _, out_p), (eng, ptrs, out_d) = runs
+    assert all(torch.equal(a, b) for a, b in zip(_state(plain), _state(eng)))
+    assert torch.equal(plain.store.est_c2w, eng.store.est_c2w)
+    assert [r["best_loss"] for r in plain.stats()] == [
+        r["best_loss"] for r in eng.stats()]
+    for side, want in ((eng._track_graphs, want_track),
+                       (eng._map_graphs, want_map)):
+        st = side.stats()
+        assert st["graphs"] == st["captures"] > 0 and st["replays"] > 0
+        assert side.log.count("eager") == len(side._warm) == st["eager_steps"]
+        got = {k[0] if k[0] != "map" else k[2] for k in side._warm}
+        assert got == want, (mode, got)
+    # the tracker's copy of the map (the proxy too), read once more after
+    # the last event, was refreshed in place each time
+    eng._tracking_map()
+    assert len(ptrs) >= 2 and all(p == ptrs[0] for p in ptrs)
+    if mode == "imap":
+        assert max(eng._map_graphs.max_iters, 0) == 201
+    if mode == "occ":
+        proxy = eng.map_state.grids["occ_proxy"]
+        assert torch.equal(eng._grids_t["occ_proxy"], proxy)
+        assert float(proxy.min()) < 0.5
+    if mode == "panels":
+        a, b = _panels(out_p), _panels(out_d)
+        assert any(k.startswith("tracking_vis") for k in a)
+        assert any(k.startswith("mapping_vis") for k in a)
+        assert sorted(a) == sorted(b)
+        assert all(np.array_equal(a[k][x], b[k][x])
+                   for k in a for x in a[k])
+
+
+def test_imap_lr_table_is_the_host_scalar():
+    """imap_lr_table holds float32(lr * imap_lr_scale(k)) taken in double
+    (the value the eager multiply by a host scalar rounds to) at every
+    step, across StepLR's boundaries.  The JAX package takes 0.8 ** k in
+    float32: its rate differs from the table's at 2,000 of the 3,000 steps
+    checked, by at most 3 ulps (2.07e-7 relative; numpy's float32 power
+    and the JAX package's agree), which the iMAP* end-to-end parity test
+    absorbs."""
+    lr = 0.0002
+    tab = mapping.imap_lr_table(lr, 3000, "cpu")
+    assert tab.dtype == torch.float32 and tab.shape == (3000,)
+    want = np.array([np.float32(lr * mapping.imap_lr_scale(k))
+                     for k in range(3000)], np.float32)
+    assert np.array_equal(tab.numpy(), want)
+    assert tab[199] == np.float32(lr) and tab[200] == np.float32(lr * 0.8)
+    jax_like = np.array([np.float32(lr) * np.float32(0.8) ** np.float32(
+        k // 200) for k in range(3000)], np.float32)
+    rel = np.abs(jax_like.astype(np.float64) - want) / want
+    assert rel.max() <= 2.1e-7, rel.max()
+    ulps = np.abs(jax_like.view(np.int32) - want.view(np.int32))
+    assert ulps.max() <= 3
+
+
 def test_python_inputs_change_the_key(world):
     """Two calls that differ in any Python input of a step get different
     signatures: tracking (iterations, learning rate, pixels, loss weights,
@@ -404,40 +531,76 @@ def test_python_inputs_change_the_key(world):
     assert mapped() == n[-1]
 
 
-def test_eager_paths_are_chosen_by_mode(world):
-    """iMAP*, occupancy-guided sampling, the panels' cameras and on_iter
-    never reach a graph: their steps run eagerly under a capturing
-    runner."""
+def test_only_sharded_steps_stay_eager(world, monkeypatch):
+    """Under a capturing runner every step of tracking and dense mapping
+    reaches a graph: the Adam iterations with the panels' cameras and
+    on_iter, init_select's candidate renders and the Gauss-Newton polish
+    of tracking and of BA (the mode-specific cases run through whole
+    engines below).  Only the data-parallel `shard` step stays eager
+    (its Gauss-Newton iterations too), and grid-sharded mapping
+    (`gs_map_once`) never reaches the runner."""
+    from nice_slam_torch.ops.se3 import to_homogeneous
+    from nice_slam_torch.parallel.data_parallel import RayShard
+
     s, st = world["specs"], world["st"]
     color, depth, pose = _frame(world, 1)
-    cam0 = tensor_from_cam(pose[:3])
-    assert not tracking.graph_tracking(
-        s.track, dataclasses.replace(s.render, occ_guided=True), s.model)
-    assert not tracking.graph_tracking(
-        s.track, s.render, dataclasses.replace(s.model, nice=False))
-    assert not mapping.graph_mapping(dataclasses.replace(s.mapper, nice=False),
-                                     s.render)
-    assert not mapping.graph_mapping(
-        s.mapper, dataclasses.replace(s.render, occ_guided=True))
     graphs = DoubleGraphs()
-    tracking.track_frame(st.params, st.grids, st.bound, cam0, color, depth,
-                         s.camera, s.track, s.render, s.model,
-                         gen=torch.Generator(), return_cams=True,
-                         graphs=graphs)
+    tspec = dataclasses.replace(s.track, iters=3, gn_iters=2, gn_pixels=40)
+    est = torch.stack([to_homogeneous(pose[:3])] * 3)
+    est[1, :3, 3] += 0.01
+    _, cams = tracking.track_step(st.params, st.grids, st.bound, est, 2,
+                                  color, depth, s.camera, tspec, s.render,
+                                  s.model, gen=torch.Generator(),
+                                  return_cams=True, graphs=graphs)
+    assert cams.shape == (3, 7)
+    assert sorted(k[0] for k in graphs._warm) == ["gn", "init_select",
+                                                  "track"]
+    assert sorted(k[0] for k in graphs._graphs) == ["gn", "track"]
+    assert graphs.stats()["eager_steps"] == 3
+
     window, masks, cams0, lr_mask = mapping.prepare_mapping(
         world["store"], color, depth, pose, st.grids, st.bound, s.camera,
-        s.mapper, False, gen=torch.Generator().manual_seed(1))
+        s.mapper, True, gen=torch.Generator().manual_seed(1))
+    mapspec = dataclasses.replace(s.mapper, pose_gn_iters=2,
+                                  pose_gn_pixels=20)
     seen = []
-    mapping.map_optimize(st.params, st.grids, st.bound, window, cams0, masks,
-                         lr_mask, 1.0, s.camera, (("color", 3),), s.mapper,
-                         s.render, s.model, ba=False, gen=torch.Generator(),
-                         on_iter=lambda it, tree: seen.append(it),
-                         graphs=graphs)
-    assert seen == [0, 1, 2]
-    assert graphs.stats() == {"graphs": 0, "captures": 0, "replays": 0,
-                              "eager_steps": s.track.iters + 3,
-                              "capture_s": 0.0}
-    assert graphs.log == []
+    for shard in (None, RayShard()):
+        mgraphs = DoubleGraphs()
+        mapping.map_optimize(st.params, st.grids, st.bound, window, cams0,
+                             masks, lr_mask, 1.0, s.camera, (("color", 3),),
+                             mapspec, s.render, s.model, ba=True,
+                             gen=torch.Generator(), shard=shard,
+                             on_iter=lambda it, tree: seen.append(it),
+                             graphs=mgraphs)
+        if shard is None:
+            assert sorted(k[0] for k in mgraphs._graphs) == ["gn", "map"]
+            # per signature: one eager warm-up, then a capture that
+            # replays at once and replays
+            assert mgraphs.stats()["replays"] == (3 - 1) + (2 - 1)
+            assert mgraphs.log.count("capture") == 2
+        else:
+            # the three Adam steps and the two GN iterations eager
+            assert mgraphs.stats() == {"graphs": 0, "captures": 0,
+                                       "replays": 0, "eager_steps": 3 + 2,
+                                       "capture_s": 0.0}
+            assert mgraphs.log == []
+    assert seen == [0, 1, 2] * 2
+
+    from nice_slam_torch.parallel import grid_sharded
+
+    called = []
+    monkeypatch.setattr(grid_sharded, "gs_map_once",
+                        lambda *a, **k: called.append(k) or (
+                            st.params, st.grids, cams0,
+                            torch.zeros(1)))
+    ggraphs = DoubleGraphs()
+    mapping._one_map_optimize(
+        st.params, st.grids, st.bound, world["store"],
+        torch.stack([to_homogeneous(pose[:3])] * 4), 3, color, depth, 1.0,
+        s.camera, (("color", 2),), s.mapper, s.render, s.model, False,
+        gen=torch.Generator(), gs=object(), graphs=ggraphs)
+    assert len(called) == 1 and "graphs" not in called[0]
+    assert ggraphs.stats()["eager_steps"] == 0 and not ggraphs._warm
 
 
 def test_capture_failure_raises():
