@@ -149,16 +149,27 @@
    (1,000 px a rank, so 2,000 a mapping step), 6 frames (events 0 and 5).
    Fails unless the ranks' trajectories, grids and decoders are bit-equal
    (digests in their summaries), each rank's K1/K2 launches equal the
-   single-rank schedule, the ATE is finite and under 0.25 m and only
-   rank 0 wrote ckpts/.  Then one mapping call (middle, fine and colour
+   single-rank schedule, the ATE is finite and under 0.25 m, only
+   rank 0 wrote ckpts/ and each rank's mapping runner replayed segments
+   with no eager step but one warm-up a segment signature (the DP step
+   and its GN polish are segmented CUDA graphs around the all_reduces).
+   Prints each rank's wall, map seconds, all_reduce seconds and their
+   share of map time.  Then one mapping call (middle, fine and colour
    iterations, BA and a Gauss-Newton iteration) on given pixels by two
    ranks (this script started with --dp-rank) against this process on
    the union: every iteration's all-reduced loss and gradients, the
    Gauss-Newton system, the updated decoders, grids and cameras within a
    relative Frobenius error of 1e-5, the GN guard's sums (taken at the
    candidate cameras, which carry the solve's rounding) within 1e-4 (one
-   GN iteration: see dp_setup).  Prints the all_reduce's bytes per iteration by stage, its
-   share of map time and the backend.
+   GN iteration: see dp_setup).  Each rank runs that call eagerly, then
+   graphed, and a longer one (DP_LONG: 10 iterations a stage on drawn
+   pixels, 2 GN iterations) eagerly with the sync-debug sweep over every
+   segment signature's second iteration (phase 24's, wrapping the
+   segments only, never the gloo call), then graphed: fails unless each
+   pair is bit-equal (every reduced sum, leaf, the cameras, the losses)
+   and the sweep finds no host read.  Prints the all_reduce's bytes per
+   iteration by stage, its share of map time, the backend and each
+   rank's seconds eager and graphed.
 16. Pipelined: parallel/pipelined.py's engine on one card, 16 frames
    (events 0, 5, 10, 15; events 5 and 10 run while frames 6-10 and 11-15
    are tracked), run twice: the mapper on its own thread and CUDA stream
@@ -194,21 +205,28 @@
    call of phase 15's window and pixels (middle, fine and colour
    iterations at the strict shapes, 1,000 px a data rank; no Gauss-Newton,
    which the gs step does not run) against this process on the union (2 x
-   1,000 px) through the dense map_optimize.  Fails unless the first
-   decode's features summed over the model ranks equal the dense
-   trilinear_interp bit for bit, every loss is within 1e-6 relative, the
+   1,000 px) through the dense map_optimize.  Fails unless the features
+   summed over the model ranks from the slabs equal the dense
+   trilinear_interp bit for bit (at the query's points), every loss is
+   within 1e-6 relative, the
    updated decoders, grids and cameras within 1e-5 relative Frobenius,
    the halo invariant holds bit for bit after every step, each rank's
    K1/K2 launches equal the dense call's and the ranks end bit-equal.
    Before the call, each rank's sharded query (gs_eval_points, 65,536
    points, colour) must lie within 1e-4 x max(1, max |dense|) of
-   eval_points.  Prints the collectives' bytes per iteration by kind and
-   stage.
+   eval_points.  As in phase 15, each rank runs the call eagerly then
+   graphed, and a longer one under the sync-debug sweep then graphed
+   (the gs step: five or six segments an iteration around its
+   collectives): each pair bit-equal in every collective's sum (a
+   digest), leaf, the cameras, the losses, the launches and the halo
+   checks.  Prints the collectives' bytes per iteration by kind and
+   stage and each rank's seconds eager and graphed.
 19. Grid-sharded engine: run_torch.py's local launch with tpu.grid_sharded
    [1, 2] (two ranks on cuda:0 over gloo), strict, full width, 6 frames:
    the checks of phase 15's run (ranks bit-equal, K1/K2 a rank = the
    single-rank schedule, ATE finite and under 0.25 m, only rank 0 wrote
-   ckpts/); prints the ATE beside phase 3's, the collectives' bytes per
+   ckpts/, the mapping runners' eager steps only the warm-ups); prints
+   the ATE beside phase 3's, the collectives' bytes per
    iteration by kind (features, points, halo, reassembly, data) and
    stage, their seconds and share of map time, the peak MiB a rank and
    the wall.  The kernels' per-device shared-memory attribute and device
@@ -783,23 +801,39 @@ def sync_check_runner(graphs):
     iteration of each signature (the one a graphed run captures; the
     first is its warm-up, which makes the constants) runs under
     torch.cuda.set_sync_debug_mode("error"): a host read inside a step,
-    which a capture would refuse, raises there naming its op.  Its
-    `checked` lists the signatures so checked."""
+    which a capture would refuse, raises there naming its op.  Each
+    segment of a segmented step is a signature of its own; the host calls
+    between segments (the gloo collectives, which copy through the host by
+    design) run outside the check.  Its `checked` lists the signatures so
+    checked."""
     import torch
 
     from nice_slam_torch.graphs import StepGraphs
 
     class SyncChecked(StepGraphs):
         def step(self, key, fn, generators=()):
-            if key is None or key in self.checked:
-                return super().step(key, fn, generators)
+            return super().step(key, lambda: self._checked(key, fn),
+                                generators)
+
+        def step_segments(self, key, segments, between, generators=()):
+            segments = [lambda sk=(*key, ("segment", i)), fn=fn:
+                        self._checked(sk, fn)
+                        for i, fn in enumerate(segments)]
+            return super().step_segments(key, segments, between,
+                                         generators)
+
+        def _checked(self, key, fn):
+            if key in self.checked:
+                return fn()
             if key not in self.seen:
                 self.seen.append(key)
-                return super().step(key, fn, generators)
+                return fn()
             self.checked.append(key)
+            if self.device.type != "cuda":
+                return fn()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                return super().step(key, fn, generators)
+                return fn()
             finally:
                 torch.cuda.set_sync_debug_mode(0)
 
@@ -1395,7 +1429,7 @@ def run_gn(torch, fd, log):
         orig_step = runner.step
 
         def step(key, fn, generators=()):
-            if key is None or key[0] != "gn":
+            if key[0] != "gn":
                 return orig_step(key, fn, generators)
             torch.cuda.synchronize()
             s0 = check.get("s", 0.0)
@@ -1708,6 +1742,12 @@ def run_pretrain(torch, fd, log, dev, steps=100, batch=4096):
 
 DP_WORLD = 2
 DP_STAGES = (("middle", 1), ("fine", 1), ("color", 1))
+# the graphed-against-eager calls of phases 15 and 18: every segment
+# signature warmed up, captured and replayed eight times
+DP_LONG = (("middle", 10), ("fine", 10), ("color", 10))
+# their segment signatures: (step, stage, segments)
+DP_LONG_SIGS = (("map", "middle", 2), ("map", "fine", 2),
+                ("map", "color", 2), ("gn", None, 3))
 
 
 def _rank_summaries(stdout: str) -> list:
@@ -1776,13 +1816,17 @@ def dp_setup(torch, dev):
             lr_mask, spec, pixels)
 
 
-def dp_union_call(torch, dev, world_one: bool):
+def dp_union_call(torch, dev, world_one: bool, graphs=None,
+                  long: bool = False):
     """One data-parallel mapping call of the union check, its reduces
     recorded: (the summed [loss, live gradients] of each stage iteration
     and the Gauss-Newton sums [H, b, sse0], [sse1, cnt0, cnt1] of each GN
-    iteration, the final params + grids leaves, the cameras, the
-    losses).  world_one:
-    this process alone, on the union (twice the rank's pixels)."""
+    iteration, the final params + grids leaves, the cameras, the losses,
+    the call's seconds (synchronised), the reduces' seconds).  world_one:
+    this process alone, on the union (twice the rank's pixels).  `graphs`:
+    the mapping runner (None: eager).  `long`: DP_LONG's stages on drawn
+    pixels with two Gauss-Newton iterations, so that every segment
+    signature is captured and replayed (the graphed-against-eager check)."""
     import dataclasses
 
     from nice_slam_torch import mapping
@@ -1790,40 +1834,98 @@ def dp_union_call(torch, dev, world_one: bool):
     from nice_slam_torch.parallel.data_parallel import RayShard
 
     class Recording(RayShard):
-        def reduce(self, tensors, kind="gn"):
-            out = super().reduce(tensors, kind)
-            self.sums.append([t.detach().clone() for t in out])
-            return out
+        def reduce_(self, bucket, kind="gn"):
+            super().reduce_(bucket, kind)
+            self.sums.append([t.detach().clone() for t in bucket.views()])
 
     (specs, params, grids, bound, window, masks, cams0, lr_mask, spec,
      pixels) = dp_setup(torch, dev)
     shard = Recording()
     shard.sums = []
+    stages = DP_STAGES
+    if long:
+        stages, pixels = DP_LONG, None
+        spec = dataclasses.replace(spec, pose_gn_iters=2)
     if world_one:
         spec = dataclasses.replace(spec, pixels=DP_WORLD * spec.pixels,
                                    pose_gn_pixels=DP_WORLD
                                    * spec.pose_gn_pixels)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
     p, g, cams, losses = mapping.map_optimize(
         params, grids, bound, window, cams0, masks, lr_mask, 1.0,
-        specs.camera, DP_STAGES, spec, specs.render, specs.model, ba=True,
+        specs.camera, stages, spec, specs.render, specs.model, ba=True,
         gen=torch.Generator(device=dev).manual_seed(3), pixels=pixels,
-        shard=shard)
-    return shard.sums, tree_leaves(p) + tree_leaves(g), cams, losses
+        shard=shard, graphs=graphs)
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
+    return (shard.sums, tree_leaves(p) + tree_leaves(g), cams, losses, secs,
+            shard.seconds)
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _same(torch, a, b) -> bool:
+    """Bit-equality of tensors, nested lists of them and other values."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_same(torch, x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _same_call(torch, a, b) -> bool:
+    """Whether two union-check calls' results (their first four: the
+    reduced sums, leaves, cameras, losses) are bit-equal."""
+    return _same(torch, list(a[:4]), list(b[:4]))
+
+
+def graphed_against_eager(torch, dev, call):
+    """`call(graphs)` eagerly with each segment's second iteration under
+    sync-debug "error" (`sync_check_runner`), then graphed, in this
+    process: (eager result, graphed result, the signatures the sweep
+    checked, the graphed runner's stats)."""
+    from nice_slam_torch.graphs import StepGraphs
+
+    checker = sync_check_runner(StepGraphs(dev, capture=False))
+    eager = call(checker)
+    runner = StepGraphs(dev)
+    graphed = call(runner)
+    return eager, graphed, checker.checked, runner.stats()
+
+
+def _sig_names(keys) -> list:
+    """A runner's signatures by name: (step, stage or None, segment)."""
+    return sorted({(k[0], k[2] if k[0] in ("map", "gs") else None,
+                    k[-1][1]) for k in keys})
 
 
 def dp_rank_main(rank: int, port: int, out: str, device: str) -> int:
     """One rank of the union check (chip_smoke.py --dp-rank R --port P
-    --out FILE --device D): saves its reduced sums and results."""
+    --out FILE --device D): saves its reduced sums and results, and the
+    graphed-against-eager checks: the union call eager then graphed, and
+    the long call eager (the sync-debug sweep over its segments) then
+    graphed; each pair bit-equal; their seconds."""
     import numpy as np
     import torch
 
+    from nice_slam_torch.graphs import StepGraphs
     from nice_slam_torch.parallel import multihost
 
     torch.backends.cuda.matmul.allow_tf32 = False
     multihost.initialize(f"127.0.0.1:{port}", DP_WORLD, rank, timeout_s=300,
                          device=device)
     dev = multihost.rank_device(device, rank)
-    sums, leaves, cams, losses = dp_union_call(torch, dev, False)
+    union = dp_union_call(torch, dev, False)
+    union_g = dp_union_call(torch, dev, False, graphs=StepGraphs(dev))
+    eager, graphed, checked, stats = graphed_against_eager(
+        torch, dev, lambda r: dp_union_call(torch, dev, False, graphs=r,
+                                            long=True))
+    sums, leaves, cams, losses = union[:4]
     arrays = {f"sum{i}_{k}": t.cpu().numpy() for i, s in enumerate(sums)
               for k, t in enumerate(s)}
     arrays.update({f"leaf{k}": t.detach().cpu().numpy()
@@ -1831,6 +1933,14 @@ def dp_rank_main(rank: int, port: int, out: str, device: str) -> int:
     arrays["cams"] = cams.detach().cpu().numpy()
     arrays["losses"] = losses.cpu().numpy()
     arrays["backend"] = np.array(multihost.backend())
+    arrays["graphed"] = np.array(json.dumps({
+        "union_equal": _same_call(torch, union, union_g),
+        "long_equal": _same_call(torch, eager, graphed),
+        "union_s": [union[4], union_g[4]],
+        "long_s": [eager[4], graphed[4]],
+        "long_reduce_s": [eager[5], graphed[5]],
+        "reduces": [len(eager[0]), len(graphed[0])],
+        "sync_checked": _sig_names(checked), "stats": stats}))
     np.savez(out, **arrays)
     multihost.shutdown()
     return 0
@@ -1840,7 +1950,11 @@ def check_dp_union(torch, log, out_dir, device="cuda"):
     """Two ranks of one mapping call over gloo on the card against this
     process on the union: each iteration's summed loss and gradients, the
     GN system and the updated leaves within a relative Frobenius error of
-    1e-5, the GN guard's sums within 1e-4."""
+    1e-5, the GN guard's sums within 1e-4.  On every rank, graphed equals
+    eager bit for bit (every reduced sum, leaf, the cameras, the losses)
+    in the union call and in a longer one (DP_LONG) whose eager run the
+    sync-debug sweep checked over every segment signature the graphed run
+    captured; prints each rank's seconds, eager and graphed."""
     import numpy as np
 
     from nice_slam_torch.parallel.multihost import free_port, rank_world
@@ -1860,15 +1974,16 @@ def check_dp_union(torch, log, out_dir, device="cuda"):
                 f"dp union: rank {r} exited {p.returncode}: {text[-3000:]}")
     ranks_s = time.perf_counter() - t0
     dev = torch.device(device)
-    sums, leaves, cams, losses = dp_union_call(torch, dev, True)
+    sums, leaves, cams, losses = dp_union_call(torch, dev, True)[:4]
     want = {f"sum{i}_{k}": t for i, s in enumerate(sums)
             for k, t in enumerate(s)}
     want.update({f"leaf{k}": t.detach() for k, t in enumerate(leaves)})
     want["cams"], want["losses"] = cams.detach(), losses
-    worst = {}
+    worst, graphed = {}, []
     for r in range(DP_WORLD):
         with np.load(os.path.join(out_dir, f"union_rank{r}.npz")) as z:
             got = {k: z[k] for k in z.files}
+        graphed.append(json.loads(str(got.pop("graphed"))))
         fail_if(set(got) - {"backend"} != set(want),
                 f"dp union: rank {r} has {sorted(got)}, want {sorted(want)}")
         for k, w in want.items():
@@ -1886,7 +2001,40 @@ def check_dp_union(torch, log, out_dir, device="cuda"):
         f"{max(e for k, e in worst.items() if k.startswith('sum')):.3g}, "
         f"results {max(e for k, e in worst.items() if not k.startswith('sum')):.3g}")
     fail_if(bool(bad), f"dp union: relative errors above 1e-5: {bad}")
-    return max(worst.values())
+    res = {"max_rel_err": max(worst.values())}
+    res.update(check_graphed_ranks(log, "dp", graphed, DP_LONG_SIGS))
+    return res
+
+
+def check_graphed_ranks(log, name, graphed, want_sigs) -> dict:
+    """The ranks' graphed-against-eager records (phases 15 and 18): both
+    pairs bit-equal, the same reduces in each, every segment signature of
+    `want_sigs` ((step, stage, segments) each) captured, and the sweep
+    over the eager run checked each of them.  Prints and returns the
+    seconds by rank."""
+    want = sorted((step, stage, i) for step, stage, n in want_sigs
+                  for i in range(n))
+    for r, g in enumerate(graphed):
+        fail_if(not (g["union_equal"] and g["long_equal"]),
+                f"{name} union: rank {r}'s graphed calls differ from its "
+                f"eager calls (union {g['union_equal']}, long "
+                f"{g['long_equal']})")
+        fail_if(g["reduces"][0] != g["reduces"][1],
+                f"{name} union: rank {r} reduced {g['reduces']} times "
+                "(eager, graphed)")
+        fail_if(sorted(map(tuple, g["sync_checked"])) != want
+                or g["stats"]["segments"] != len(want),
+                f"{name} union: rank {r} swept {g['sync_checked']}, "
+                f"captured {g['stats']['segments']} segments, want {want}")
+    out = {"union_s_eager_graphed": [g["union_s"] for g in graphed],
+           "long_s_eager_graphed": [g["long_s"] for g in graphed],
+           "long_collective_s_eager_graphed": [g["long_reduce_s"]
+                                               for g in graphed],
+           "long_stats": graphed[0]["stats"], "sync_checked": len(want)}
+    log(f"{name} union graphed: bit-equal to eager on every rank; sync-debug "
+        f"\"error\" over the second eager iteration of {len(want)} segment "
+        f"signatures: no host read; " + json.dumps(out))
+    return out
 
 
 def _launch_ranks(torch, log, name, tpu, world, n_frames, device,
@@ -1944,6 +2092,12 @@ def _launch_ranks(torch, log, name, tpu, world, n_frames, device,
             f"{[(s['traj_sha256'], s['map_sha256']) for s in ranks]}")
     fail_if(any(k == 0 for k in k1 + k2),
             f"{name}: a kernel of the path was never launched")
+    # the mapping steps replay their segments: no eager step but each
+    # signature's warm-up
+    maps = [s["graphs"]["map"] for s in ranks]
+    fail_if(any(m["eager_steps"] != m["signatures"] or m["segments"] == 0
+                or m["replays"] == 0 for m in maps),
+            f"{name}: the mapping side's runners {maps}")
     fail_if(any((f, b) != (exp_f, exp_b) for f, b in zip(k1, k2)),
             f"{name}: launches K1 {k1} K2 {k2} by rank, schedule {exp_f} "
             f"{exp_b} a rank")
@@ -1973,7 +2127,11 @@ def run_dp(torch, fd, log, n_frames=6, device="cuda", overrides=None):
         "allreduce_share_of_map": [a["seconds"] / s["timings_s"]["map"]
                                    for a, s in zip(ar, ranks)]})
     log("dp: " + ", ".join(f"{k} {v}" for k, v in res.items()))
-    res["union_max_rel_err"] = check_dp_union(torch, log, out, device)
+    log(f"dp by rank: wall {res['wall_s']} s, map "
+        f"{[s['timings_s']['map'] for s in ranks]} s, all_reduce "
+        f"{res['allreduce_s']} s, share of map "
+        f"{res['allreduce_share_of_map']}")
+    res["union"] = check_dp_union(torch, log, out, device)
     return res
 
 
@@ -1981,23 +2139,57 @@ def run_dp(torch, fd, log, n_frames=6, device="cuda", overrides=None):
 # Phases 18-19: grid-sharded mapping
 
 GS_SHAPE = (2, 2)         # [n_data, n_model] of the union check
+# the segment signatures of the long call: (step, stage, segments)
+GS_LONG_SIGS = (("gs", "middle", 5), ("gs", "fine", 5), ("gs", "color", 6))
 
 
-def gs_union_call(torch, dev, gs):
+def gs_query_check(torch, dev, gs):
+    """The sharded query `gs_eval_points` of 65,536 points (the mesher's
+    chunk, over the padded bound) against the dense eval_points on phase
+    15's map, and the features summed over `model` from the slabs
+    (`gs_feats`) at the same points against the dense trilinear_interp:
+    (max abs error over max(1, max |dense|), features bit-equal)."""
+    from nice_slam_torch.models.decoders import stage_levels
+    from nice_slam_torch.ops.grid import normalize_coords, trilinear_interp
+    from nice_slam_torch.parallel import grid_sharded as gsm
+    from nice_slam_torch.render import eval_points
+
+    (specs, params, grids, bound, *_) = dp_setup(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(11)
+    lo, hi = bound[:, 0] - 0.1, bound[:, 1] + 0.1
+    pts = lo + (hi - lo) * torch.rand(65536, 3, generator=g, device=dev)
+    slabs, shapes = gsm.shard_grids(grids, gs.n_model, gs.m)
+    q = gsm.gs_eval_points(params, specs.model, slabs, bound, shapes, pts,
+                           "color", gs)
+    with torch.no_grad():
+        ref = eval_points(params, specs.model, grids, bound, pts, "color")
+        levels = stage_levels("color")
+        feats = gsm.gs_feats(slabs, bound, pts, shapes, levels, gs, "check")
+        p_nor = normalize_coords(pts, bound)
+        equal = all(torch.equal(feats[n], trilinear_interp(grids[n], p_nor))
+                    for n in levels)
+    return (float((q - ref).abs().max()) / max(1.0, float(ref.abs().max())),
+            equal)
+
+
+def gs_union_call(torch, dev, gs, graphs=None, long: bool = False):
     """One mapping call of the gs union check on phase 15's window (the
     middle, fine and colour iterations, no Gauss-Newton: the gs step has
     none) and pixels: with `gs` (a GridShard) this rank's part through
-    gs_map_once, recording the first decode's summed features against the
-    dense trilinear_interp and the halo invariant after every step;
-    without, this process alone on the union (n_data x the rank's pixels)
-    through the dense map_optimize.  With `gs`, first the sharded query
-    `gs_eval_points` of 65,536 points against the dense eval_points.
-    Returns (params + grids leaves, cams, losses, K1/K2 launches of the
-    call, first features bit-equal (None without gs), halo checks, the
-    query's max abs error over max(1, max |dense|) (None without gs))."""
+    gs_map_once on `graphs` (None: eagerly), recording a digest of every
+    collective's sum and the halo invariant after every step; without,
+    this process alone on the union (n_data x the rank's pixels) through
+    the dense map_optimize.  `long`: DP_LONG's stages on drawn pixels.
+    Returns (sums' digests, params + grids leaves, cams, losses, the
+    call's seconds, its collectives' seconds, K1/K2 launches of the call,
+    halo checks, whether the call's first feature sum equals the dense
+    interpolation bit for bit (None without `gs`))."""
     import dataclasses
+    import hashlib
 
     from nice_slam_torch import mapping
+    from nice_slam_torch.graphs import StepGraphs
+    from nice_slam_torch.models.decoders import stage_levels
     from nice_slam_torch.ops import fused_decode as fd
     from nice_slam_torch.ops.grid import normalize_coords, trilinear_interp
     from nice_slam_torch.ops.tree import tree_leaves
@@ -2006,75 +2198,95 @@ def gs_union_call(torch, dev, gs):
     (specs, params, grids, bound, window, masks, cams0, lr_mask, spec,
      pixels) = dp_setup(torch, dev)
     spec = dataclasses.replace(spec, pose_gn_iters=0)
-    feats_equal, halo_ok, query_err = [], [], None
-    if gs is not None:
-        # the sharded query (the mesher's chunk of 65,536 points, over
-        # the padded bound) against the dense decode, before the counts
-        from nice_slam_torch.render import eval_points
-
-        g = torch.Generator(device=dev).manual_seed(11)
-        lo, hi = bound[:, 0] - 0.1, bound[:, 1] + 0.1
-        pts = lo + (hi - lo) * torch.rand(65536, 3, generator=g, device=dev)
-        slabs, shapes = gsm.shard_grids(grids, gs.n_model, gs.m)
-        q = gsm.gs_eval_points(params, specs.model, slabs, bound, shapes,
-                               pts, "color", gs)
-        with torch.no_grad():
-            ref = eval_points(params, specs.model, grids, bound, pts,
-                              "color")
-        query_err = (float((q - ref).abs().max())
-                     / max(1.0, float(ref.abs().max())))
+    stages = DP_STAGES
+    if long:
+        stages, pixels = DP_LONG, None
+    digests, halo_ok, feats_equal, cur = [], [], [], []
     fd.reset_launch_counts()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
     if gs is None:
         spec = dataclasses.replace(spec, pixels=GS_SHAPE[0] * spec.pixels)
         p, g, cams, losses = mapping.map_optimize(
             params, grids, bound, window, cams0, masks, lr_mask, 1.0,
-            specs.camera, DP_STAGES, spec, specs.render, specs.model,
+            specs.camera, stages, spec, specs.render, specs.model,
             ba=True, gen=torch.Generator(device=dev).manual_seed(3),
             pixels=pixels)
+        coll_s = 0.0
     else:
-        feats_fn, refresh = gsm.gs_feats, gsm.refresh_halos
+        def digest(t):
+            digests.append(hashlib.sha256(
+                t.detach().cpu().numpy().tobytes()).hexdigest())
 
-        def recorded_feats(slabs, bound_, pts, shapes, levels, gs_, stage):
-            feats = feats_fn(slabs, bound_, pts, shapes, levels, gs_, stage)
-            if not feats_equal:
-                with torch.no_grad():
-                    p_nor = normalize_coords(pts, bound_)
-                    feats_equal.append(all(
-                        torch.equal(feats[n], trilinear_interp(grids[n],
-                                                               p_nor))
-                        for n in levels))
-            return feats
+        @torch.no_grad()
+        def dense_feats(key):
+            """The dense interpolation at the points of the step's own
+            draws (the runner's held pixels and samples), on the grids the
+            call started from: its first feature sum's points."""
+            held = runner._buffers[("gs_held", key)]
+            b = runner._buffers[key[1]]
+            i, j, z = held["i"], held["j"], held["z0"]
+            rays_o, rays_d, *_ = mapping._window_rays(
+                b.window, b.tree["cams"], specs.camera, i.shape[1],
+                pix=(i, j))
+            pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+                   ).reshape(-1, 3)
+            p_nor = normalize_coords(pts, b.bound)
+            return torch.cat([trilinear_interp(grids[n], p_nor).reshape(-1)
+                              for n in stage_levels(key[2])])
 
-        def checked(slabs, names, gs_, stage):
-            new = refresh(slabs, names, gs_, stage)
-            names = list(names)
-            rows = gsm._halo_planes([new[k][0] for k in names], gs_, gs_.m,
-                                    "check", stage)
-            if gs_.m + 1 < gs_.n_model:
-                halo_ok.extend(bool(torch.equal(new[k][-1], r[gs_.m + 1]))
-                               for k, r in zip(names, rows))
-            return new
+        def model_sum_(t, kind, stage):
+            out = gs_sum(t, kind, stage)
+            if kind != "check":
+                digest(out)
+            if kind == "features" and not feats_equal:
+                feats_equal.append(torch.equal(out, dense_feats(cur[0])))
+            return out
 
-        gsm.gs_feats, gsm.refresh_halos = recorded_feats, checked
-        p, g, cams, losses = gsm.gs_map_once(
-            params, grids, bound, window, cams0, masks, lr_mask, 1.0,
-            specs.camera, DP_STAGES, spec, specs.render, specs.model, gs,
-            gen=torch.Generator(device=dev).manual_seed(3), pixels=pixels)
-        gsm.gs_feats, gsm.refresh_halos = feats_fn, refresh
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        def reduce_(bucket, kind="gn"):
+            rays_reduce(bucket, kind)
+            digest(bucket.flat)
+
+        runner = graphs or StepGraphs(dev, capture=False)
+        step_segments = runner.step_segments
+
+        def checked(key, *a, **k):
+            cur[:] = [key]
+            step_segments(key, *a, **k)
+            slabs = runner._buffers[key[1]].tree["grids"]
+            live = mapping._trained_grids(key[3], ((key[2], 1),))
+            halo_ok.extend(gsm.check_halos(
+                slabs, [n for n in slabs if n in live], gs))
+
+        gs_sum, rays_reduce = gs.model_sum_, gs.rays.reduce_
+        s0 = sum(gs.seconds.values()) + gs.rays.seconds
+        gs.model_sum_, gs.rays.reduce_ = model_sum_, reduce_
+        runner.step_segments = checked
+        try:
+            p, g, cams, losses = gsm.gs_map_once(
+                params, grids, bound, window, cams0, masks, lr_mask, 1.0,
+                specs.camera, stages, spec, specs.render, specs.model, gs,
+                gen=torch.Generator(device=dev).manual_seed(3),
+                pixels=pixels, graphs=runner)
+        finally:
+            del gs.model_sum_, gs.rays.reduce_, runner.step_segments
+        coll_s = sum(gs.seconds.values()) + gs.rays.seconds - s0
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
     counts = fd.launch_counts()
-    return (tree_leaves(p) + tree_leaves(g), cams, losses,
-            (counts["fused_decode_fwd"], counts["fused_decode_bwd"]),
-            feats_equal[0] if feats_equal else None, halo_ok, query_err)
+    return (digests, tree_leaves(p) + tree_leaves(g), cams, losses, secs,
+            coll_s, (counts["fused_decode_fwd"], counts["fused_decode_bwd"]),
+            halo_ok, feats_equal[0] if feats_equal else None)
 
 
 def gs_rank_main(rank: int, port: int, out: str, device: str) -> int:
     """One rank of the gs union check (chip_smoke.py --gs-rank R --port P
-    --out FILE --device D): saves its results."""
+    --out FILE --device D): saves its results and the graphed-against-
+    eager checks, as dp_rank_main's."""
     import numpy as np
     import torch
 
+    from nice_slam_torch.graphs import StepGraphs
     from nice_slam_torch.parallel import multihost
     from nice_slam_torch.parallel.grid_sharded import GridShard
 
@@ -2083,20 +2295,37 @@ def gs_rank_main(rank: int, port: int, out: str, device: str) -> int:
                          rank, timeout_s=300, device=device)
     dev = multihost.rank_device(device, rank)
     gs = GridShard(*GS_SHAPE)
-    t0 = time.perf_counter()
-    leaves, cams, losses, launches, feats_equal, halo_ok, query_err = \
-        gs_union_call(torch, dev, gs)
-    call_s = time.perf_counter() - t0
+    query_err, feats_equal = gs_query_check(torch, dev, gs)
+    union = gs_union_call(torch, dev, gs)
+    union_g = gs_union_call(torch, dev, gs, graphs=StepGraphs(dev))
+    eager, graphed, checked, stats = graphed_against_eager(
+        torch, dev, lambda r: gs_union_call(torch, dev, gs, graphs=r,
+                                            long=True))
+    _, leaves, cams, losses, call_s, _, launches, halo_ok, _ = union
     arrays = {f"leaf{k}": t.detach().cpu().numpy()
               for k, t in enumerate(leaves)}
     arrays.update({
         "cams": cams.detach().cpu().numpy(), "losses": losses.cpu().numpy(),
         "launches": np.array(launches), "feats_equal": np.array(feats_equal),
+        # each call's first feature sum against the dense interpolation
+        "step_feats_equal": np.array([c[8] for c in (union, union_g, eager,
+                                                     graphed)]),
         "halo_ok": np.array(halo_ok, bool), "dm": np.array([gs.d, gs.m]),
         "query_err": np.array(query_err),
         "call_s": np.array(call_s),
         "stats": np.array(json.dumps(gs.stats())),
-        "backend": np.array(multihost.backend())})
+        "backend": np.array(multihost.backend()),
+        "graphed": np.array(json.dumps({
+            "union_equal": (_same_call(torch, union, union_g)
+                            and union[6:] == union_g[6:]),
+            "long_equal": (_same_call(torch, eager, graphed)
+                           and eager[6:] == graphed[6:]),
+            "union_s": [union[4], union_g[4]],
+            "long_s": [eager[4], graphed[4]],
+            "long_reduce_s": [eager[5], graphed[5]],
+            "reduces": [len(eager[0]), len(graphed[0])],
+            "halo_checks": [len(eager[7]), len(graphed[7])],
+            "sync_checked": _sig_names(checked), "stats": stats}))})
     np.savez(out, **arrays)
     multihost.shutdown()
     return 0
@@ -2104,13 +2333,18 @@ def gs_rank_main(rank: int, port: int, out: str, device: str) -> int:
 
 def check_gs_union(torch, log, device="cuda"):
     """Phase 18: four ranks at [2, 2] of one mapping call over gloo on the
-    card against this process on the union: the first decode's summed
-    features bit-equal to the dense interpolation, every loss within 1e-6
-    relative, the updated decoders, grids and cameras within 1e-5
-    relative Frobenius, the halo invariant bitwise after every step, K1/K2
-    launches a rank equal to the dense call's, the ranks bit-equal; and
-    the sharded query within 1e-4 x max(1, max |dense|) of eval_points
-    (K1's forward tolerance)."""
+    card against this process on the union: the features summed from the
+    slabs bit-equal to the dense interpolation (the first sum of each of
+    the rank's four mapping calls at the step's own points, and at the
+    query's points),
+    every loss within 1e-6 relative, the updated decoders, grids and
+    cameras within 1e-5 relative Frobenius, the halo invariant bitwise
+    after every step, K1/K2 launches a rank equal to the dense call's, the
+    ranks bit-equal; the sharded query within 1e-4 x max(1, max |dense|)
+    of eval_points (K1's forward tolerance).  On every rank graphed equals
+    eager bit for bit (every collective's sum, leaf, the cameras, the
+    losses, the launches and the halo invariant) in the union call and in
+    a longer one whose eager run the sync-debug sweep checked."""
     import numpy as np
 
     from nice_slam_torch.parallel.multihost import free_port, rank_world
@@ -2139,14 +2373,15 @@ def check_gs_union(torch, log, device="cuda"):
                 f"gs union: rank {r} exited {p.returncode}: {text[-3000:]}")
     ranks_s = time.perf_counter() - t0
     dev = torch.device(device)
-    leaves, cams, losses, launches, _, _, _ = gs_union_call(torch, dev,
-                                                            None)
+    _, leaves, cams, losses, _, _, launches, *_ = gs_union_call(torch, dev,
+                                                                None)
     want = {f"leaf{k}": t.detach() for k, t in enumerate(leaves)}
     want["cams"] = cams.detach()
-    got = []
+    got, graphed = [], []
     for r in range(world):
         with np.load(os.path.join(out_dir, f"rank{r}.npz")) as z:
             got.append({k: z[k] for k in z.files})
+        graphed.append(json.loads(str(got[-1].pop("graphed"))))
     worst, loss_err = 0.0, 0.0
     for r, g in enumerate(got):
         fail_if(list(g["dm"]) != [r // GS_SHAPE[1], r % GS_SHAPE[1]],
@@ -2157,6 +2392,12 @@ def check_gs_union(torch, log, device="cuda"):
         fail_if(not bool(g["feats_equal"]),
                 f"gs union: rank {r}'s summed features differ from the "
                 "dense interpolation")
+        fail_if(not g["step_feats_equal"].all(),
+                f"gs union: rank {r}'s step summed features that differ from "
+                "the dense interpolation at its own points (union, graphed "
+                f"union, long, graphed long: {g['step_feats_equal']})")
+        fail_if(graphed[r]["halo_checks"][0] != graphed[r]["halo_checks"][1],
+                f"gs union: rank {r}'s halo checks {graphed[r]}")
         fail_if(tuple(g["launches"]) != launches,
                 f"gs union: rank {r} launched K1/K2 {tuple(g['launches'])}, "
                 f"the dense call {launches}")
@@ -2187,6 +2428,7 @@ def check_gs_union(torch, log, device="cuda"):
             f"gs union: losses {loss_err} relative from the union's")
     fail_if(not worst <= 1e-5,
             f"gs union: results {worst} relative from the union's")
+    res["graphed"] = check_graphed_ranks(log, "gs", graphed, GS_LONG_SIGS)
     return res
 
 
@@ -2207,6 +2449,9 @@ def run_gs(torch, fd, log, strict_ate, n_frames=6, device="cuda",
         "collective_share_of_map": [c / s["timings_s"]["map"]
                                     for c, s in zip(secs, ranks)]})
     log("gs: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    log(f"gs by rank: wall {res['wall_s']} s, map "
+        f"{[s['timings_s']['map'] for s in ranks]} s, collectives "
+        f"{secs} s, share of map {res['collective_share_of_map']}")
     fail_if(any(x["shape"] != [1, 2] for x in st), "gs: shape")
     return res
 

@@ -56,16 +56,19 @@ bit.  Their render time counts under the stage 'vis', not 'track' or
 'map'.
 
 CUDA graphs.  On a card each optimiser iteration of tracking and of the
-dense mapper is a captured CUDA graph replayed `iters` times (graphs.py:
-one runner a side, `_track_graphs` and `_map_graphs`), the counterpart
-of the JAX package's jitted `lax.scan` bodies, in NICE and iMAP* mode,
-with occupancy-guided sampling and with the panels; so are init_select's
+mapper is a captured CUDA graph replayed `iters` times (graphs.py: one
+runner a side, `_track_graphs` and `_map_graphs`), the counterpart of
+the JAX package's jitted `lax.scan` bodies, in NICE and iMAP* mode, with
+occupancy-guided sampling and with the panels; so are init_select's
 candidate renders and each Gauss-Newton iteration of tracking and BA.
-The tracker reads its own copy of the map (`_params_t`, `_grids_t`,
-`_bound_t`, the occupancy proxy among the grids), at addresses that do
-not move, refreshed in place when the map changes.  Only data-parallel
-and grid-sharded mapping (a gloo all_reduce inside the step) run their
-mapping steps eagerly.  `graph_stats()` reads the runners.
+Data-parallel and grid-sharded mapping have collectives inside the step
+(gloo all_reduces, which a capture cannot hold): each of their
+iterations is a segmented step of the mapping runner, graphs cut at the
+collectives, which run eagerly between the replays.  The tracker reads
+its own copy of the map (`_params_t`, `_grids_t`, `_bound_t`, the
+occupancy proxy among the grids), at addresses that do not move,
+refreshed in place when the map changes.  `graph_stats()` reads the
+runners.
 
 The JAX package's TPU dispatch knobs (tpu.grouped_tracking, fuse_lagged,
 barrier_every_groups, prefetch, fuse_track_map) and tpu.mesh_shape
@@ -367,8 +370,9 @@ class SlamEngine:
         self._track_src = src
 
     def graph_stats(self) -> dict:
-        """The CUDA-graph runners of tracking and mapping: graphs,
-        captures, replays, eager steps, capture seconds."""
+        """The CUDA-graph runners of tracking and mapping: graphs (of
+        them the segments of segmented steps), captures, replays, eager
+        steps, host calls between segments, capture seconds."""
         return {"track": self._track_graphs.stats(),
                 "map": self._map_graphs.stats()}
 

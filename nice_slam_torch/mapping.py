@@ -38,9 +38,14 @@ replayed for the stage's iterations: the counterpart of the JAX
 package's three `lax.scan`s (nice_slam_tpu/mapping.py:444-471), in
 every mode: iMAP* reads its StepLR rate from a device table at the step
 counter, the occupancy proxy is one of the static grids, and each
-Gauss-Newton iteration after the staged Adam is a step of its own.  Only
-the data-parallel `shard` (a gloo all_reduce inside the step) and given
-`pixels` run the same step eagerly.
+Gauss-Newton iteration after the staged Adam is a step of its own.
+Given `pixels` are copied into static draw buffers before each replay.
+The data-parallel `shard` step has a gloo all_reduce inside: it is a
+segmented step, two graphs around the collective, which runs eagerly
+between their replays (the JAX package's jitted shard_map with its psum,
+nice_slam_tpu/parallel/data_parallel.py:53-101); grid-sharded mapping
+(parallel/grid_sharded.py) is segmented the same way at its five
+collectives.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from nice_slam_torch.camera import Camera
-from nice_slam_torch.graphs import StepGraphs
+from nice_slam_torch.graphs import StepGraphs, load_draws, tensor_key
 from nice_slam_torch.keyframes import (
     KeyframeStore,
     add_keyframe,
@@ -408,16 +413,17 @@ def imap_lr_table(lr: float, n: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # The mapping optimisation
 
-def _map_buffers(graphs: StepGraphs, params, grids, window, n_iters: int):
-    """The static buffers of the mapping loop (made once per runner, map
-    shapes, window shape and capacity): the tree {"params", "grids",
+def _map_buffers(graphs: StepGraphs, params, grids, window, n_iters: int,
+                 tag: str = "map"):
+    """The static buffers of a mapping loop (made once per runner, tag,
+    map shapes, window shape and capacity): the tree {"params", "grids",
     "cams"}, Adam's moments and step counter, bias tables, the losses, the
     window (colours, depths, valid), a frustum mask per grid, the BA
     learning-rate mask and the bound."""
     cap = max(n_iters, graphs.max_iters)
     leaves = tree_leaves(params)
     dev = window["depths"].device
-    key = ("map", cap, tuple(window["colors"].shape),
+    key = (tag, cap, tuple(window["colors"].shape),
            tuple(window["depths"].shape), dev,
            tuple(tuple(x.shape) for x in leaves),
            tuple((n, tuple(g.shape)) for n, g in grids.items()))
@@ -441,6 +447,25 @@ def _map_buffers(graphs: StepGraphs, params, grids, window, n_iters: int):
             bound=torch.empty(3, 2, device=dev))
 
     return key, graphs.buffers(key, make)
+
+
+@torch.no_grad()
+def _load_map_buffers(b, params, grids, bound, window, cams0, masks,
+                      cam_lr_mask) -> None:
+    """A call's inputs copied into the loop's buffers; Adam restarts."""
+    tree_map(lambda d, x: d.copy_(x), b.tree["params"], params)
+    for n, g in grids.items():
+        b.tree["grids"][n].copy_(g)
+    b.tree["cams"].copy_(cams0)
+    for mom in (b.m, b.v):
+        tree_map(lambda x: x.zero_(), mom)
+    b.step.zero_()
+    for k in ("colors", "depths", "valid"):
+        b.window[k].copy_(window[k])
+    for n, mk in masks.items():
+        b.masks[n].copy_(mk)
+    b.cam_lr_mask.copy_(cam_lr_mask)
+    b.bound.copy_(bound)
 
 
 def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
@@ -472,9 +497,10 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
     equals one without, bit for bit.
 
     `graphs` (the engine's mapping runner) replays each stage's iteration
-    (not with `pixels` or `shard`) and each Gauss-Newton iteration (not
-    with `shard`) as a captured CUDA graph on a card; without it the loop
-    runs eagerly.
+    and each Gauss-Newton iteration as a captured CUDA graph on a card;
+    with `shard` each iteration is a segmented step, two graphs around
+    the all_reduce (the Gauss-Newton iteration three, around its two).
+    Without it the loop runs eagerly.
 
     Returns (params, grids, cams, losses (n_iters,)): new tensors."""
     if not ba:
@@ -482,22 +508,10 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
     n_iters = sum(n for _, n in stage_iters)
     graphs = graphs or StepGraphs(cams0.device, capture=False)
     bkey, b = _map_buffers(graphs, params, grids, window, n_iters)
-    with torch.no_grad():
-        tree_map(lambda d, x: d.copy_(x), b.tree["params"], params)
-        for n, g in grids.items():
-            b.tree["grids"][n].copy_(g)
-        b.tree["cams"].copy_(cams0)
-        for mom in (b.m, b.v):
-            tree_map(lambda x: x.zero_(), mom)
-        b.step.zero_()
-        for k in ("colors", "depths", "valid"):
-            b.window[k].copy_(window[k])
-        for n, mk in masks.items():
-            b.masks[n].copy_(mk)
-        b.cam_lr_mask.copy_(cam_lr_mask)
-        b.bound.copy_(bound)
+    _load_map_buffers(b, params, grids, bound, window, cams0, masks,
+                      cam_lr_mask)
     wn = window["colors"].shape[0]
-    graphed = pixels is None and shard is None
+    pix_buf = graphs.draw_buffers(pixels)
     # iMAP*'s StepLR rate at each step (the data-parallel step takes none)
     imap_lr = None
     if not mapspec.nice and shard is None:
@@ -507,32 +521,18 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
             lambda: imap_lr_table(mapspec.imap_decoders_lr, cap,
                                   b.step.device))
 
-    def step(stage, rspec_stage, pix):
+    def apply(stage, loss, grads):
+        """The masks, the clip, the learning rates and Adam on the live
+        gradients (in tree order); the loss recorded at the step."""
         lr_tree, frozen = _lr_tree(b.tree, stage, mapspec, lr_factor,
                                    b.cam_lr_mask)
-        tr = tree_map(lambda x, f: x if f else
-                      x.detach().requires_grad_(True), b.tree, frozen)
-        live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
-                if not f]
-        reg_u = max_d = None
-        if shard is not None:
-            pix, reg_u, max_d = shard.loss_draws(
-                b.window, camera, mapspec.pixels // wn, rspec, gen, pix)
-        loss = mapping_loss(
-            tr, b.window, b.bound, camera, stage, mapspec, rspec_stage,
-            mspec, gen=gen, pix=pix, reg_u=reg_u, max_depth=max_d)
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-        if shard is not None:
-            loss, *grads = shard.reduce(
-                [loss] + [torch.zeros_like(x) if gg is None else gg
-                          for x, gg in zip(live, grads)], stage)
         gl = iter(grads)
-        g = tree_map(lambda x, f: None if f else next(gl), tr, frozen)
+        g = tree_map(lambda x, f: None if f else next(gl), b.tree, frozen)
         for n in g["grids"]:
             if g["grids"][n] is not None:
                 g["grids"][n] = g["grids"][n] * b.masks[n]
-        g = tree_map(lambda x, gg: torch.zeros_like(x)
-                     if gg is None and x.requires_grad else gg, tr, g)
+        g = tree_map(lambda x, gg, f: torch.zeros_like(x)
+                     if gg is None and not f else gg, b.tree, g, frozen)
         # the data-parallel step clips nothing and scales no LR, as
         # the JAX package's (data_parallel.py:92-101)
         if mapspec.grad_clip > 0.0 and shard is None:
@@ -550,19 +550,67 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
             adam_step_(b.tree, g, b.m, b.v, b.step, b.tables, lr_tree,
                        frozen=frozen)
 
+    def loss_grads(stage, rspec_stage, frozen):
+        tr = tree_map(lambda x, f: x if f else
+                      x.detach().requires_grad_(True), b.tree, frozen)
+        live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
+                if not f]
+        reg_u = max_d = None
+        pix = pix_buf
+        if shard is not None:
+            pix, reg_u, max_d = shard.loss_draws(
+                b.window, camera, mapspec.pixels // wn, rspec, gen, pix)
+        loss = mapping_loss(
+            tr, b.window, b.bound, camera, stage, mapspec, rspec_stage,
+            mspec, gen=gen, pix=pix, reg_u=reg_u, max_depth=max_d)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        return live, loss, grads
+
+    def step(stage, rspec_stage, frozen):
+        _, loss, grads = loss_grads(stage, rspec_stage, frozen)
+        apply(stage, loss, grads)
+
+    def segments(stage, rspec_stage, frozen):
+        """The data-parallel iteration: the draws, loss and gradients
+        packed into the bucket; the all_reduce; Adam on the sums."""
+        shapes = [()] + [x.shape for x, f in zip(
+            tree_leaves(b.tree), tree_leaves(frozen)) if not f]
+        bucket = graphs.bucket(("map", bkey, stage), shapes)
+
+        def grads_segment():
+            live, loss, grads = loss_grads(stage, rspec_stage, frozen)
+            bucket.pack([loss] + [torch.zeros_like(x) if gg is None else gg
+                                  for x, gg in zip(live, grads)])
+
+        def adam_segment():
+            loss, *grads = bucket.views()
+            apply(stage, loss, grads)
+
+        return ((grads_segment, adam_segment),
+                (lambda: shard.reduce_(bucket, stage),), ((gen,), ()))
+
     it_all = 0
     for stage, n_stage in stage_iters:
         # NICE decoders only train in the colour stage
         rspec_stage = dataclasses.replace(
             rspec, train_decoders=(stage == "color" or not mapspec.nice))
-        key = (("map", bkey, stage, mapspec, rspec_stage, mspec, camera,
-                lr_factor, id(gen)) if graphed else None)
+        frozen = _lr_tree(b.tree, stage, mapspec, lr_factor,
+                          b.cam_lr_mask)[1]
+        key = ("map", bkey, stage, mapspec, rspec_stage, mspec, camera,
+               lr_factor, id(gen), shard and shard.signature(),
+               None if pix_buf is None else tensor_key(pix_buf))
+        if shard is not None:
+            segs = segments(stage, rspec_stage, frozen)
         for _ in range(n_stage):
             if on_iter is not None:
                 on_iter(it_all, b.tree)
-            pix = None if pixels is None else pixels[it_all]
-            graphs.step(key, lambda st=stage, rs=rspec_stage,
-                        pix=pix: step(st, rs, pix), (gen,))
+            if pix_buf is not None:
+                load_draws(pix_buf, pixels[it_all])
+            if shard is None:
+                graphs.step(key, lambda st=stage, rs=rspec_stage,
+                            fz=frozen: step(st, rs, fz), (gen,))
+            else:
+                graphs.step_segments(key, *segs)
             it_all += 1
     cams = b.tree["cams"].clone()
     if ba and mapspec.pose_gn_iters > 0 and mapspec.nice:
@@ -615,13 +663,13 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
         params, grids, cams, losses = gs_map_once(
             params, grids, bound, window, cams0, masks, cam_lr_mask,
             lr_factor, camera, stage_iters, mapspec, rspec, mspec, gs,
-            gen=gen, on_iter=on_iter)
+            gen=gen, on_iter=on_iter, graphs=graphs)
     elif dp is not None:
         from nice_slam_torch.parallel.data_parallel import dp_map_optimize
         params, grids, cams, losses = dp_map_optimize(
             params, grids, bound, window, cams0, masks, cam_lr_mask,
             lr_factor, camera, stage_iters, mapspec, rspec, mspec, dp,
-            ba=ba, gen=gen, on_iter=on_iter)
+            ba=ba, gen=gen, on_iter=on_iter, graphs=graphs)
     else:
         params, grids, cams, losses = map_optimize(
             params, grids, bound, window, cams0, masks, cam_lr_mask,

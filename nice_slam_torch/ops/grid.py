@@ -100,13 +100,19 @@ def scatter_rows(rows: torch.Tensor, vals: torch.Tensor, n_rows: int,
 class _TrilinearInterp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, grid: torch.Tensor, p_nor: torch.Tensor, shape,
-                x_offset: int):
+                x_offset: int, own=None):
         nx, ny, nz, C = grid.shape
         i0, i1, f, du = _cell(shape, p_nor)
         if x_offset:
             shift = const([x_offset, 0, 0], torch.int64, i0.device)
             i0, i1 = i0 - shift, i1 - shift
         rows = _corner_rows(grid.shape, i0, i1)
+        extra = ()
+        if own is not None:
+            # the points that `own` leaves out read row 0 and give 0;
+            # their cotangent rows go to a sink row past the grid
+            extra = (torch.where(own, rows, nx * ny * nz), own)
+            rows = torch.where(own, rows, 0)
         flat = grid.reshape(nx * ny * nz, C)
         c = flat[rows.reshape(-1)].reshape(8, -1, C)
         fx, fy, fz = f[:, 0:1], f[:, 1:2], f[:, 2:3]
@@ -117,12 +123,14 @@ class _TrilinearInterp(torch.autograd.Function):
         c0 = c00 * (1 - fy) + c01 * fy
         c1 = c10 * (1 - fy) + c11 * fy
         out = c0 * (1 - fx) + c1 * fx
-        ctx.save_for_backward(grid, rows, f, du)
+        if own is not None:
+            out = torch.where(own[:, None], out, 0.0)
+        ctx.save_for_backward(grid, rows, f, du, *extra)
         return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        grid, rows, f, du = ctx.saved_tensors
+        grid, rows, f, du, *extra = ctx.saved_tensors
         nx, ny, nz, C = grid.shape
         fx, fy, fz = f[:, 0:1], f[:, 1:2], f[:, 2:3]
         d_grid = d_p = None
@@ -133,8 +141,16 @@ class _TrilinearInterp(torch.autograd.Function):
             vals = torch.stack([g * (wx[a] * wy[b] * wz[cc])
                                 for a in (0, 1) for b in (0, 1)
                                 for cc in (0, 1)])
-            d_grid = scatter_rows(rows.reshape(-1), vals.reshape(-1, C),
-                                  nx * ny * nz).reshape(nx, ny, nz, C)
+            n = nx * ny * nz
+            if extra:
+                # the sink row sorts last, so the grid's rows are summed
+                # in the same pieces as without the left-out points
+                d_grid = scatter_rows(extra[0].reshape(-1),
+                                      vals.reshape(-1, C), n + 1)[:n]
+            else:
+                d_grid = scatter_rows(rows.reshape(-1), vals.reshape(-1, C),
+                                      n)
+            d_grid = d_grid.reshape(nx, ny, nz, C)
         if ctx.needs_input_grad[1]:
             flat = grid.reshape(nx * ny * nz, C)
             c = flat[rows.reshape(-1)].reshape(8, -1, C)
@@ -154,7 +170,9 @@ class _TrilinearInterp(torch.autograd.Function):
                                torch.sum(g * d_fy, dim=-1),
                                torch.sum(g * d_fz, dim=-1)], dim=-1)
             d_p = d_f * du
-        return d_grid, d_p, None, None
+            if extra:
+                d_p = torch.where(extra[1][:, None], d_p, 0.0)
+        return d_grid, d_p, None, None, None
 
 
 def trilinear_interp(grid: torch.Tensor, p_nor: torch.Tensor) -> torch.Tensor:
@@ -165,15 +183,18 @@ def trilinear_interp(grid: torch.Tensor, p_nor: torch.Tensor) -> torch.Tensor:
 
 
 def slab_trilinear(slab: torch.Tensor, p_nor: torch.Tensor, global_shape,
-                   x_offset: int) -> torch.Tensor:
+                   x_offset: int, own=None) -> torch.Tensor:
     """`trilinear_interp` of the global grid of shape `global_shape`
     (Nx, Ny, Nz) at p_nor, read from `slab`, its rows [x_offset,
     x_offset + slab.shape[0]) (parallel/grid_sharded.py).  Every point's
-    base cell and the row after it must lie in the slab.  The cell, the
-    corner order and the lerps are the dense function's, so each row
-    equals the dense interpolation bit for bit."""
+    base cell and the row after it must lie in the slab, or the point be
+    left out by `own` (N,) bool: its row is 0 and it adds nothing to the
+    slab's gradient or its own.  The cell, the corner order and the lerps
+    are the dense function's, so each row equals the dense interpolation
+    bit for bit."""
     return _TrilinearInterp.apply(
-        slab, p_nor, tuple(global_shape) + (slab.shape[-1],), x_offset)
+        slab, p_nor, tuple(global_shape) + (slab.shape[-1],), x_offset,
+        own)
 
 
 def grid_shape_for_bound(bound, voxel_len: float, enlarge: int = 1):

@@ -17,8 +17,16 @@ copy of the staged loop.  Per iteration, in order:
 3. the frustum masks apply, then Adam runs identically on every rank.
 
 With Gauss-Newton on, each GN iteration draws the union's pixels the same
-way (per-frame max depth over the union) and `schur_ba.gn_iteration` sums
-(H, b, sse0) and (sse1, cnt0, cnt1) through the same bucketed reduce.
+way (per-frame max depth over the union) and sums (H, b, sse0) and (sse1,
+cnt0, cnt1) through the same bucketed reduce (`schur_ba`).
+
+On a card each iteration is a segmented step of the mapping runner
+(graphs.py `step_segments`): the Adam iteration is two CUDA graphs, the
+draws, loss and gradients packed into a static `Bucket`, then the
+masks and Adam reading its sums, with the all_reduce run eagerly
+between their replays; a Gauss-Newton iteration is three graphs around
+its two reduces.  The graphed run equals the eager run of the same
+segments bit for bit.
 
 Drawing the union keeps every rank's generator in lockstep: keyframe
 selection, tracking and everything else stay bit-identical across ranks,
@@ -49,6 +57,7 @@ import torch
 import torch.distributed as dist
 
 from nice_slam_torch.camera import Camera
+from nice_slam_torch.graphs import Bucket, StepGraphs
 from nice_slam_torch.mapping import MapSpec, map_optimize
 from nice_slam_torch.models.decoders import ModelSpec
 from nice_slam_torch.parallel.schur_ba import window_pixels
@@ -73,6 +82,10 @@ class RayShard:
         self.bytes: dict = {}
         self.calls: dict = {}
         self.seconds = 0.0
+
+    def signature(self) -> tuple:
+        """What a step's signature holds of this shard."""
+        return ("shard", self.world, self.rank, id(self.group))
 
     # -- draws -------------------------------------------------------------
 
@@ -119,13 +132,13 @@ class RayShard:
 
     # -- the reduce --------------------------------------------------------
 
-    def reduce(self, tensors, kind: str = "gn"):
-        """all_reduce(SUM) of `tensors` (fp32, any shapes) over the group in
-        one flat bucket, counted under `kind` (a stage, or 'gn': a
-        Gauss-Newton iteration reduces twice); returns them summed, in
-        their shapes."""
-        tensors = list(tensors)
-        flat = torch.cat([t.reshape(-1) for t in tensors])
+    def reduce_(self, bucket: Bucket, kind: str = "gn") -> None:
+        """all_reduce(SUM) of a `Bucket` over the group, in place, in one
+        call, counted under `kind` (a stage, or 'gn': a Gauss-Newton
+        iteration reduces twice).  The host call between two segments of
+        a step (graphs.StepGraphs.step_segments): it runs on the caller's
+        stream, outside any capture."""
+        flat = bucket.flat
         dev = flat.device
         if self.world > 1:
             if dev.type == "cuda":
@@ -138,11 +151,6 @@ class RayShard:
         self.bytes[kind] = (self.bytes.get(kind, 0)
                             + flat.numel() * flat.element_size())
         self.calls[kind] = self.calls.get(kind, 0) + 1
-        out, k = [], 0
-        for t in tensors:
-            out.append(flat[k:k + t.numel()].reshape(t.shape))
-            k += t.numel()
-        return tuple(out)
 
     def stats(self) -> dict:
         """{"world", "bytes_per_iter" and "iters" by stage ('gn' counts
@@ -160,16 +168,17 @@ def dp_map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                     mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                     shard: RayShard, ba: bool = True,
                     gen: Optional[torch.Generator] = None, pixels=None,
-                    on_iter=None):
+                    on_iter=None, graphs: Optional[StepGraphs] = None):
     """Data-parallel `map_optimize`: the same staged schedule, each
     iteration's loss and gradients summed over `shard`'s group, with a
     rank budget of mapspec.pixels rays (world x pixels a step).  `pixels`
     optionally gives every iteration's union draws, in order; `on_iter`
-    as in `map_optimize` (every rank calls it in lockstep).
+    as in `map_optimize` (every rank calls it in lockstep); `graphs`: the
+    mapping runner, whose segments the iterations replay.
 
     Returns (params, grids, cams, losses (n_iters,)), the losses summed
     over the group."""
     return map_optimize(params, grids, bound, window, cams0, masks,
                         cam_lr_mask, lr_factor, camera, stage_iters, mapspec,
                         rspec, mspec, ba=ba, gen=gen, pixels=pixels,
-                        shard=shard, on_iter=on_iter)
+                        shard=shard, on_iter=on_iter, graphs=graphs)

@@ -10,27 +10,29 @@ first owned row, and the padding beyond nx is zeros that are never read
 (base cells are clipped to nx-2).
 
 Rank r is (d, m) = (r // n_model, r % n_model), row-major as the JAX
-package's `make_mesh_2d` lays out its devices.  Per decode
-(`make_gs_decode_fn`):
-- each rank interpolates only the points whose base cell lies in its
-  owned rows (`slab_interp`: an index of those points, gathered and
-  scattered alone, placed in a zero (N, C) tensor), so a rank's gather
-  and scatter work is its slab's share;
+package's `make_mesh_2d` lays out its devices.  Per decode:
+- each rank interpolates from its slab only the points whose base cell
+  lies in its owned rows (`slab_interp`: the other points read row 0,
+  give 0 and add nothing to either gradient; every shape is static, so
+  each rank gathers and scatters all the points, whatever its share:
+  tools/slab_gather.py times it against the owned points alone);
 - the feature rows of all the stage's levels are summed over `model` in
-  one flat all_reduce (`_ModelSum`, backward the identity: every model
-  rank computes the same loss on the same rays, so the cotangent is
-  already replicated);
-- the points' cotangent through the slabs is summed over `model`
-  (`_ModelBroadcast`, forward the identity), the transpose that JAX's
-  shard_map inserts for a replicated input of a sharded computation;
-  without it each rank's camera gradient would hold only its own points'
-  grid term;
+  one flat all_reduce (backward the identity: every model rank computes
+  the same loss on the same rays, so the cotangent is already
+  replicated);
+- the points' cotangent through the slabs is summed over `model`, the
+  transpose that JAX's shard_map inserts for a replicated input of a
+  sharded computation; without it each rank's camera gradient would hold
+  only its own points' grid term;
 - the decoders run replicated on every model rank (`model_apply_feats`,
   which routes by `fused_route`, so at the default widths K1/K2 decode
   the summed features).
 Each point has one owner and the slab interpolation keeps the dense
 function's cell, corner order and lerps, so the summed features equal
-`trilinear_interp` bit for bit.
+`trilinear_interp` bit for bit.  `make_gs_decode_fn` composes this as
+autograd Functions around the collectives (`_ModelSum`,
+`_ModelBroadcast`) for the eager decodes: the sharded query
+`gs_eval_points` and the panels' decode.
 
 Per step (`gs_map_optimize`, the order of JAX `_gs_map_optimize`):
 the loss and all live gradients are summed over `data`; each slab's halo
@@ -40,7 +42,18 @@ from the neighbour's updated row 0 (the last shard keeps its own).  The
 halo exchange is an all_reduce(SUM) over `model` of an (n_model, plane)
 slot buffer with one writer a slot, so it is exact, and one code path
 serves gloo (which has only all_reduce and broadcast for CUDA tensors)
-and NCCL.
+and NCCL.  The step is a segmented step of the mapping runner
+(`_gs_step`, graphs.py `step_segments`), cut at its collectives (the
+feature sum, the points' cotangent sum, the data reduce, the two halo
+exchanges) on static buffers: on a card each segment is a CUDA graph and
+the collectives run eagerly between the replays.  The loss's backward
+is split by hand at the feature sum: the decode's backward to the
+decoders, the summed features and the points; the slab interpolation
+recomputed with grad for the slabs' gradient and the points' part; after
+the points' sum, one backward of the recomputed rays to the cameras.
+Only the rays, their normalisation and the slab gather are recomputed;
+every sum keeps the dense backward's order, so at [1, 1] the step equals
+the dense `map_optimize` bit for bit.
 
 What the JAX gs step does differently from its `map_optimize`, reproduced
 here: no Gauss-Newton refinement of the BA window, no grad_clip, no
@@ -70,9 +83,12 @@ import torch
 import torch.distributed as dist
 
 from nice_slam_torch.camera import Camera
+from nice_slam_torch.graphs import StepGraphs, load_draws, tensor_key
 from nice_slam_torch.mapping import (
     MapSpec,
+    _load_map_buffers,
     _lr_tree,
+    _map_buffers,
     _trained_grids,
     _window_rays,
 )
@@ -82,11 +98,13 @@ from nice_slam_torch.models.decoders import (
     stage_levels,
 )
 from nice_slam_torch.ops.grid import _cell, normalize_coords, slab_trilinear
-from nice_slam_torch.ops.optim import adam_init, adam_update
+from nice_slam_torch.ops.composite import raw2outputs
+from nice_slam_torch.ops.optim import adam_step_
 from nice_slam_torch.ops.rays import ray_aabb_far
+from nice_slam_torch.ops.sampling import sample_pdf
 from nice_slam_torch.ops.tree import tree_leaves, tree_map
 from nice_slam_torch.parallel.data_parallel import RayShard
-from nice_slam_torch.render import RenderSpec, render_rays
+from nice_slam_torch.render import RenderSpec, _zvals
 
 SHARDED_LEVELS = ("middle", "fine", "color")
 
@@ -136,23 +154,22 @@ def shard_grids(grids: Dict[str, torch.Tensor], n_shards: int, s: int):
 
 def owned_points(p_nor: torch.Tensor, global_shape, shard_idx: int,
                  sx: int) -> torch.Tensor:
-    """Ids of the points whose base cell's X row lies in shard_idx's owned
-    rows (the cell of ops/grid.trilinear_interp)."""
+    """(N,) bool: whether each point's base cell's X row lies in
+    shard_idx's owned rows (the cell of ops/grid.trilinear_interp)."""
     x0 = _cell(tuple(global_shape) + (1,), p_nor)[0][:, 0]
-    own = (x0 >= shard_idx * sx) & (x0 < (shard_idx + 1) * sx)
-    return torch.nonzero(own).squeeze(1)
+    return (x0 >= shard_idx * sx) & (x0 < (shard_idx + 1) * sx)
 
 
 def slab_interp(slab: torch.Tensor, p_nor: torch.Tensor, global_shape,
                 shard_idx: int, sx: int) -> torch.Tensor:
     """This shard's part of the trilinear interpolation of the global grid
     at p_nor in [-1, 1]^3: (N, C), the owned points' rows equal to the
-    dense interpolation's bit for bit and 0 elsewhere.  Only the owned
-    points are gathered (and, backward, scattered into the slab)."""
-    idx = owned_points(p_nor, global_shape, shard_idx, sx)
-    part = slab_trilinear(slab, p_nor[idx], global_shape, shard_idx * sx)
-    out = p_nor.new_zeros(p_nor.shape[0], slab.shape[-1])
-    return out.index_copy(0, idx, part)
+    dense interpolation's bit for bit and 0 elsewhere.  The other points
+    add nothing to the slab's gradient or their own.  Every shape is
+    static (no count of owned points reaches the host), so a CUDA graph
+    holds it."""
+    own = owned_points(p_nor, global_shape, shard_idx, sx)
+    return slab_trilinear(slab, p_nor, global_shape, shard_idx * sx, own)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +207,7 @@ class GridShard:
             if m == self.m:
                 self.data_group = g
         self.rays = RayShard(group=self.data_group)
+        self._groups = (id(self.model_group), id(self.data_group))
         self.bytes: dict = {}
         self.calls: dict = {}
         self.seconds: dict = {}
@@ -211,6 +229,11 @@ class GridShard:
         self.bytes[key] = self.bytes.get(key, 0) + t.numel() * t.element_size()
         self.calls[key] = self.calls.get(key, 0) + 1
         return t
+
+    def signature(self) -> tuple:
+        """What a step's signature holds of this shard."""
+        return ("grid", self.n_data, self.n_model, self.d, self.m,
+                *self._groups)
 
     def stats(self) -> dict:
         """{"shape": [n_data, n_model], "bytes_per_iter": {kind: {stage:
@@ -267,6 +290,38 @@ class _ModelBroadcast(torch.autograd.Function):
         return ctx.gs.model_sum_(g.clone(), "points", ctx.stage), None, None
 
 
+def _slab_parts(slabs, p_nor: torch.Tensor, shapes, levels,
+                m: int) -> torch.Tensor:
+    """Model rank m's part of the features of `levels` at p_nor, flat:
+    each level's (N, C) rows in turn (the buffer one all_reduce sums)."""
+    return torch.cat([slab_interp(slabs[n], p_nor, shapes[n], m,
+                                  slabs[n].shape[0] - 1).reshape(-1)
+                      for n in levels])
+
+
+def _split(flat: torch.Tensor, slabs, levels, n_pts: int) -> dict:
+    """A flat feature buffer (`_slab_parts`'s layout) as {level: (N, C)}
+    views."""
+    feats, k = {}, 0
+    for n in levels:
+        c = slabs[n].shape[-1]
+        feats[n] = flat[k:k + n_pts * c].reshape(n_pts, c)
+        k += n_pts * c
+    return feats
+
+
+def _decode(params, mspec: ModelSpec, p: torch.Tensor, feats: dict,
+            stage: str, train_decoders: bool, bound) -> torch.Tensor:
+    """Raw (N, 4) of points p from their summed features, with the
+    out-of-AABB occupancy forcing (reference Renderer.py:38-61; JAX
+    grid_sharded.py:173-188)."""
+    raw = model_apply_feats(params, mspec, p, feats, stage, train_decoders)
+    inside = torch.all((p > bound[:, 0]) & (p < bound[:, 1]), dim=-1)
+    occ = torch.where(inside, raw[..., 3],
+                      torch.full_like(raw[..., 3], 100.0))
+    return torch.cat([raw[..., :3], occ[..., None]], dim=-1)
+
+
 def gs_feats(slabs, bound, p: torch.Tensor, shapes, levels,
              gs: GridShard, stage: str) -> dict:
     """The per-point features of `levels` from this rank's slabs, summed
@@ -275,33 +330,21 @@ def gs_feats(slabs, bound, p: torch.Tensor, shapes, levels,
     p_nor = normalize_coords(p, bound)
     if p_nor.requires_grad:
         p_nor = _ModelBroadcast.apply(p_nor, gs, stage)
-    locs = [slab_interp(slabs[n], p_nor, shapes[n], gs.m,
-                        slabs[n].shape[0] - 1) for n in levels]
-    flat = _ModelSum.apply(torch.cat([x.reshape(-1) for x in locs]), gs,
-                           stage)
-    feats, k = {}, 0
-    for n, x in zip(levels, locs):
-        feats[n] = flat[k:k + x.numel()].reshape(x.shape)
-        k += x.numel()
-    return feats
+    flat = _ModelSum.apply(_slab_parts(slabs, p_nor, shapes, levels, gs.m),
+                           gs, stage)
+    return _split(flat, slabs, levels, p.shape[0])
 
 
 def make_gs_decode_fn(params, mspec: ModelSpec, slabs, bound, shapes,
                       stage: str, gs: GridShard, train_decoders: bool = True,
                       count_as: Optional[str] = None):
-    """(M, 3) points -> raw (M, 4) from the sharded features, with the
-    out-of-AABB occupancy forcing (reference Renderer.py:38-61; JAX
-    grid_sharded.py:173-188).  The collectives count under `count_as`
-    (default the stage)."""
+    """(M, 3) points -> raw (M, 4) from the sharded features (`_decode`).
+    The collectives count under `count_as` (default the stage)."""
     def decode_fn(pp):
         feats = gs_feats(slabs, bound, pp, shapes, stage_levels(stage), gs,
                          count_as or stage)
-        raw = model_apply_feats(params, mspec, pp, feats, stage,
-                                train_decoders)
-        inside = torch.all((pp > bound[:, 0]) & (pp < bound[:, 1]), dim=-1)
-        occ = torch.where(inside, raw[..., 3],
-                          torch.full_like(raw[..., 3], 100.0))
-        return torch.cat([raw[..., :3], occ[..., None]], dim=-1)
+        return _decode(params, mspec, pp, feats, stage, train_decoders,
+                       bound)
 
     return decode_fn
 
@@ -330,30 +373,22 @@ def gs_eval_points(params, mspec: ModelSpec, slabs, bound, shapes,
 # ---------------------------------------------------------------------------
 # The sharded mapping optimisation
 
-def gs_mapping_loss(tree, window, bound, shapes, camera: Camera, stage: str,
-                    mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
-                    gs: GridShard, pix, max_depth,
-                    gen: Optional[torch.Generator] = None):
-    """mapping.mapping_loss with the sharded decode (NICE mode) on this
-    rank's rays `pix` (its part of the union's draws), the render's far
-    plane at the union's `max_depth`; no occupancy proxy reaches the
-    render (JAX grid_sharded.py:233-258)."""
-    params, slabs, cams = tree["params"], tree["grids"], tree["cams"]
-    rays_o, rays_d, gt_d, gt_c, valid = _window_rays(
-        window, cams, camera, pix[0].shape[1], pix=pix)
-    t_exit = ray_aabb_far(rays_o.detach(), rays_d.detach(), bound)
-    m = valid & (t_exit >= gt_d)
-    decode_fn = make_gs_decode_fn(params, mspec, slabs, bound, shapes, stage,
-                                  gs, rspec.train_decoders)
-    depth, _, color, _ = render_rays(
-        params, mspec, None, bound, rays_o, rays_d, rspec, stage,
-        gt_depth=gt_d, gen=gen, max_depth=max_depth, decode_fn=decode_fn)
-    dm = (gt_d > 0) & m
-    loss = torch.sum(torch.abs(gt_d - depth) * dm)
-    if stage == "color":
-        loss = loss + mapspec.w_color_loss * torch.sum(
-            torch.abs(gt_c - color) * m[:, None])
-    return loss
+def _halo_pack(buf: torch.Tensor, planes, slot: int) -> None:
+    """The slot buffer (n_model, sum of plane sizes) zeroed and `planes`
+    written into its row `slot` (none when it is out of range)."""
+    buf.zero_()
+    if 0 <= slot < buf.shape[0]:
+        buf[slot] = torch.cat([x.reshape(-1) for x in planes])
+
+
+def _halo_slots(buf: torch.Tensor, planes) -> list:
+    """The (n_model, ...) slots of each of `planes` in a slot buffer."""
+    out, k = [], 0
+    for x in planes:
+        n = x.numel()
+        out.append(buf[:, k:k + n].reshape((buf.shape[0],) + tuple(x.shape)))
+        k += n
+    return out
 
 
 def _halo_planes(planes, gs: GridShard, write_slot: int, kind: str,
@@ -362,48 +397,288 @@ def _halo_planes(planes, gs: GridShard, write_slot: int, kind: str,
     wrote, as every rank reads them after one all_reduce(SUM) over `model`
     of an (n_model, sum of plane sizes) slot buffer: returns the (n_model,
     ...) slots of each plane."""
-    sizes = [x.numel() for x in planes]
-    buf = planes[0].new_zeros(gs.n_model, sum(sizes))
-    if 0 <= write_slot < gs.n_model:
-        buf[write_slot] = torch.cat([x.reshape(-1) for x in planes])
+    buf = planes[0].new_zeros(gs.n_model, sum(x.numel() for x in planes))
+    _halo_pack(buf, planes, write_slot)
     gs.model_sum_(buf, kind, stage)
-    out, k = [], 0
-    for x, n in zip(planes, sizes):
-        out.append(buf[:, k:k + n].reshape((gs.n_model,) + tuple(x.shape)))
-        k += n
-    return out
-
-
-def halo_exchange_grads(grads: dict, gs: GridShard, stage: str) -> dict:
-    """Each slab's halo plane gradient added to its right neighbour's row
-    0, then zeroed (JAX grid_sharded.py:338-350)."""
-    names = list(grads)
-    slots = _halo_planes([grads[n][-1] for n in names], gs, gs.m + 1,
-                         "halo", stage)
-    out = {}
-    for n, s in zip(names, slots):
-        g = grads[n].clone()
-        g[0] += s[gs.m]
-        g[-1] = 0.0
-        out[n] = g
-    return out
+    return _halo_slots(buf, planes)
 
 
 @torch.no_grad()
-def refresh_halos(slabs: dict, names, gs: GridShard, stage: str) -> dict:
-    """The halo plane of each named slab refreshed from the right
-    neighbour's row 0; the last shard keeps its own (JAX
-    grid_sharded.py:357-369)."""
+def check_halos(slabs: dict, names, gs: GridShard) -> list:
+    """The halo invariant, collectively: for each named slab, whether its
+    halo plane equals the right neighbour's row 0 (none on the last
+    shard, which keeps its own).  Its exchange counts under 'check'."""
     names = list(names)
-    slots = _halo_planes([slabs[n][0] for n in names], gs, gs.m, "halo",
-                         stage)
-    out = dict(slabs)
-    if gs.m + 1 < gs.n_model:
-        for n, s in zip(names, slots):
-            sl = slabs[n].clone()
-            sl[-1] = s[gs.m + 1]
-            out[n] = sl
-    return out
+    if not names:
+        return []
+    rows = _halo_planes([slabs[n][0] for n in names], gs, gs.m, "check",
+                        "check")
+    if gs.m + 1 >= gs.n_model:
+        return []
+    return [bool(torch.equal(slabs[n][-1], r[gs.m + 1]))
+            for n, r in zip(names, rows)]
+
+
+def _fuse(pieces, gen):
+    """(segments, host calls, generators) of a step from its pieces (fn,
+    host call after it or None, whether fn draws from `gen`; the last
+    piece has no host call): the pieces between two host calls run as one
+    segment."""
+    segs, between, gens, run, draws = [], [], [], [], False
+    for k, (fn, host, draw) in enumerate(pieces):
+        run.append(fn)
+        draws = draws or draw
+        if host is None and k + 1 < len(pieces):
+            continue
+
+        def seg(fns=tuple(run)):
+            for f in fns:
+                f()
+
+        segs.append(seg)
+        gens.append((gen,) if draws else ())
+        if host is not None:
+            between.append(host)
+        run, draws = [], False
+    return tuple(segs), tuple(between), tuple(gens)
+
+
+def _gs_step(graphs: StepGraphs, key, b, stage: str, lr_factor: float,
+             camera: Camera, spec_ba: MapSpec, rspec: RenderSpec,
+             rspec_stage: RenderSpec, mspec: ModelSpec, shapes,
+             gs: GridShard, gen: Optional[torch.Generator], pix_buf):
+    """The segments of one mapping iteration of `stage` on the static
+    buffers `b`, cut at the collectives of JAX's step (nice_slam_tpu/
+    parallel/grid_sharded.py:319-369):
+
+    1. the draws, the samples along the rays and this slab's part of the
+       features (the importance pass adds a decode and a second part);
+       the features summed over `model`;
+    2. the loss from the summed features, its backward to the decoders,
+       the features and the points, and the slab interpolation recomputed
+       with grad for the slabs' gradient and this slab's part of the
+       points' (the feature sum's backward is the identity); the points'
+       cotangent summed over `model` (when the cameras are live: the
+       colour stage);
+    3. the rays and points recomputed from the cameras, and one backward
+       of [normalised points, points] with [summed cotangent, decoder
+       cotangent] to the cameras (the dense backward's sums, in its
+       order); the loss and live gradients summed over `data`;
+    4. the halo plane gradients into the slot buffer; exchanged over
+       `model`;
+    5. each slab's halo plane gradient added to its right neighbour's row
+       0, the masks, Adam; row 0 into the slot buffer; exchanged;
+    6. each halo plane refreshed, the loss recorded.
+
+    Only the rays, their normalisation and the slab gather are
+    recomputed, never the decode.  Returns (segments, host calls,
+    generators) for `StepGraphs.step_segments`."""
+    levels = stage_levels(stage)
+    frozen = _lr_tree(b.tree, stage, spec_ba, lr_factor, b.cam_lr_mask)[1]
+    live = [x for x, f in zip(tree_leaves(b.tree), tree_leaves(frozen))
+            if not f]
+    n_params = sum(not f for f in tree_leaves(frozen["params"]))
+    names = [n for n in b.tree["grids"] if not frozen["grids"][n]]
+    cams_live = not frozen["cams"]
+    grid_rows = not rspec_stage.occupancy and cams_live
+    importance = rspec_stage.n_importance > 0
+    # the samples and summed features the loss reads
+    zk, fk = ("z1", "feats1") if importance else ("z0", "feats0")
+    wn = b.window["colors"].shape[0]
+    grids = b.tree["grids"]
+    bucket = graphs.bucket(("gs", stage), [()] + [x.shape for x in live])
+    planes = [grids[n][0] for n in names]
+    halo_g, halo_r = (graphs.buffers(
+        ("gs_halo", k, tuple(tuple(x.shape) for x in planes)),
+        lambda: torch.zeros(gs.n_model, sum(x.numel() for x in planes),
+                            device=graphs.device)) for k in ("g", "r"))
+    # what one segment hands to a later one (static buffers made at the
+    # warm-up); the host calls read it at every later iteration
+    held = graphs.buffers(("gs_held", key), dict)
+
+    def rays(cams):
+        i, j = held["i"], held["j"]
+        return _window_rays(b.window, cams, camera, i.shape[1], pix=(i, j))
+
+    def points(rays_o, rays_d, z):
+        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        return pts.reshape(-1, 3)
+
+    def part(p):
+        """This slab's part of the features of the stage's levels at p."""
+        return _slab_parts(grids, normalize_coords(p, b.bound), shapes,
+                           levels, gs.m)
+
+    def split(flat, n_pts):
+        return _split(flat, grids, levels, n_pts)
+
+    def decode(params, p, feats):
+        return _decode(params, mspec, p, feats, stage,
+                       rspec_stage.train_decoders, b.bound)
+
+    @torch.no_grad()
+    def draw_segment():
+        pix, _, max_d = gs.rays.loss_draws(
+            b.window, camera, spec_ba.pixels // wn, rspec, gen, pix_buf)
+        held["i"] = graphs.hold("gs_i", pix[0])
+        held["j"] = graphs.hold("gs_j", pix[1])
+        rays_o, rays_d, gt_d, _, _ = rays(b.tree["cams"])
+        z = _zvals(rays_o, rays_d, gt_d, b.bound, rspec_stage, True, gen,
+                   None, max_d)
+        held["z0"] = graphs.hold("gs_z0", z)
+        held["feats0"] = graphs.hold("gs_feats0",
+                                     part(points(rays_o, rays_d, z)))
+
+    @torch.no_grad()
+    def importance_segment():
+        rays_o, rays_d, _, _, _ = rays(b.tree["cams"])
+        z = held["z0"]
+        p = points(rays_o, rays_d, z)
+        raw = decode(b.tree["params"], p, split(held["feats0"], p.shape[0]))
+        weights = raw2outputs(raw.reshape(z.shape + (4,)), z, rays_d,
+                              rspec_stage.occupancy)[3]
+        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+        z_imp = sample_pdf(z_mid, weights[..., 1:-1],
+                           rspec_stage.n_importance,
+                           det=rspec_stage.perturb == 0.0, gen=gen)
+        z, _ = torch.sort(torch.cat([z, z_imp], dim=-1), dim=-1)
+        held["z1"] = graphs.hold("gs_z1", z)
+        held["feats1"] = graphs.hold("gs_feats1",
+                                     part(points(rays_o, rays_d, z)))
+
+    def loss_segment():
+        z = held[zk]
+        with torch.no_grad():
+            rays_o, rays_d, gt_d, gt_c, valid = rays(b.tree["cams"])
+            p = points(rays_o, rays_d, z)
+        p.requires_grad_(cams_live)
+        rays_d.requires_grad_(grid_rows)
+        params = tree_map(lambda x, f: x if f else
+                          x.detach().requires_grad_(True), b.tree["params"],
+                          frozen["params"])
+        wrt = [x for x, f in zip(tree_leaves(params),
+                                 tree_leaves(frozen["params"])) if not f]
+        feats = held[fk].detach().requires_grad_(True)
+        raw = decode(params, p, split(feats, p.shape[0]))
+        t_exit = ray_aabb_far(rays_o, rays_d.detach(), b.bound)
+        m = valid & (t_exit >= gt_d)
+        depth, _, color, _ = raw2outputs(raw.reshape(z.shape + (4,)), z,
+                                         rays_d, rspec_stage.occupancy)
+        dm = (gt_d > 0) & m
+        loss = torch.sum(torch.abs(gt_d - depth) * dm)
+        if stage == "color":
+            loss = loss + spec_ba.w_color_loss * torch.sum(
+                torch.abs(gt_c - color) * m[:, None])
+        wrt += [feats] + [p] * cams_live + [rays_d] * grid_rows
+        d = torch.autograd.grad(loss, wrt, allow_unused=True)
+        d_feats = split(d[n_params], p.shape[0])
+        # the slab interpolation again, with grad: the slabs' gradient and
+        # this slab's part of the points' cotangent
+        slabs = {n: grids[n].detach().requires_grad_(True) for n in levels
+                 if not frozen["grids"][n]}
+        d_slabs, d_q = {}, None
+        if slabs or cams_live:
+            q = normalize_coords(p.detach(), b.bound).requires_grad_(
+                cams_live)
+            locs, outs = [], []
+            for n in levels:
+                loc = slab_interp(slabs.get(n, grids[n]), q, shapes[n], gs.m,
+                                  grids[n].shape[0] - 1)
+                if loc.requires_grad:
+                    locs.append(loc)
+                    outs.append(d_feats[n])
+            got = torch.autograd.grad(
+                locs, list(slabs.values()) + [q] * cams_live, outs,
+                allow_unused=True)
+            d_slabs = dict(zip(slabs, got))
+            d_q = got[-1] if cams_live else None
+        with torch.no_grad():
+            vals = [loss] + [torch.zeros_like(x) if g is None else g
+                             for x, g in zip(wrt, d[:n_params])]
+            vals += [d_slabs.get(n) if d_slabs.get(n) is not None
+                     else torch.zeros_like(grids[n]) for n in names]
+            bucket.pack(vals)
+            if cams_live:
+                held["dq"] = graphs.hold("gs_dq", d_q)
+                held["dp"] = graphs.hold(
+                    "gs_dp", torch.zeros_like(p) if d[n_params + 1] is None
+                    else d[n_params + 1])
+                if grid_rows:
+                    held["drd"] = graphs.hold("gs_drd", d[-1])
+
+    def cams_segment():
+        cams = b.tree["cams"].detach().requires_grad_(True)
+        rays_o, rays_d, _, _, _ = rays(cams)
+        p = points(rays_o, rays_d, held[zk])
+        q = normalize_coords(p, b.bound)
+        outs, seeds = [q, p], [held["dq"], held["dp"]]
+        if grid_rows:
+            outs.append(rays_d)
+            seeds.append(held["drd"])
+        (g,) = torch.autograd.grad(outs, cams, seeds)
+        with torch.no_grad():
+            bucket.views()[-1].copy_(g)
+
+    @torch.no_grad()
+    def halo_grads_segment():
+        g = dict(zip(names, bucket.views()[1 + n_params:]))
+        _halo_pack(halo_g, [g[n][-1] for n in names], gs.m + 1)
+
+    @torch.no_grad()
+    def adam_segment():
+        loss, *grads = bucket.views()
+        gl = iter(grads)
+        g = tree_map(lambda x, f: None if f else next(gl), b.tree, frozen)
+        for n, slot in zip(names, _halo_slots(halo_g, planes)):
+            gg = g["grids"][n].clone()
+            gg[0] += slot[gs.m]
+            gg[-1] = 0.0
+            g["grids"][n] = gg * b.masks[n]
+        lr_tree = _lr_tree(b.tree, stage, spec_ba, lr_factor,
+                           b.cam_lr_mask)[0]
+        adam_step_(b.tree, g, b.m, b.v, b.step, b.tables, lr_tree,
+                   frozen=frozen)
+        if names:
+            _halo_pack(halo_r, [grids[n][0] for n in names], gs.m)
+        else:
+            record_loss()
+
+    @torch.no_grad()
+    def refresh_segment():
+        # the last shard keeps its own halo plane
+        if gs.m + 1 < gs.n_model:
+            for n, slot in zip(names, _halo_slots(halo_r, planes)):
+                grids[n][-1].copy_(slot[gs.m + 1])
+        record_loss()
+
+    def record_loss():
+        """The summed loss at the step Adam just took (the last segment
+        records it: never an empty graph)."""
+        b.losses.index_copy_(0, b.step.view(1) - 1, bucket.views()[0].view(1))
+
+    def model_sum(name, kind):
+        return lambda: gs.model_sum_(held[name], kind, stage)
+
+    def halo_sum(buf):
+        return lambda: gs.model_sum_(buf, "halo", stage)
+
+    data = (lambda: gs.rays.reduce_(bucket, stage))
+    pieces = [(draw_segment, model_sum("feats0", "features"), True)]
+    if importance:
+        pieces.append((importance_segment, model_sum("feats1", "features"),
+                       rspec_stage.perturb > 0.0))
+    if cams_live:
+        pieces += [(loss_segment, model_sum("dq", "points"), False),
+                   (cams_segment, data, False)]
+    else:
+        pieces.append((loss_segment, data, False))
+    if names:
+        pieces += [(halo_grads_segment, halo_sum(halo_g), False),
+                   (adam_segment, halo_sum(halo_r), False),
+                   (refresh_segment, None, False)]
+    else:
+        pieces.append((adam_segment, None, False))
+    return _fuse(pieces, gen)
 
 
 def gs_map_optimize(params, slabs, bound, window, cams0, mask_slabs,
@@ -411,7 +686,7 @@ def gs_map_optimize(params, slabs, bound, window, cams0, mask_slabs,
                     stage_iters, mapspec: MapSpec, rspec: RenderSpec,
                     mspec: ModelSpec, shapes, gs: GridShard,
                     gen: Optional[torch.Generator] = None, pixels=None,
-                    on_iter=None):
+                    on_iter=None, graphs: Optional[StepGraphs] = None):
     """The staged mapping optimisation on this rank's slabs (dict of
     (sx+1, ny, nz, C)), in the step order of JAX `_gs_map_optimize`.
     mask_slabs: the frustum masks of the trained levels in the same
@@ -423,57 +698,45 @@ def gs_map_optimize(params, slabs, bound, window, cams0, mask_slabs,
     stage's sharded decode of them (collective: every rank calls it in
     lockstep), as mapping.map_optimize's on_iter.
 
+    Each iteration is a segmented step of `graphs` (the mapping runner;
+    without it the segments run eagerly) on static buffers: on a card each
+    segment between two collectives is a CUDA graph, and the collectives
+    run between their replays (`_gs_step`).
+
     Returns (params, slabs, cams, losses (n_iters,), summed over
     `data`)."""
-    tree = {"params": params, "grids": slabs, "cams": cams0.detach()}
-    opt = adam_init(tree)
-    wn = window["colors"].shape[0]
+    graphs = graphs or StepGraphs(cams0.device, capture=False)
+    n_iters = sum(n for _, n in stage_iters)
+    bkey, b = _map_buffers(graphs, params, slabs, window, n_iters, tag="gs")
+    _load_map_buffers(b, params, slabs, bound, window, cams0, mask_slabs,
+                      cam_lr_mask)
+    pix_buf = graphs.draw_buffers(pixels)
     # cameras stay live in the colour stage whatever `ba` is: the LR mask
     # decides (JAX _lr_tree(..., ba=True))
     spec_ba = dataclasses.replace(mapspec, ba=True)
-    losses = []
     it_all = 0
-    for stage, n_iters in stage_iters:
-        lr_tree, frozen = _lr_tree(tree, stage, spec_ba, lr_factor,
-                                   cam_lr_mask)
+    for stage, n_stage in stage_iters:
         rspec_stage = dataclasses.replace(
             rspec, train_decoders=stage == "color", occ_guided=False)
-        for _ in range(n_iters):
+        key = ("gs", bkey, stage, spec_ba, rspec_stage, mspec, camera,
+               lr_factor, id(gen), tuple(sorted(shapes.items())),
+               gs.signature(),
+               None if pix_buf is None else tensor_key(pix_buf))
+        segs = _gs_step(graphs, key, b, stage, lr_factor, camera, spec_ba,
+                        rspec, rspec_stage, mspec, shapes, gs, gen, pix_buf)
+        for _ in range(n_stage):
             if on_iter is not None:
-                on_iter(it_all, tree, make_gs_decode_fn(
-                    tree["params"], mspec, tree["grids"], bound, shapes,
-                    "color", gs, train_decoders=False, count_as="vis"))
-            tr = tree_map(lambda x, f: x if f else
-                          x.detach().requires_grad_(True), tree, frozen)
-            live = [x for x, f in zip(tree_leaves(tr), tree_leaves(frozen))
-                    if not f]
-            pix, _, max_d = gs.rays.loss_draws(
-                window, camera, mapspec.pixels // wn, rspec, gen,
-                None if pixels is None else pixels[it_all])
-            loss = gs_mapping_loss(tr, window, bound, shapes, camera, stage,
-                                   mapspec, rspec_stage, mspec, gs, pix,
-                                   max_d, gen)
-            grads = torch.autograd.grad(loss, live, allow_unused=True)
-            loss, *grads = gs.rays.reduce(
-                [loss] + [torch.zeros_like(x) if gg is None else gg
-                          for x, gg in zip(live, grads)], stage)
-            gl = iter(grads)
-            g = tree_map(lambda x, f: None if f else next(gl), tr, frozen)
-            live_grids = {n: gg for n, gg in g["grids"].items()
-                          if gg is not None}
-            if live_grids:
-                live_grids = halo_exchange_grads(live_grids, gs, stage)
-                g["grids"] = {n: live_grids[n] * mask_slabs[n]
-                              if n in live_grids else gg
-                              for n, gg in g["grids"].items()}
-            tree, opt = adam_update(tree, g, opt, lr_tree, frozen=frozen)
-            if live_grids:
-                tree["grids"] = refresh_halos(tree["grids"], live_grids, gs,
-                                              stage)
-            losses.append(loss.detach())
+                on_iter(it_all, b.tree, make_gs_decode_fn(
+                    b.tree["params"], mspec, b.tree["grids"], b.bound,
+                    shapes, "color", gs, train_decoders=False,
+                    count_as="vis"))
+            if pix_buf is not None:
+                load_draws(pix_buf, pixels[it_all])
+            graphs.step_segments(key, *segs)
             it_all += 1
-    out = torch.stack(losses) if losses else torch.zeros(0)
-    return tree["params"], tree["grids"], tree["cams"], out
+    return (tree_map(torch.clone, b.tree["params"]),
+            {n: g.clone() for n, g in b.tree["grids"].items()},
+            b.tree["cams"].clone(), b.losses[:n_iters].clone())
 
 
 @torch.no_grad()
@@ -503,18 +766,20 @@ def gs_map_once(params, grids, bound, window, cams0, masks, cam_lr_mask,
                 lr_factor: float, camera: Camera, stage_iters,
                 mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
                 gs: GridShard, gen: Optional[torch.Generator] = None,
-                pixels=None, on_iter=None):
+                pixels=None, on_iter=None,
+                graphs: Optional[StepGraphs] = None):
     """The engine's adapter (JAX grid_sharded.py:208-230): one mapping
-    optimisation from and to the engine's dense grids.  The levels that
-    the call trains are reassembled; every rank returns the same dense
-    grids.  Returns (params, grids, cams, losses)."""
+    optimisation from and to the engine's dense grids, its iterations
+    segmented steps of `graphs` (the engine's mapping runner).  The levels
+    that the call trains are reassembled; every rank returns the same
+    dense grids.  Returns (params, grids, cams, losses)."""
     slabs, shapes = shard_grids(grids, gs.n_model, gs.m)
     mask_slabs = {n: own_slab(masks[n], gs.n_model, gs.m)
                   for n in slabs if n in masks}
     params, slabs, cams, losses = gs_map_optimize(
         params, slabs, bound, window, cams0, mask_slabs, cam_lr_mask,
         lr_factor, camera, stage_iters, mapspec, rspec, mspec, shapes, gs,
-        gen=gen, pixels=pixels, on_iter=on_iter)
+        gen=gen, pixels=pixels, on_iter=on_iter, graphs=graphs)
     trained = [n for n in SHARDED_LEVELS
                if n in slabs and n in _trained_grids(mapspec, stage_iters)]
     new_grids = dict(grids)

@@ -33,7 +33,8 @@ the grid scatter never runs.
 
 On a card one guarded iteration is a CUDA graph (graphs.py) when
 `schur_pose_refine` is given a runner: the window, mask and map it reads
-are then static buffers, and the cameras live in the runner's.
+are then static buffers, and the cameras live in the runner's.  A
+data-parallel iteration is three graphs, cut at its two reduces.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from typing import Optional
 import torch
 
 from nice_slam_torch.camera import Camera
-from nice_slam_torch.graphs import StepGraphs, tensor_key
+from nice_slam_torch.graphs import StepGraphs, load_draws, tensor_key
 from nice_slam_torch.ops.rays import ray_aabb_far, ray_dirs
 from nice_slam_torch.ops.se3 import cam_from_tensor
 from nice_slam_torch.ops.tree import tree_leaves
@@ -195,62 +196,87 @@ def gn_pose_update(cams, H, b, cam_lr_mask, damping: float,
     return cams - delta * step_mask
 
 
-def gn_iteration(params, grids, bound, window, cams, cam_lr_mask,
-                 camera: Camera, rspec: RenderSpec, mspec,
-                 pixels_per_frame: int, damping: float, reduce_fn=None,
-                 gen: Optional[torch.Generator] = None, pix=None,
-                 frame_max_depth=None):
-    """One guarded GN iteration on one ray sample.  reduce_fn(tuple) ->
-    tuple sums the systems and the guard's SSEs and counts of a sharded
-    ray batch (None on one device); `frame_max_depth`: see pose_system.
-    The render's uniforms are drawn once, after the pixels, and both
-    renders take them.  Returns (cams, sse, accept (Wn,))."""
-    valid_mask = window["valid"]
-    wn = cams.shape[0]
+def _gn_system(params, grids, bound, window, cams, camera: Camera,
+               rspec: RenderSpec, mspec, pixels_per_frame: int,
+               gen: Optional[torch.Generator], pix, frame_max_depth):
+    """The first part of a guarded GN iteration: the pixels (drawn from
+    `gen` unless given), the render's uniforms (drawn once, after the
+    pixels: the candidate's render takes the same stratified jitter) and
+    the system.  Returns (pix, draws, (H, b, sse0))."""
     if pix is None:
-        pix = window_pixels(gen, wn, pixels_per_frame, camera, cams.device)
-    # the candidate's render takes the same stratified jitter
+        pix = window_pixels(gen, cams.shape[0], pixels_per_frame, camera,
+                            cams.device)
     draws = render_draws(gen, pix[0].numel(), rspec, cams.device)
-    H, b, sse0 = pose_system(params, grids, bound, window, cams, camera,
-                             rspec, mspec, pixels_per_frame, valid_mask,
-                             gen=gen, pix=pix,
-                             frame_max_depth=frame_max_depth, draws=draws)
-    if reduce_fn is not None:
-        H, b, sse0 = reduce_fn((H, b, sse0))
+    system = pose_system(params, grids, bound, window, cams, camera, rspec,
+                         mspec, pixels_per_frame, window["valid"], gen=gen,
+                         pix=pix, frame_max_depth=frame_max_depth,
+                         draws=draws)
+    return pix, draws, system
+
+
+def _gn_guard(params, grids, bound, window, cams, cam_lr_mask,
+              camera: Camera, rspec: RenderSpec, mspec,
+              pixels_per_frame: int, damping: float, H, b,
+              gen: Optional[torch.Generator], pix, frame_max_depth, draws):
+    """The second part: the candidate pose and the guard's evaluation on
+    the same sample.  Returns (cand, (sse1, cnt0, cnt1))."""
     cand = gn_pose_update(cams, H, b, cam_lr_mask, damping)
     sse1 = residual_sse(params, grids, bound, window, cand, camera, rspec,
-                        mspec, pixels_per_frame, valid_mask, gen=gen,
+                        mspec, pixels_per_frame, window["valid"], gen=gen,
                         pix=pix, frame_max_depth=frame_max_depth,
                         draws=draws)
     cnt0 = mask_count(bound, window, cams, camera, pixels_per_frame, pix=pix)
     cnt1 = mask_count(bound, window, cand, camera, pixels_per_frame, pix=pix)
-    if reduce_fn is not None:
-        sse1, cnt0, cnt1 = reduce_fn((sse1, cnt0, cnt1))
+    return cand, (sse1, cnt0, cnt1)
+
+
+def _gn_accept(cams, cand, cam_lr_mask, sse0, sse1, cnt0, cnt1):
+    """The last part: each frame's candidate accepted or not.  Returns
+    (cams, sse, accept (Wn,))."""
     accept = (sse1 <= sse0) & (cnt1 >= 0.5 * cnt0) & (cam_lr_mask > 0)
     cams = torch.where(accept[:, None], cand, cams)
     return cams, torch.where(accept, sse1, sse0), accept
 
 
+def gn_iteration(params, grids, bound, window, cams, cam_lr_mask,
+                 camera: Camera, rspec: RenderSpec, mspec,
+                 pixels_per_frame: int, damping: float,
+                 gen: Optional[torch.Generator] = None, pix=None):
+    """One guarded GN iteration on one device's ray sample (a sharded
+    batch runs `_gn_system`, `_gn_guard` and `_gn_accept` as segments
+    around its reduces: schur_pose_refine).  The render's uniforms are
+    drawn once, after the pixels, and both renders take them.  Returns
+    (cams, sse, accept (Wn,))."""
+    pix, draws, (H, b, sse0) = _gn_system(
+        params, grids, bound, window, cams, camera, rspec, mspec,
+        pixels_per_frame, gen, pix, None)
+    cand, checks = _gn_guard(
+        params, grids, bound, window, cams, cam_lr_mask, camera, rspec,
+        mspec, pixels_per_frame, damping, H, b, gen, pix, None, draws)
+    return _gn_accept(cams, cand, cam_lr_mask, sse0, *checks)
+
+
 def schur_pose_refine(params, grids, bound, window, cams, cam_lr_mask,
                       camera: Camera, rspec: RenderSpec, mspec,
                       n_iters: int, pixels_per_frame: int, damping: float,
-                      reduce_fn=None, gen: Optional[torch.Generator] = None,
-                      pixels=None, shard=None,
-                      graphs: Optional[StepGraphs] = None):
+                      gen: Optional[torch.Generator] = None, pixels=None,
+                      shard=None, graphs: Optional[StepGraphs] = None):
     """n_iters guarded GN iterations, each on a fresh ray sample (pixels[k]
     when given, else drawn from `gen`).  With `shard` (parallel/
     data_parallel.RayShard) each sample is this rank's slice of the
     union's (pixels[k] then gives the union's) and the systems are summed
-    through shard.reduce.  Returns new cameras (Wn, 7).
+    through shard.reduce_.  Returns new cameras (Wn, 7).
 
     Each iteration is one step of `graphs` (a side's runner; without it
     the loop runs eagerly) on the runner's static cameras and accept
     flags, under ("gn_cams" / "gn_accept", Wn, device).  On a card it is
-    the signature "gn", a CUDA graph, unless `pixels`, `shard` or
-    `reduce_fn` is given (their step runs eagerly); every tensor it reads
-    (the map, `bound`, the window's depths and valid flags,
-    `cam_lr_mask`) must then be a buffer that stays where it is, since
-    the signature holds its address."""
+    the signature "gn", a CUDA graph; with `shard` a segmented step of
+    three graphs (the system, the candidate and its guard, the accept)
+    with the two reduces run between their replays.  Given `pixels` are
+    copied into static buffers before each replay.  Every tensor the step
+    reads (the map, `bound`, the window's depths and valid flags,
+    `cam_lr_mask`) must be a buffer that stays where it is, since the
+    signature holds its address."""
     graphs = graphs or StepGraphs(cams.device, capture=False)
     wn, dev = cams.shape[0], cams.device
     cur = graphs.buffers(("gn_cams", wn, dev),
@@ -260,29 +286,66 @@ def schur_pose_refine(params, grids, bound, window, cams, cam_lr_mask,
                                              device=dev))
     with torch.no_grad():
         cur.copy_(cams)
-    key = None
-    if pixels is None and shard is None and reduce_fn is None:
-        key = ("gn", pixels_per_frame, damping, camera, rspec, mspec,
-               id(gen), tensor_key(
-                   tree_leaves(params) + tree_leaves(grids)
-                   + [bound, window["depths"], window["valid"], cur,
-                      cam_lr_mask]))
+    pix_buf = graphs.draw_buffers(pixels)
+    key = ("gn", pixels_per_frame, damping, camera, rspec, mspec, id(gen),
+           tensor_key(tree_leaves(params) + tree_leaves(grids)
+                      + [bound, window["depths"], window["valid"], cur,
+                         cam_lr_mask]),
+           shard and shard.signature(),
+           None if pix_buf is None else tensor_key(pix_buf))
 
-    def step(pix):
-        frame_max, reduce = None, reduce_fn
-        if shard is not None:
-            pix, frame_max = shard.gn_draws(window, camera, pixels_per_frame,
-                                            gen, pix)
-            reduce = shard.reduce
+    def step():
         new, _, accept = gn_iteration(
             params, grids, bound, window, cur, cam_lr_mask, camera, rspec,
-            mspec, pixels_per_frame, damping, reduce_fn=reduce, gen=gen,
-            pix=pix, frame_max_depth=frame_max)
+            mspec, pixels_per_frame, damping, gen=gen, pix=pix_buf)
         with torch.no_grad():
             cur.copy_(new)
             acc.copy_(accept)
 
+    if shard is not None:
+        sums = graphs.bucket(("gn_system", wn), [(wn, 7, 7), (wn, 7), (wn,)])
+        guard = graphs.bucket(("gn_guard", wn), [(wn,)] * 3)
+        held = {}
+
+        def system_segment():
+            pix, frame_max = shard.gn_draws(window, camera, pixels_per_frame,
+                                            gen, pix_buf)
+            pix, draws, system = _gn_system(
+                params, grids, bound, window, cur, camera, rspec, mspec,
+                pixels_per_frame, gen, pix, frame_max)
+            held["pix"] = tuple(graphs.hold(f"gn_pix{k}", x)
+                                for k, x in enumerate(pix))
+            held["frame_max"] = graphs.hold("gn_frame_max", frame_max)
+            held["draws"] = tuple(None if x is None else
+                                  graphs.hold(f"gn_draws{k}", x)
+                                  for k, x in enumerate(draws))
+            sums.pack(system)
+
+        def guard_segment():
+            H, b, _ = sums.views()
+            cand, checks = _gn_guard(
+                params, grids, bound, window, cur, cam_lr_mask, camera,
+                rspec, mspec, pixels_per_frame, damping, H, b, gen,
+                held["pix"], held["frame_max"], held["draws"])
+            held["cand"] = graphs.hold("gn_cand", cand)
+            guard.pack(checks)
+
+        def accept_segment():
+            new, _, accept = _gn_accept(cur, held["cand"], cam_lr_mask,
+                                        sums.views()[2], *guard.views())
+            with torch.no_grad():
+                cur.copy_(new)
+                acc.copy_(accept)
+
+        segs = ((system_segment, guard_segment, accept_segment),
+                (lambda: shard.reduce_(sums, "gn"),
+                 lambda: shard.reduce_(guard, "gn")),
+                ((gen,), (), ()))
     for k in range(n_iters):
-        pix = None if pixels is None else pixels[k]
-        graphs.step(key, lambda pix=pix: step(pix), (gen,))
+        if pix_buf is not None:
+            load_draws(pix_buf, pixels[k])
+        if shard is None:
+            graphs.step(key, step, (gen,))
+        else:
+            graphs.step_segments(key, *segs)
     return cur.clone()

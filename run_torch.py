@@ -63,8 +63,10 @@ ends the launch, and --resume <output> restarts it.
 Every rank prints a JSON summary (ate_rmse_m, ate_mean_m, frames,
 timings_s, its rank and world size, the group's backend, digests of its
 trajectory and of its map, the fused decode's launches, its CUDA-graph
-runners' counts, the all_reduce's bytes and seconds, the files it wrote,
-...); only rank 0 writes files:
+runners' counts (graphs, of them the segments of data-parallel and
+grid-sharded mapping steps, signatures, captures, replays, eager steps
+and host calls between segments, by side), the all_reduce's bytes and
+seconds, the files it wrote, ...); only rank 0 writes files:
 <output>/ate.json, the estimated trajectory <output>/traj_est.npy
 ((frames, 4, 4) camera-to-world), checkpoints and meshes.
 """

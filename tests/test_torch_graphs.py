@@ -13,6 +13,8 @@ functional loop, which the JAX-parity tests hold against the JAX package).
   after each event; and a run through it equals the eager run bit for
   bit (a replay that read anything but the static buffers would not).
 - Calls that differ in any Python input of a step get different keys.
+- Every mapping step reaches a graph, the data-parallel one as segments
+  around its reduces; the segmented step's books and its failed capture.
 - The pieces: the bias tables, `adam_step_` against `adam_update`, the
   capture record of the launch counters, the constant cache and
   `masked_median`'s device index."""
@@ -263,11 +265,13 @@ class DoubleGraphs(StepGraphs):
         graph.fn = fn
         return RECORD
 
-    def step(self, key, fn, generators=()):
-        replays = self.replays
-        super().step(key, fn, generators)
-        if self.replays > replays:
-            self.log.append("replay")
+    def _replay(self, g):
+        super()._replay(g)
+        self.log.append("replay")
+
+    def _host(self, fn):
+        self.log.append("host")
+        super()._host(fn)
 
 
 def _doubled(eng):
@@ -531,14 +535,17 @@ def test_python_inputs_change_the_key(world):
     assert mapped() == n[-1]
 
 
-def test_only_sharded_steps_stay_eager(world, monkeypatch):
-    """Under a capturing runner every step of tracking and dense mapping
-    reaches a graph: the Adam iterations with the panels' cameras and
-    on_iter, init_select's candidate renders and the Gauss-Newton polish
-    of tracking and of BA (the mode-specific cases run through whole
-    engines below).  Only the data-parallel `shard` step stays eager
-    (its Gauss-Newton iterations too), and grid-sharded mapping
-    (`gs_map_once`) never reaches the runner."""
+def test_every_mapping_step_reaches_a_graph(world, monkeypatch):
+    """Under a capturing runner every step of tracking and mapping reaches
+    a graph: the Adam iterations with the panels' cameras and on_iter,
+    init_select's candidate renders and the Gauss-Newton polish of
+    tracking and of BA (the mode-specific cases run through whole engines
+    below).  The data-parallel step (a world-one RayShard) and its
+    Gauss-Newton polish reach their segment signatures: per segment an
+    eager warm-up, a capture that replays at once, then replays, with the
+    reduce between two segments (two segments an Adam iteration, three a
+    Gauss-Newton iteration).  Grid-sharded mapping (`gs_map_once`)
+    receives the runner."""
     from nice_slam_torch.ops.se3 import to_homogeneous
     from nice_slam_torch.parallel.data_parallel import RayShard
 
@@ -578,12 +585,25 @@ def test_only_sharded_steps_stay_eager(world, monkeypatch):
             # replays at once and replays
             assert mgraphs.stats()["replays"] == (3 - 1) + (2 - 1)
             assert mgraphs.log.count("capture") == 2
+            assert mgraphs.stats()["host_calls"] == 0
         else:
-            # the three Adam steps and the two GN iterations eager
-            assert mgraphs.stats() == {"graphs": 0, "captures": 0,
-                                       "replays": 0, "eager_steps": 3 + 2,
-                                       "capture_s": 0.0}
-            assert mgraphs.log == []
+            keys = sorted((k[0], k[-1]) for k in mgraphs._graphs)
+            assert keys == [("gn", ("segment", i)) for i in range(3)] + [
+                ("map", ("segment", i)) for i in range(2)]
+            assert len(mgraphs._warm) == 5
+            # Adam: 3 iterations of 2 segments; GN: 2 of 3
+            assert mgraphs.log == (
+                ["eager", "host", "eager"]
+                + ["capture", "replay", "host", "capture", "replay"]
+                + ["replay", "host", "replay"]
+                + ["eager", "host", "eager", "host", "eager"]
+                + ["capture", "replay", "host"] * 2 + ["capture", "replay"])
+            assert mgraphs.stats() == {
+                "signatures": 5, "graphs": 5, "segments": 5, "captures": 5,
+                "replays": 2 * 2 + 3, "eager_steps": 5,
+                "host_calls": 3 + 2 * 2,
+                "capture_s": mgraphs.capture_s}
+            assert shard.calls == {"color": 3, "gn": 4}
     assert seen == [0, 1, 2] * 2
 
     from nice_slam_torch.parallel import grid_sharded
@@ -599,8 +619,53 @@ def test_only_sharded_steps_stay_eager(world, monkeypatch):
         torch.stack([to_homogeneous(pose[:3])] * 4), 3, color, depth, 1.0,
         s.camera, (("color", 2),), s.mapper, s.render, s.model, False,
         gen=torch.Generator(), gs=object(), graphs=ggraphs)
-    assert len(called) == 1 and "graphs" not in called[0]
-    assert ggraphs.stats()["eager_steps"] == 0 and not ggraphs._warm
+    assert len(called) == 1 and called[0]["graphs"] is ggraphs
+
+
+def test_segmented_step_books_and_failures():
+    """A segmented step through the double: each segment's launches are
+    credited once a replay; a capture that fails in segment 2 raises,
+    names that segment, and leaves no graph of the step behind (segments
+    0 and 1, captured in the same iteration, are dropped too); a runner
+    that does not capture runs every segment and host call eagerly."""
+    ran = []
+
+    def seg(i):
+        return lambda: ran.append(i)
+
+    segs = [seg(0), seg(1), seg(2)]
+    hosts = [lambda: ran.append("h0"), lambda: ran.append("h1")]
+    graphs = DoubleGraphs()
+    fd.reset_launch_counts()
+    for _ in range(4):
+        graphs.step_segments(("s",), segs, hosts)
+    assert ran == [0, "h0", 1, "h1", 2] * 4
+    st = graphs.stats()
+    # iterations 2-4 replay each of the three segments
+    assert (st["graphs"], st["segments"], st["replays"]) == (3, 3, 9)
+    assert fd.launch_counts() == {"fused_decode_fwd": 9,
+                                  "fused_decode_bwd": 18}
+    fd.reset_launch_counts()
+    with pytest.raises(ValueError):
+        graphs.step_segments(("t",), segs, hosts[:1])
+
+    class Failing(DoubleGraphs):
+        def _record(self, graph, fn, key):
+            if key[-1] == ("segment", 2):
+                raise RuntimeError("boom")
+            return super()._record(graph, fn, key)
+
+    graphs = Failing()
+    graphs.step_segments(("f",), segs, hosts)
+    with pytest.raises(RuntimeError, match="segment 2 of the step 'f'"):
+        graphs.step_segments(("f",), segs, hosts)
+    assert graphs._graphs == {}
+    eager = StepGraphs("cpu")
+    ran.clear()
+    eager.step_segments(("e",), segs, hosts)
+    assert ran == [0, "h0", 1, "h1", 2]
+    assert eager.stats()["eager_steps"] == 3
+    assert eager.stats()["host_calls"] == 2
 
 
 def test_capture_failure_raises():

@@ -7,7 +7,8 @@ devices) and against the port's own dense step.
   row equal the JAX functions' bit for bit.
 - Slab interpolation: each shard's part within 1e-6 of JAX `slab_interp`;
   their sum equals the port's dense `trilinear_interp` bit for bit and
-  the JAX dense interpolation within 1e-6.
+  the JAX dense interpolation within 1e-6; every point gathered equals
+  the owned points alone, values and both gradients, bit for bit.
 - The sharded decode: one process's sum of 4 shards through
   `model_apply_feats` against JAX `gs_eval_points` on a [2, 4] mesh,
   stages middle, fine and colour, atol 2e-4 (JAX's own test's), and bit
@@ -26,8 +27,10 @@ devices) and against the port's own dense step.
   union (losses 1e-6 relative, every leaf 1e-5 relative Frobenius), the
   halo invariant bit
   for bit after every step, the middle loss falling on fixed pixels, the
-  ranks bit-equal; and a 9-frame `run_torch.py --device cpu` run: ATE
-  under 0.25 m, ranks bit-equal, only rank 0 writes.
+  ranks bit-equal; the same call through the capturing double (the
+  segmented step, graphs replayed around the collectives) bit-equal to
+  the eager call on every rank; and a 9-frame `run_torch.py --device
+  cpu` run: ATE under 0.25 m, ranks bit-equal, only rank 0 writes.
 
 Run as a script, this file is one rank of the [2, 2] check
 (`--gs-rank R --port P --out FILE`).
@@ -153,6 +156,32 @@ def test_slab_interp_matches_jax_and_sums_to_dense(jax_state):
                                                torch.tensor(p)))
     np.testing.assert_allclose(n(total), np.asarray(jax_interp(g, p)),
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("n_model", [2, 4])
+def test_every_point_gather_equals_the_owned_points_alone(n_model):
+    """The static slab interpolation (every point gathered, the left-out
+    ones reading row 0 and scattering into a sink row) against the owned
+    points alone, the form tools/slab_gather.py times it against: the same
+    rows and the same gradients of the slab and the points, bit for
+    bit."""
+    from nice_slam_torch.tools.slab_gather import _owned_only
+
+    g = torch.randn(9, 5, 6, 4, generator=torch.Generator().manual_seed(2))
+    p = torch.rand(400, 3, generator=torch.Generator().manual_seed(3))
+    p = p * 2.2 - 1.1
+    w = torch.randn(400, 4, generator=torch.Generator().manual_seed(4))
+    slabs = gsm.shard_grid_x(g, n_model)
+    sx = slabs.shape[1] - 1
+    for s in range(n_model):
+        outs = []
+        for interp in (gsm.slab_interp, _owned_only):
+            slab = slabs[s].clone().requires_grad_(True)
+            q = p.clone().requires_grad_(True)
+            y = interp(slab, q, g.shape[:3], s, sx)
+            outs.append((y, *torch.autograd.grad((y * w).sum(), [slab, q])))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
 
 
 def _sum_of_shards_decode(params, grids, bound, pts, stage, n_model):
@@ -306,13 +335,13 @@ def window():
     return _window()
 
 
-def _gs_call(window, gs, mapspec=None, rspec=None):
+def _gs_call(window, gs, mapspec=None, rspec=None, graphs=None):
     specs, state, win, masks, cams0, lr_mask, pixels = window
     return _flat(*gsm.gs_map_once(
         state.params, state.grids, state.bound, win, cams0, masks, lr_mask,
         1.0, specs.camera, STAGES, mapspec or specs.mapper,
         rspec or specs.render, specs.model, gs,
-        gen=torch.Generator().manual_seed(3), pixels=pixels))
+        gen=torch.Generator().manual_seed(3), pixels=pixels, graphs=graphs))
 
 
 def _dense_call(window, mapspec=None, rspec=None, ba=True, pixels_x=1):
@@ -359,6 +388,19 @@ def test_world_one_gs_step_is_the_dense_step(world_one):
                                          "reassembly", "data"}
     # the points' cotangent is summed only where the cameras are live
     assert set(st["bytes_per_iter"]["points"]) == {"color"}
+
+
+def test_world_one_gs_step_is_the_dense_step_with_importance(window):
+    """With the importance pass and the stratified jitter on (perturb 1,
+    4 importance samples: the gs step's extra decode segment, and draws in
+    two of its segments), the [1, 1] gs step still equals the dense
+    map_optimize bit for bit, and its losses moved from the plain
+    render's."""
+    w1 = _one_rank_window(window)
+    rspec = dataclasses.replace(w1[0].render, n_importance=4, perturb=1.0)
+    got = _gs_call(w1, gsm.GridShard(1, 1), rspec=rspec)
+    assert _equal(got, _dense_call(w1, rspec=rspec))
+    assert not np.array_equal(got["losses"], _dense_call(w1)["losses"])
 
 
 @pytest.mark.parametrize("case", ["no_gauss_newton", "no_grad_clip",
@@ -472,29 +514,50 @@ def test_grid_sharded_world_checks(capsys):
 # ---------------------------------------------------------------------------
 # Four ranks over gloo
 
+def halo_checked(runner, gs, out: list):
+    """`runner` with the halo invariant (`check_halos`) of the step's live
+    slabs appended to `out` after every mapping iteration (between two
+    steps, collectively)."""
+    step_segments = runner.step_segments
+
+    def checked(key, *a, **k):
+        step_segments(key, *a, **k)
+        slabs = runner._buffers[key[1]].tree["grids"]
+        live = mapping._trained_grids(key[3], ((key[2], 1),))
+        out.extend(gsm.check_halos(slabs, [n for n in slabs if n in live],
+                                   gs))
+
+    runner.step_segments = checked
+    return runner
+
+
+def _collectives(gs) -> dict:
+    """The collectives a GridShard's mapping steps have run, by kind (the
+    data reduce 'data'; the halo checks and each call's reassembly, which
+    run outside the steps, left out)."""
+    out = {"data": sum(gs.rays.calls.values())}
+    for (kind, _), c in gs.calls.items():
+        if kind not in ("check", "reassembly"):
+            out[kind] = out.get(kind, 0) + c
+    return out
+
+
 def gs_rank_main(rank: int, port: int, out: str) -> None:
     """One rank of the [2, 2] check: the mapping call on the union's
-    pixels with the halo invariant checked after every step, and the
-    feature sum's and the points' backward over the real groups."""
+    pixels with the halo invariant checked after every step, eagerly and
+    then through the capturing double (DoubleGraphs of
+    tests/test_torch_graphs.py), and the feature sum's and the points'
+    backward over the real groups."""
+    from test_torch_graphs import DoubleGraphs
+
+    from nice_slam_torch.graphs import StepGraphs
+
     torch.set_num_threads(1)
     world = SHAPE[0] * SHAPE[1]
     multihost.initialize(f"127.0.0.1:{port}", world, rank, timeout_s=60,
                          device="cpu")
     gs = gsm.GridShard(*SHAPE)
-    halo_ok = []
-    refresh = gsm.refresh_halos
-
-    def checked(slabs, names, gs_, stage):
-        new = refresh(slabs, names, gs_, stage)
-        names = list(names)
-        rows = gsm._halo_planes([new[k][0] for k in names], gs_, gs_.m,
-                                "check", stage)
-        if gs_.m + 1 < gs_.n_model:
-            halo_ok.extend(bool(torch.equal(new[k][-1], r[gs_.m + 1]))
-                           for k, r in zip(names, rows))
-        return new
-
-    gsm.refresh_halos = checked
+    halo_ok, halo_graphed = [], []
     win = _window()
     specs, state = win[0], win[1]
     pts = torch.rand(300, 3, generator=torch.Generator().manual_seed(7)) \
@@ -502,9 +565,24 @@ def gs_rank_main(rank: int, port: int, out: str) -> None:
     slabs, shapes = gsm.shard_grids(state.grids, gs.n_model, gs.m)
     query = n(gsm.gs_eval_points(state.params, specs.model, slabs,
                                  state.bound, shapes, pts, "color", gs))
-    saved = _gs_call(win, gs)
+    before = _collectives(gs)
+    saved = _gs_call(win, gs, graphs=halo_checked(StepGraphs("cpu"), gs,
+                                                  halo_ok))
+    eager = _collectives(gs)
+    double = halo_checked(DoubleGraphs(), gs, halo_graphed)
+    graphed = _gs_call(win, gs, graphs=double)
+    after = _collectives(gs)
+    saved.update({f"graphed_{k}": v for k, v in graphed.items()})
     saved["query"] = query
     saved["halo_ok"] = np.array(halo_ok)
+    saved["halo_graphed"] = np.array(halo_graphed)
+    # the collectives of each call's steps and the double's host calls
+    # between segments
+    saved["collectives"] = np.array(json.dumps({
+        "eager": {k: eager[k] - before.get(k, 0) for k in eager},
+        "graphed": {k: after[k] - eager.get(k, 0) for k in after}}))
+    saved["graph_stats"] = np.array(json.dumps(double.stats()))
+    saved["graph_log"] = np.array(double.log)
     # the collectives on the real groups: features summed over `model`,
     # their cotangent passed on unchanged, the points' cotangent summed
     x = torch.full((4,), float(rank), requires_grad=True)
@@ -586,6 +664,42 @@ def test_gs_step_equals_one_process_on_the_union(window, gs_ranks):
     for k in want:
         for rank in gs_ranks[1:]:
             assert np.array_equal(rank[k], gs_ranks[0][k]), k
+
+
+def test_gs_graphed_equals_eager_on_every_rank(window, gs_ranks):
+    """Every rank's mapping call through the capturing double (each
+    segment warmed up, captured, then replayed, with the collectives run
+    between segments) equals its eager call bit for bit: decoders, grids,
+    cameras, losses; so it holds the union check at 1e-5 too.  The halo
+    invariant holds after every graphed step; the same collectives ran in
+    both calls, every one of them a host call between two segments; per
+    stage six segments with the cameras live (colour), five without."""
+    want = _dense_call(window, pixels_x=SHAPE[0])
+    for rank in gs_ranks:
+        for k, w in want.items():
+            assert np.array_equal(rank[f"graphed_{k}"], rank[k]), k
+            err = np.linalg.norm(rank[f"graphed_{k}"] - w) / max(
+                np.linalg.norm(w), 1e-30)
+            assert err <= 1e-5, (k, err)
+        assert rank["halo_graphed"].shape == rank["halo_ok"].shape
+        assert rank["halo_graphed"].all()
+        col = json.loads(str(rank["collectives"]))
+        assert col["eager"] == col["graphed"]
+        st = json.loads(str(rank["graph_stats"]))
+        assert st["host_calls"] == sum(col["graphed"].values())
+        # 6 iterations: data, features and the two halo exchanges each,
+        # the points' cotangent in the 2 colour iterations
+        assert col["graphed"] == {"data": 6, "features": 6, "halo": 12,
+                                  "points": 2}
+        # segments: 5 for middle and fine, 6 for colour; each warmed up
+        # at its first iteration, captured at its second (fine has one
+        # iteration: its warm-up); every later iteration replays
+        assert st["graphs"] == st["segments"] == st["captures"] == 5 + 6
+        assert st["eager_steps"] == 5 + 5 + 6
+        assert st["replays"] == 5 * (3 - 1) + 6 * (2 - 1)
+        log = list(rank["graph_log"])
+        assert log.count("host") == st["host_calls"]
+        assert log.count("eager") == 16 and log.count("capture") == 11
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@
   `dp_map_optimize` call of 3 iterations (middle, fine, colour) with BA
   and 2 Gauss-Newton iterations, on given union pixels, equals one process
   running `map_optimize` on the union (twice the pixels, on the same
-  generator stream): relative Frobenius error <= 1e-5 per leaf; and the
+  generator stream): relative Frobenius error <= 1e-5 per leaf; the same
+  call and a longer one through the capturing double (the segmented
+  step: graphs replayed around the all_reduce) bit-equal to their eager
+  calls on every rank; the
   mirror of the JAX package's test_dp_losses_scale_with_devices
   (tests/test_parallel.py:81).
 - A 2-process `run_torch.py --device cpu` run (tpu.data_parallel,
@@ -60,6 +63,7 @@ WORLD = 2
 RANK_PIXELS = 48          # a rank's mapping budget: 16 a window frame
 RANK_GN_PIXELS = 16       # a rank's GN rays a window frame
 STAGES = (("middle", 1), ("fine", 1), ("color", 1))
+LONG_STAGES = (("middle", 3), ("color", 3))
 
 
 # ---------------------------------------------------------------------------
@@ -125,14 +129,31 @@ def dp_rank_main(rank: int, port: int, out: str) -> None:
     torch.set_num_threads(1)
     multihost.initialize(f"127.0.0.1:{port}", WORLD, rank, timeout_s=60,
                          device="cpu")
+    from test_torch_graphs import DoubleGraphs
+
     specs, state, window, masks, cams0, lr_mask, mapspec, pixels = \
         _dp_setup()
-    res = dp_map_optimize(
-        state.params, state.grids, state.bound, window, cams0, masks,
-        lr_mask, 1.0, specs.camera, STAGES, mapspec, specs.render,
-        specs.model, RayShard(), ba=True,
-        gen=torch.Generator().manual_seed(3), pixels=pixels)
-    saved = _flat(*res)
+    saved, calls = {}, {}
+    # the union call eagerly and through the capturing double; then a
+    # longer call on drawn pixels, whose Adam segments replay too
+    for name, stages, pix, graphs in (
+            ("", STAGES, pixels, None),
+            ("graphed_", STAGES, pixels, DoubleGraphs()),
+            ("long_", LONG_STAGES, None, None),
+            ("long_graphed_", LONG_STAGES, None, DoubleGraphs())):
+        shard = RayShard()
+        res = _flat(*dp_map_optimize(
+            state.params, state.grids, state.bound, window, cams0, masks,
+            lr_mask, 1.0, specs.camera, stages, mapspec, specs.render,
+            specs.model, shard, ba=True,
+            gen=torch.Generator().manual_seed(3), pixels=pix,
+            graphs=graphs))
+        saved.update({name + k: v for k, v in res.items()})
+        calls[name] = shard.calls
+        if graphs is not None:
+            saved[name + "stats"] = np.array(json.dumps(graphs.stats()))
+            saved[name + "log"] = np.array(graphs.log)
+    saved["calls"] = np.array(json.dumps(calls))
     # one middle iteration on drawn pixels, for the loss scale
     _, _, _, loss = dp_map_optimize(
         state.params, state.grids, state.bound, window, cams0, masks,
@@ -191,6 +212,54 @@ def test_dp_step_equals_one_process_on_the_union(dp_ranks):
     # the ranks end bit-equal
     for k in want:
         assert np.array_equal(dp_ranks[0][k], dp_ranks[1][k]), k
+
+
+def test_dp_graphed_equals_eager_on_every_rank(dp_ranks):
+    """Each rank's data-parallel calls through the capturing double equal
+    their eager calls bit for bit: the union call (3 Adam iterations with
+    BA, 2 Gauss-Newton iterations), which so holds the union check at
+    1e-5, and a call of 3 middle and 3 colour iterations on drawn pixels.
+    Every segment's first iteration is eager, its second captured, later
+    ones replayed, with each reduce a host call between two segments; the
+    same reduces ran in both calls."""
+    specs, state, window, masks, cams0, lr_mask, mapspec, pixels = \
+        _dp_setup()
+    union = dataclasses.replace(mapspec, pixels=WORLD * RANK_PIXELS,
+                                pose_gn_pixels=WORLD * RANK_GN_PIXELS)
+    want = _flat(*mapping.map_optimize(
+        state.params, state.grids, state.bound, window, cams0, masks,
+        lr_mask, 1.0, specs.camera, STAGES, union, specs.render,
+        specs.model, ba=True, gen=torch.Generator().manual_seed(3),
+        pixels=pixels))
+    adam = ["eager", "host", "eager", "capture", "replay", "host",
+            "capture", "replay", "replay", "host", "replay"]
+    gn = (["eager", "host", "eager", "host", "eager"]
+          + ["capture", "replay", "host"] * 2 + ["capture", "replay"])
+    for rank in dp_ranks:
+        for k, w in want.items():
+            for name in ("graphed_", "long_graphed_"):
+                base = name.replace("graphed_", "")
+                assert np.array_equal(rank[name + k], rank[base + k]), \
+                    (name, k)
+            err = np.linalg.norm(rank[f"graphed_{k}"] - w) / max(
+                np.linalg.norm(w), 1e-30)
+            assert err <= 1e-5, (k, err)
+        calls = json.loads(str(rank["calls"]))
+        assert calls[""] == calls["graphed_"] == {
+            "middle": 1, "fine": 1, "color": 1, "gn": 4}
+        assert calls["long_"] == calls["long_graphed_"] == {
+            "middle": 3, "color": 3, "gn": 4}
+        # one iteration a stage: each Adam segment only warms up; GN's
+        # three segments warm up, then are captured and replayed
+        st = json.loads(str(rank["graphed_stats"]))
+        assert st["host_calls"] == 3 + 4 and st["eager_steps"] == 3 * 2 + 3
+        assert st["graphs"] == st["segments"] == st["replays"] == 3
+        assert list(rank["graphed_log"]) == (
+            ["eager", "host", "eager"] * 3 + gn)
+        st = json.loads(str(rank["long_graphed_stats"]))
+        assert st["host_calls"] == 6 + 4 and st["graphs"] == 2 * 2 + 3
+        assert st["replays"] == 2 * 4 + 3
+        assert list(rank["long_graphed_log"]) == adam * 2 + gn
 
 
 def test_world_one_shard_is_the_local_step():
