@@ -1,0 +1,263 @@
+"""The comparison that decides `correct`: the reference follows the
+captured tracked frames, and the first two steps of every stage of the
+captured mapping event, from the program's own state
+(reference/follow.py); each number compared is the widest gap between
+what the program produced and what the reference computes.
+
+- `start`: the widest absolute gap between the decoders the program
+  built at construction and the reference's own load of the same npz
+  (exact).
+- `track_first`: the widest relative gap of a sampled frame's first
+  tracking loss (at the pose init_select kept, before any step).
+- `track_loss`: the same over its first, last and best tracking loss.
+- `track_pose`: the widest absolute gap of an entry of a sampled frame's
+  kept [R | t] (metres for t).
+- `track_near`: the same against the nearest of the reference's
+  post-step poses (the kept step's choice left out).
+- `map_loss`: the widest relative gap of the event's loss at each
+  followed iteration, the reference's computed at the program's state
+  there.
+- `map_step`: over the followed steps and the leaf groups whose Adam
+  moments start in that stage (the middle grid; the fine grid; the
+  colour grid, the colour decoder and, under BA, the window cameras),
+  the largest share of the step's first-moment mass on entries whose
+  step departs from the reference's by more than half a nominal step.
+- `map_flip`: the same as a share of the entries that move.
+
+A cell's workload file names the numbers it compares, with their limits;
+the others are printed as readings.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from benchmark.reference import follow, plain
+
+
+@contextlib.contextmanager
+def precision(tf32: bool):
+    """float32 matrix products in full fp32, or in TF32 for the control."""
+    m, c = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = m
+        torch.backends.cudnn.allow_tf32 = c
+
+
+def _dev_tree(tree, device, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _dev_tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_dev_tree(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype or tree.dtype)
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def _gen(state, device):
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return g
+
+
+def start_gap(program_params: dict, npz_path: str) -> float:
+    """Widest |program - npz| over the decoders' weights."""
+    ref = plain.flatten(plain.load_decoders(npz_path, "cpu"))
+    prog = plain.flatten(program_params)
+    if set(ref) != set(prog):
+        return float("inf")
+    return max(float(torch.max(torch.abs(prog[k].float() - ref[k])))
+               for k in ref)
+
+
+def follow_all(cfg, captures, stream, device, tf32: bool = False,
+               dtype=torch.float32) -> dict:
+    """The reference's outputs for every capture, in float32 (TF32 with
+    `tf32`; float64 with that `dtype`, for the look at a number's
+    conditioning)."""
+    cache = {}
+
+    def frame(i):
+        if i not in cache:
+            c, d, _ = stream.frame(int(i))
+            cache[i] = (torch.as_tensor(c, device=device, dtype=dtype),
+                        torch.as_tensor(d, device=device, dtype=dtype))
+        return cache[i]
+
+    def dev(t):
+        return t.to(device=device, dtype=dtype)
+
+    out = {}
+    with precision(tf32):
+        for (kind, idx), cap in sorted(captures.items()):
+            bound = dev(cap.bound)
+            gen = _gen(cap.gen_state, device)
+            if kind == "track":
+                color, depth = frame(idx)
+                out[(kind, idx)] = follow.follow_tracking(
+                    cfg, _dev_tree(cap.params, device, dtype),
+                    _dev_tree(cap.grids, device, dtype), bound, idx,
+                    dev(cap.extra["pre"]), dev(cap.extra["pre_pre"]),
+                    color, depth, gen)
+                continue
+            states = cap.extra["states"]
+            if any(it not in states
+                   for it in follow.snapshot_iterations(cfg)):
+                out[(kind, idx)] = None
+                continue
+            states = {it: {"tree": _dev_tree(st["tree"], device, dtype),
+                           "gen": st["gen"]} for it, st in states.items()}
+            out[(kind, idx)] = follow.follow_mapping(
+                cfg, bound, idx, dev(cap.extra["cur"]),
+                dev(cap.extra["kf_c2w"]),
+                [int(f) for f in cap.extra["kf_frames"].tolist()],
+                cap.extra["count"], cap.extra["capacity"], frame, gen,
+                states)
+    return out
+
+
+def map_loss_at(cap, it) -> float:
+    """A mapping capture's loss at iteration it (the program's losses are
+    a tensor over every iteration; the control's, put in the program's
+    place, a dict over the followed ones)."""
+    return float(cap.out["losses"][it])
+
+
+def map_delta(cap, key):
+    """A mapping capture's step of leaf group `grp` at iteration it (key
+    (it, grp)): the difference of the two captured states around it, or
+    the control's step as given."""
+    if "deltas" in cap.out:
+        return cap.out["deltas"][key]
+    it, grp = key
+    states = cap.extra["states"]
+    return (follow.group_tensor(states[it + 1]["tree"], grp)
+            - follow.group_tensor(states[it]["tree"], grp))
+
+
+def step_shares(delta, ref_step) -> tuple:
+    """(mass share, entry share) of a step's entries that depart from the
+    reference's step by more than half a nominal step."""
+    r = ref_step["delta"]
+    d = delta.to(device=r.device, dtype=r.dtype)
+    bad = torch.abs(d - r) > ref_step["unit"]
+    w = ref_step["weight"]
+    total = float(torch.sum(w))
+    mass = (float(torch.sum(w * bad)) / total if total > 0
+            else float(bool(torch.any(bad))))
+    moving = int(torch.sum((r != 0) | (d != 0)))
+    return mass, int(torch.sum(bad)) / max(moving, 1)
+
+
+def gaps(captures, ref: dict) -> dict:
+    """Every number, from the captures' outputs (the program's, or the
+    control's put in their place) against the reference's `ref`."""
+    res = {"track_first": 0.0, "track_loss": 0.0, "track_pose": 0.0,
+           "track_near": 0.0, "map_loss": 0.0, "map_step": 0.0,
+           "map_flip": 0.0}
+    for key, cap in captures.items():
+        if key not in ref:
+            continue
+        r = ref[key]
+        if key[0] == "track":
+            losses = [float(x) for x in cap.out["losses"].tolist()]
+            res["track_first"] = max(res["track_first"],
+                                     _rel(losses[0], r["losses"][0]))
+            res["track_loss"] = max(res["track_loss"], max(
+                _rel(a, b) for a, b in zip(losses, r["losses"])))
+            pose = cap.out["pose"].to(device=r["pose"].device,
+                                      dtype=r["pose"].dtype)[:3]
+            res["track_pose"] = max(res["track_pose"], float(
+                torch.max(torch.abs(pose - r["pose"][:3]))))
+            res["track_near"] = max(res["track_near"], min(
+                float(torch.max(torch.abs(pose - plain.cam_to_c2w(c))))
+                for c in r["posts"]))
+            continue
+        if r is None:
+            for k in ("map_loss", "map_step", "map_flip"):
+                res[k] = float("inf")
+            continue
+        for it, v in r["losses"].items():
+            res["map_loss"] = max(res["map_loss"], _rel(map_loss_at(cap, it),
+                                                        v))
+        for k, st in r["steps"].items():
+            mass, flip = step_shares(map_delta(cap, k), st)
+            res["map_step"] = max(res["map_step"], mass)
+            res["map_flip"] = max(res["map_flip"], flip)
+    return res
+
+
+def as_outputs(ref: dict) -> dict:
+    """A reference run's outputs in the form of the program's captures
+    (the control put in the program's place)."""
+    out = {}
+    for key, r in ref.items():
+        if key[0] == "track":
+            out[key] = {"losses": torch.tensor(r["losses"]),
+                        "pose": r["pose"].detach().cpu()}
+        elif r is not None:
+            out[key] = {"losses": dict(r["losses"]),
+                        "deltas": {k: s["delta"]
+                                   for k, s in r["steps"].items()}}
+    return out
+
+
+def mapping_detail(sides: dict, ref: dict) -> list:
+    """One line a followed step and leaf group of each mapping capture:
+    (mass share, entry share) of each side's step (the program's, the
+    control's, ...: {name: captures}) against the reference `ref`; then
+    each side's widest loss gap."""
+    lines = []
+    for key in sorted(k for k in ref if k[0] == "map"):
+        if ref[key] is None:
+            continue
+        r = ref[key]
+        caps = {name: c[key] for name, c in sides.items() if key in c}
+        for k in sorted(r["steps"]):
+            shares = [f"{name} {step_shares(map_delta(c, k), r['steps'][k])!r}"
+                      for name, c in caps.items()]
+            lines.append(f"event {key[1]} iteration {k[0]} {k[1]}: "
+                         + ", ".join(shares))
+        loss = [f"{name} " + repr(max(_rel(map_loss_at(c, it), v)
+                                      for it, v in r["losses"].items()))
+                for name, c in caps.items()]
+        lines.append(f"event {key[1]} BA {r['ba']}; loss gaps "
+                     + ", ".join(loss))
+    return lines
+
+
+def tracking_detail(captures, refs: dict) -> list:
+    """One line a sampled frame: the program's [first, last, best] loss
+    and each reference's, the kept pose's gap to each reference's kept
+    pose and to the nearest of its post-step poses (with that step)."""
+    lines = []
+    for key, cap in sorted(captures.items()):
+        if key[0] != "track":
+            continue
+        prog = [float(x) for x in cap.out["losses"].tolist()]
+        pose = cap.out["pose"][:3]
+        parts = [f"frame {key[1]}: program losses {prog}"]
+        for name, ref in refs.items():
+            r = ref[key]
+            dev = r["pose"].device
+            p = pose.to(device=dev, dtype=r["pose"].dtype)
+            near = [float(torch.max(torch.abs(
+                p - plain.cam_to_c2w(c)))) for c in r["posts"]]
+            k = min(range(len(near)), key=near.__getitem__)
+            kept = min(range(len(r["all_losses"])),
+                       key=r["all_losses"].__getitem__)
+            parts.append(
+                f"{name} losses {r['losses']} kept step {kept}, pose gap "
+                f"{float(torch.max(torch.abs(p - r['pose'][:3])))!r}, "
+                f"nearest step {k} at {near[k]!r}")
+        lines.append("; ".join(parts))
+    return lines
