@@ -47,7 +47,8 @@
    phase that drives an engine prints its graphs, replays, eager steps,
    capture seconds and the graph pools' MiB beside its peak.
 4. Profile: utils/profiling.torch_trace (torch.profiler, Chrome trace
-   written to output/chip_smoke_profile/trace.json) over one more tracked
+   written to output/chip_smoke_profile/trace.json, the engine's spans
+   beside the kernels) over one more tracked
    frame and mapping event of the trained engine, through the engine's
    graphed path, gives the device busy share and the top kernels; then
    the same frame and event again with the graphs off (eager) for the
@@ -704,7 +705,7 @@ def profile_window(torch, eng, log):
             eager_engine(eng)
         logdir = os.path.join(REPO, "output", f"chip_smoke_profile_{name}")
         torch.cuda.synchronize()
-        with torch_trace(logdir) as prof:
+        with torch_trace(logdir, eng.timer) as prof:
             t0 = time.perf_counter()
             eng.track(idx, color, depth, gt_pose)
             eng._map(idx, color, depth, s.mapper, eng.iters, eng.lr_factor,

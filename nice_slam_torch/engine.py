@@ -55,6 +55,20 @@ panels changes no result: a run with them equals one without, bit for
 bit.  Their render time counts under the stage 'vis', not 'track' or
 'map'.
 
+Spans.  `timer` (utils/profiling.StageTimer) keeps `timings`, host
+seconds by stage (io, track, map, ckpt, vis, the mesher's mesh_*), and,
+between `timer.start_recording(capacity)` and `timer.stop_recording()`,
+the spans of every frame and event: `frame` (one iteration of the loop)
+> `frame.load` (io) > `frame.read`, `frame.upload`; `track` (track) >
+`track.refresh`, `track.init_select`, `track.iters`, `track.gn`,
+`track.wait`; `map.event` (map) > `map.prepare`, the stages' replay loops
+(`map.middle`, `map.fine`, `map.color`; `map.iters` in iMAP*),
+`map.ba_gn`, `map.writeback`, `map.keyframe`, `map.coarse` (with its own
+`map.prepare`, `map.coarse.iters`, `map.writeback`) and `map.wait`; then
+`ckpt`, `mesh` and `vis`; `graphs.capture` wherever a runner warms up or
+captures.  A frame's spans carry its index as their id, an event's spans
+the event's frame index.  Each `_sync` re-anchors the device clock.
+
 CUDA graphs.  On a card each optimiser iteration of tracking and of the
 mapper is a captured CUDA graph replayed `iters` times (graphs.py: one
 runner a side, `_track_graphs` and `_map_graphs`), the counterpart of
@@ -219,8 +233,9 @@ class SlamEngine:
         # count_written
         self.written = {"ckpt": 0, "mesh": 0}
         self._written_lock = threading.Lock()
-        # host seconds by stage (the mesher hook adds its parts)
-        self.timer = StageTimer()
+        # host seconds by stage (the mesher hook adds its parts), and the
+        # spans while it records
+        self.timer = StageTimer(self.device)
         self.timings = self.timer.totals
         self.timings.update(track=0.0, map=0.0, ckpt=0.0, io=0.0)
         # per tracked frame: {"idx", "losses"} with the [first, last, best]
@@ -286,6 +301,7 @@ class SlamEngine:
         device = device or self.device
         if device.type == "cuda":
             torch.cuda.current_stream(device).synchronize()
+            self.timer.anchor(device)
 
     def count_written(self, kind: str) -> None:
         """One more file of `kind` written (under a lock: the pipelined
@@ -315,15 +331,21 @@ class SlamEngine:
         crosses to the device as uint8 and is dequantized there, bit-exact
         with the f32 upload for 8-bit sources (the JAX engine's
         _load_frame)."""
-        with self.timer.time("io"):
-            _, color, depth, gt_pose = self.dataset[idx]
-            if getattr(self.dataset, "transfer_color_uint8", False):
-                color = torch.from_numpy(quantize_color_u8(color)).to(
-                    self.device).float() / 255.0
-            else:
-                color = self._to_dev(color)
-            return (color, self._to_dev(depth),
-                    np.asarray(gt_pose, np.float32))
+        timer = self.timer
+        with timer.span("frame.load", id=idx, key="io"):
+            with timer.span("frame.read"):
+                _, color, depth, gt_pose = self.dataset[idx]
+            with timer.span("frame.upload"):
+                if getattr(self.dataset, "transfer_color_uint8", False):
+                    color = torch.from_numpy(quantize_color_u8(color))
+                    timer.count("bytes_to_device", color.nbytes)
+                    color = color.to(self.device).float() / 255.0
+                else:
+                    color = self._to_dev(color)
+                    timer.count("bytes_to_device", color.nbytes)
+                depth = self._to_dev(depth)
+                timer.count("bytes_to_device", depth.nbytes)
+            return color, depth, np.asarray(gt_pose, np.float32)
 
     # -- tracking ----------------------------------------------------------
 
@@ -339,7 +361,8 @@ class SlamEngine:
         src = self._map_tensors()
         if (len(src) != len(self._track_src)
                 or any(a is not b for a, b in zip(src, self._track_src))):
-            self._load_track_map(self.device)
+            with self.timer.span("track.refresh"):
+                self._load_track_map(self.device)
         return self._params_t, self._grids_t, self._bound_t, self.gen
 
     def _map_tensors(self) -> list:
@@ -391,15 +414,17 @@ class SlamEngine:
             return
         self.gt_c2w[idx] = gt_pose
         s = self.specs
-        params, grids, bound, gen = self._tracking_map()
         vis = self._track_vis
         panels = vis is not None and vis.frame_selected(idx)
-        with self.timer.time("track"):
+        with self.timer.span("track", id=idx, key="track",
+                             graphs=self._track_graphs):
+            params, grids, bound, gen = self._tracking_map()
             out = track_step(params, grids, bound, self.est_c2w_dev, idx,
                              color, depth, s.camera, s.track, s.render,
                              s.model, gen=gen, return_cams=panels,
                              graphs=self._track_graphs)
-            self._sync(self.est_c2w_dev.device)
+            with self.timer.span("track.wait"):
+                self._sync(self.est_c2w_dev.device)
         losses, cams = out if panels else (out, None)
         self.tracking_stats.append({"idx": idx, "losses": losses})
         if panels:
@@ -481,7 +506,9 @@ class SlamEngine:
                   "tpu.keyframe_capacity")
             self._warned_kf_capacity = True
         ba = len(self.kf_frame_ids) > 4 and mapspec.ba
-        with self.timer.time("map"):
+        timer = self.timer
+        with timer.span("map.event", id=idx, key="map",
+                        graphs=self._map_graphs):
             if outer == 1:
                 self._map(idx, color, depth, mapspec, n_iters, lr_f, ba,
                           insert_kf=want_insert, gt_pose=gt_pose,
@@ -495,14 +522,17 @@ class SlamEngine:
                 # then keyframe insertion and the coarse mapper, in the order
                 # of the single-pass event
                 if want_insert:
-                    add_keyframe(self.store, color, depth, traj[idx],
-                                 self._to_dev(gt_pose), idx)
+                    with timer.span("map.keyframe"):
+                        add_keyframe(self.store, color, depth, traj[idx],
+                                     self._to_dev(gt_pose), idx)
                 if coarse is not None:
-                    self._map(idx, color, depth, coarse, c_iters, c_lr, False,
-                              record=False)
+                    with timer.span("map.coarse"):
+                        self._map(idx, color, depth, coarse, c_iters, c_lr,
+                                  False, record=False)
             if want_insert:
                 self.kf_frame_ids.append(idx)
-            self._sync()
+            with timer.span("map.wait"):
+                self._sync()
         if self._event_hook is not None:
             self._event_hook(self, idx, color, depth)
 
@@ -510,14 +540,15 @@ class SlamEngine:
                 (idx % self.ckpt_freq == 0 and idx > 0) or final):
             # every frame up to idx is tracked by now; under strict sync
             # the loop bumps frames_done only after this event
-            with self.timer.time("ckpt"):
+            with timer.span("ckpt", id=idx, key="ckpt"):
                 self._save(os.path.join(self.output, "ckpts",
                                         f"{idx:05d}.npz"),
                            traj, gt_c2w, max(tracked, idx + 1))
             self.count_written("ckpt")
         if self.mesher_hook is not None and self.is_primary and (
                 (idx % self.mesh_freq == 0 and idx > 0) or final):
-            self.mesher_hook(self, idx, final)
+            with timer.span("mesh", id=idx):
+                self.mesher_hook(self, idx, final)
             self.count_written("mesh")
 
     def _map_panels(self, idx: int, color, depth, first: bool, mapspec):
@@ -609,33 +640,34 @@ class SlamEngine:
             except ImportError:
                 pass
         for idx in range(start, n):
-            color, depth, gt_pose = self._load_frame(idx)
-            if self.map_lag > 0:
-                self._frame_cache[idx] = (color, depth, gt_pose)
-                for old in [k for k in self._frame_cache
-                            if k < idx - self.map_lag - 1]:
-                    del self._frame_cache[old]
-            if bar:
-                bar.update(1)
-            if idx == 0:
-                self._set_gt_pose(0, gt_pose)
-                self.mapping_event(0, color, depth, gt_pose, first=True)
-                self.frames_done = 1
-                continue
-            self.track(idx, color, depth, gt_pose)
-            midx = idx - self.map_lag
-            if idx == n - 1:
-                # the final frame always maps itself
-                self.mapping_event(idx, color, depth, gt_pose)
-            elif midx > 0 and midx % self.every_frame == 0:
-                # a lagged frame from before a resume point is gone: map
-                # the current frame in its place (same cadence)
-                mc, md, mg = self._frame_cache.get(midx,
-                                                   (color, depth, gt_pose))
-                self.mapping_event(midx, mc, md, mg)
-            if self._frame_hook is not None:
-                self._frame_hook(self, idx, color, depth)
-            self.frames_done = idx + 1
+            with self.timer.span("frame", id=idx):
+                color, depth, gt_pose = self._load_frame(idx)
+                if self.map_lag > 0:
+                    self._frame_cache[idx] = (color, depth, gt_pose)
+                    for old in [k for k in self._frame_cache
+                                if k < idx - self.map_lag - 1]:
+                        del self._frame_cache[old]
+                if bar:
+                    bar.update(1)
+                if idx == 0:
+                    self._set_gt_pose(0, gt_pose)
+                    self.mapping_event(0, color, depth, gt_pose, first=True)
+                    self.frames_done = 1
+                    continue
+                self.track(idx, color, depth, gt_pose)
+                midx = idx - self.map_lag
+                if idx == n - 1:
+                    # the final frame always maps itself
+                    self.mapping_event(idx, color, depth, gt_pose)
+                elif midx > 0 and midx % self.every_frame == 0:
+                    # a lagged frame from before a resume point is gone:
+                    # map the current frame in its place (same cadence)
+                    mc, md, mg = self._frame_cache.get(
+                        midx, (color, depth, gt_pose))
+                    self.mapping_event(midx, mc, md, mg)
+                if self._frame_hook is not None:
+                    self._frame_hook(self, idx, color, depth)
+                self.frames_done = idx + 1
         if bar:
             bar.close()
         return self

@@ -50,6 +50,11 @@ a capture launches (`fused_decode.count_captured`) and each replay credits
 it.  On a CPU device (and for `capture=False`) every iteration runs the
 step eagerly, so the CPU tests run the same step code that the card
 captures.  A failed capture raises; nothing falls back to eager.
+
+Each warm-up and capture is a span "graphs.capture" of the engine's
+tracer (utils/profiling.span), whose id is the signature's first key
+element.  A replay runs no host code, so nothing inside a graph is a
+span.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence
 import torch
 
 from nice_slam_torch.ops import fused_decode
+from nice_slam_torch.utils.profiling import span
 
 
 def tensor_key(tensors: Sequence[torch.Tensor]) -> tuple:
@@ -237,12 +243,13 @@ class StepGraphs:
         capture and first replay, or a replay."""
         g = self._graphs.get(key)
         if g is None:
-            if key not in self._warm:
-                self._warm.add(key)
-                self.eager_steps += 1
-                self._on_side(fn)
-                return
-            g = self._graphs[key] = self._capture(key, fn, generators)
+            with span("graphs.capture", id=key[0], graphs=self):
+                if key not in self._warm:
+                    self._warm.add(key)
+                    self.eager_steps += 1
+                    self._on_side(fn)
+                    return
+                g = self._graphs[key] = self._capture(key, fn, generators)
         self._replay(g)
 
     def _replay(self, g: _Graph) -> None:

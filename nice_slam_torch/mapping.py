@@ -45,7 +45,9 @@ segmented step, two graphs around the collective, which runs eagerly
 between their replays (the JAX package's jitted shard_map with its psum,
 nice_slam_tpu/parallel/data_parallel.py:53-101); grid-sharded mapping
 (parallel/grid_sharded.py) is segmented the same way at its five
-collectives.
+collectives.  The parts of an event are spans of the engine's tracer
+(utils/profiling.span): map.prepare, each stage's replay loop (`stage_span`),
+map.ba_gn, map.writeback, map.keyframe and the coarse mapper's map.coarse.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ from nice_slam_torch.ops.se3 import (
 from nice_slam_torch.ops.tree import tree_leaves, tree_map
 from nice_slam_torch.parallel import schur_ba
 from nice_slam_torch.render import RenderSpec, regulation_sigma, render_rays
+from nice_slam_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -468,6 +471,14 @@ def _load_map_buffers(b, params, grids, bound, window, cams0, masks,
     b.bound.copy_(bound)
 
 
+def stage_span(mapspec: MapSpec, stage: str) -> str:
+    """The span of a stage's replay loop: map.middle, map.fine, map.color,
+    map.coarse.iters for the coarse mapper's, map.iters in iMAP*."""
+    if not mapspec.nice:
+        return "map.iters"
+    return "map.coarse.iters" if stage == "coarse" else "map." + stage
+
+
 def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                  lr_factor: float, camera: Camera, stage_iters,
                  mapspec: MapSpec, rspec: RenderSpec, mspec: ModelSpec,
@@ -601,29 +612,33 @@ def map_optimize(params, grids, bound, window, cams0, masks, cam_lr_mask,
                None if pix_buf is None else tensor_key(pix_buf))
         if shard is not None:
             segs = segments(stage, rspec_stage, frozen)
-        for _ in range(n_stage):
-            if on_iter is not None:
-                on_iter(it_all, b.tree)
-            if pix_buf is not None:
-                load_draws(pix_buf, pixels[it_all])
-            if shard is None:
-                graphs.step(key, lambda st=stage, rs=rspec_stage,
-                            fz=frozen: step(st, rs, fz), (gen,))
-            else:
-                graphs.step_segments(key, *segs)
-            it_all += 1
+        with span(stage_span(mapspec, stage), graphs=graphs):
+            for _ in range(n_stage):
+                if on_iter is not None:
+                    on_iter(it_all, b.tree)
+                if pix_buf is not None:
+                    load_draws(pix_buf, pixels[it_all])
+                if shard is None:
+                    graphs.step(key, lambda st=stage, rs=rspec_stage,
+                                fz=frozen: step(st, rs, fz), (gen,))
+                else:
+                    graphs.step_segments(key, *segs)
+                it_all += 1
     cams = b.tree["cams"].clone()
     if ba and mapspec.pose_gn_iters > 0 and mapspec.nice:
         # on the static buffers with the map frozen
-        cams = schur_ba.schur_pose_refine(
-            b.tree["params"], b.tree["grids"], b.bound, b.window, cams,
-            b.cam_lr_mask, camera,
-            dataclasses.replace(rspec, train_decoders=False), mspec,
-            mapspec.pose_gn_iters, mapspec.pose_gn_pixels,
-            mapspec.pose_gn_damping, gen=gen, shard=shard, graphs=graphs)
-    out = b.losses[:n_iters].clone()
-    params = tree_map(torch.clone, b.tree["params"])
-    grids = {n: g.clone() for n, g in b.tree["grids"].items()}
+        with span("map.ba_gn", graphs=graphs):
+            cams = schur_ba.schur_pose_refine(
+                b.tree["params"], b.tree["grids"], b.bound, b.window, cams,
+                b.cam_lr_mask, camera,
+                dataclasses.replace(rspec, train_decoders=False), mspec,
+                mapspec.pose_gn_iters, mapspec.pose_gn_pixels,
+                mapspec.pose_gn_damping, gen=gen, shard=shard,
+                graphs=graphs)
+    with span("map.writeback", graphs=graphs):
+        out = b.losses[:n_iters].clone()
+        params = tree_map(torch.clone, b.tree["params"])
+        grids = {n: g.clone() for n, g in b.tree["grids"].items()}
     return params, grids, cams, out
 
 
@@ -649,15 +664,17 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
     window's frame ids (the current frame included, -2 = empty slot;
     Mapper.py:274-287)."""
     cur_c2w = est_c2w[idx]
-    window, masks, cams0, cam_lr_mask = prepare_mapping(
-        store, color, depth, cur_c2w, grids, bound, camera, mapspec, ba,
-        gen=gen, mask_names=_trained_grids(mapspec, stage_iters))
-    slots = window["slots"]
-    sel_frames = torch.where(
-        window["valid"],
-        torch.where(slots >= 0, store.frame_idx[torch.clamp(slots, min=0)],
-                    torch.full_like(slots, idx)),
-        torch.full_like(slots, -2))
+    with span("map.prepare", graphs=graphs):
+        window, masks, cams0, cam_lr_mask = prepare_mapping(
+            store, color, depth, cur_c2w, grids, bound, camera, mapspec, ba,
+            gen=gen, mask_names=_trained_grids(mapspec, stage_iters))
+        slots = window["slots"]
+        sel_frames = torch.where(
+            window["valid"],
+            torch.where(slots >= 0,
+                        store.frame_idx[torch.clamp(slots, min=0)],
+                        torch.full_like(slots, idx)),
+            torch.full_like(slots, -2))
     if gs is not None and mapspec.nice and not mapspec.coarse_mapper:
         from nice_slam_torch.parallel.grid_sharded import gs_map_once
         params, grids, cams, losses = gs_map_once(
@@ -676,7 +693,7 @@ def _one_map_optimize(params, grids, bound, store: KeyframeStore,
             lr_factor, camera, stage_iters, mapspec, rspec, mspec, ba=ba,
             gen=gen, on_iter=on_iter, graphs=graphs)
     if ba:
-        with torch.no_grad():
+        with torch.no_grad(), span("map.writeback", graphs=graphs):
             new_c2w = to_homogeneous(cam_from_tensor(cams))
             kf = window["valid"] & (slots >= 0) & (cam_lr_mask > 0)
             store.est_c2w[slots[kf]] = new_c2w[kf]
@@ -710,12 +727,14 @@ def mapping_step(params, grids, bound, store: KeyframeStore,
         grids = dict(grids)
         grids["occ_proxy"] = refresh_occ_proxy(params, grids, bound, mspec)
     if insert_kf:
-        add_keyframe(store, color, depth, est_c2w[idx], gt_pose, idx)
+        with span("map.keyframe", graphs=graphs):
+            add_keyframe(store, color, depth, est_c2w[idx], gt_pose, idx)
     if coarse_spec is not None:
-        params, grids, _, _ = _one_map_optimize(
-            params, grids, bound, store, est_c2w, idx, color, depth,
-            coarse_lr_factor, camera, coarse_stage_iters, coarse_spec,
-            rspec, mspec, False, gen, dp, gs, graphs=graphs)
+        with span("map.coarse", graphs=graphs):
+            params, grids, _, _ = _one_map_optimize(
+                params, grids, bound, store, est_c2w, idx, color, depth,
+                coarse_lr_factor, camera, coarse_stage_iters, coarse_spec,
+                rspec, mspec, False, gen, dp, gs, graphs=graphs)
     return params, grids, losses, sel_frames
 
 

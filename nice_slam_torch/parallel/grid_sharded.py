@@ -91,6 +91,7 @@ from nice_slam_torch.mapping import (
     _map_buffers,
     _trained_grids,
     _window_rays,
+    stage_span,
 )
 from nice_slam_torch.models.decoders import (
     ModelSpec,
@@ -105,6 +106,7 @@ from nice_slam_torch.ops.sampling import sample_pdf
 from nice_slam_torch.ops.tree import tree_leaves, tree_map
 from nice_slam_torch.parallel.data_parallel import RayShard
 from nice_slam_torch.render import RenderSpec, _zvals
+from nice_slam_torch.utils.profiling import span
 
 SHARDED_LEVELS = ("middle", "fine", "color")
 
@@ -724,19 +726,21 @@ def gs_map_optimize(params, slabs, bound, window, cams0, mask_slabs,
                None if pix_buf is None else tensor_key(pix_buf))
         segs = _gs_step(graphs, key, b, stage, lr_factor, camera, spec_ba,
                         rspec, rspec_stage, mspec, shapes, gs, gen, pix_buf)
-        for _ in range(n_stage):
-            if on_iter is not None:
-                on_iter(it_all, b.tree, make_gs_decode_fn(
-                    b.tree["params"], mspec, b.tree["grids"], b.bound,
-                    shapes, "color", gs, train_decoders=False,
-                    count_as="vis"))
-            if pix_buf is not None:
-                load_draws(pix_buf, pixels[it_all])
-            graphs.step_segments(key, *segs)
-            it_all += 1
-    return (tree_map(torch.clone, b.tree["params"]),
-            {n: g.clone() for n, g in b.tree["grids"].items()},
-            b.tree["cams"].clone(), b.losses[:n_iters].clone())
+        with span(stage_span(mapspec, stage), graphs=graphs):
+            for _ in range(n_stage):
+                if on_iter is not None:
+                    on_iter(it_all, b.tree, make_gs_decode_fn(
+                        b.tree["params"], mspec, b.tree["grids"], b.bound,
+                        shapes, "color", gs, train_decoders=False,
+                        count_as="vis"))
+                if pix_buf is not None:
+                    load_draws(pix_buf, pixels[it_all])
+                graphs.step_segments(key, *segs)
+                it_all += 1
+    with span("map.writeback", graphs=graphs):
+        return (tree_map(torch.clone, b.tree["params"]),
+                {n: g.clone() for n, g in b.tree["grids"].items()},
+                b.tree["cams"].clone(), b.losses[:n_iters].clone())
 
 
 @torch.no_grad()
@@ -784,7 +788,8 @@ def gs_map_once(params, grids, bound, window, cams0, masks, cam_lr_mask,
                if n in slabs and n in _trained_grids(mapspec, stage_iters)]
     new_grids = dict(grids)
     if trained:
-        new_grids.update(reassemble({n: slabs[n] for n in trained},
-                                    shapes, gs))
+        with span("map.writeback", graphs=graphs):
+            new_grids.update(reassemble({n: slabs[n] for n in trained},
+                                        shapes, gs))
     return params, new_grids, cams, losses
 

@@ -45,9 +45,11 @@ map, the keyframe store, the engine's generator, `kf_frame_ids`,
 `selected_keyframes`, the checkpoints and meshes, and the map side's
 trajectory, GT poses and frame count, handed over by the loop with each
 event (`map_side`).  Both: the stage timer and `written` (panels), each
-under a lock.  The mapper's thread starts only after the previous event
-has been joined, and the loop reads the map only between a join and the
-next hand-over.
+under a lock; the timer's spans nest per thread, so the mapper's events
+are span trees of their own (`map.event`, on the mapper's stream), and
+each join re-anchors the device clock.  The mapper's thread starts only
+after the previous event has been joined, and the loop reads the map only
+between a join and the next hand-over.
 
 Panels (enable_visualizer): mapping_only=True draws the mapping panels on
 the mapper's thread, as the JAX engine (:121-124); the per-iteration
@@ -178,6 +180,7 @@ class PipelinedSlamEngine(SlamEngine):
         self.gen_track = torch.Generator(device=self.dev_track)
         self.gen_track.manual_seed(int(cfg["tpu"]["seed"]) + 1)
         self._track_graphs = StepGraphs(self.dev_track)
+        self.timer.devices.append(self.dev_track)
         self._worker = None
         self._snapshot(None)
 
@@ -194,7 +197,9 @@ class PipelinedSlamEngine(SlamEngine):
         device (the analogue of Tracker.update_para_from_mapping) and fold
         the BA-refined pose of frame `idx` into the tracker's
         trajectory."""
-        self._load_track_map(self.dev_track)
+        with self.timer.span("track.refresh", id=idx,
+                             graphs=self._track_graphs):
+            self._load_track_map(self.dev_track)
         if idx is not None:
             self.est_c2w_dev[idx] = self._side[0][idx].to(self.dev_track)
 
@@ -212,8 +217,10 @@ class PipelinedSlamEngine(SlamEngine):
             traj, color, depth)
 
     def _join_event(self) -> None:
-        """Wait for the event in flight; its error is raised here."""
+        """Wait for the event in flight; its error is raised here.  The
+        mapper's stream has been synchronised by the event itself."""
         self._worker.join()
+        self.timer.anchor(self.dev_track)
 
     def run(self, n_frames: Optional[int] = None, progress: bool = False):
         if self.gt_camera:
@@ -227,10 +234,11 @@ class PipelinedSlamEngine(SlamEngine):
         n = min(n_frames or self.n_img, self.n_img)
         self._worker = MapperThread(self.dev_map)
         try:
-            color, depth, gt_pose = self._load_frame(0)
-            self._set_gt_pose(0, gt_pose)
-            self._submit_event(0, color, depth, gt_pose, first=True)
-            self._join_event()
+            with self.timer.span("frame", id=0):
+                color, depth, gt_pose = self._load_frame(0)
+                self._set_gt_pose(0, gt_pose)
+                self._submit_event(0, color, depth, gt_pose, first=True)
+                self._join_event()
             self._snapshot(None)
             self.frames_done = 1
             cur, prev_event = 1, None
@@ -239,9 +247,10 @@ class PipelinedSlamEngine(SlamEngine):
                 # 1) track the group against the current (stale) snapshot,
                 # while the previous event runs on the mapper
                 for idx in range(cur, g_end + 1):
-                    color, depth, gt_pose = self._load_frame(idx)
-                    self.track(idx, color.to(self.dev_track),
-                               depth.to(self.dev_track), gt_pose)
+                    with self.timer.span("frame", id=idx):
+                        color, depth, gt_pose = self._load_frame(idx)
+                        self.track(idx, color.to(self.dev_track),
+                                   depth.to(self.dev_track), gt_pose)
                 # 2) join the previous event; pull its map and pose
                 if prev_event is not None:
                     self._join_event()

@@ -16,7 +16,9 @@ the counterpart of the JAX package's one jitted `lax.scan`
 occupancy-guided sampling, with or without the panels).  init_select's
 two candidate renders are one more step a frame, and each Gauss-Newton
 iteration another (`schur_ba.schur_pose_refine`), as the JAX package
-computes them inside the same jit (`_track_step_body`).
+computes them inside the same jit (`_track_step_body`).  The initial pose,
+the Adam loop and the polish are spans of the engine's tracer
+(utils/profiling.span): track.init_select, track.iters and track.gn.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from nice_slam_torch.ops.se3 import (
 from nice_slam_torch.ops.tree import tree_leaves
 from nice_slam_torch.parallel import schur_ba
 from nice_slam_torch.render import RenderSpec, render_rays
+from nice_slam_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -236,8 +239,9 @@ def track_frame(params, grids, bound, cam0, gt_color, gt_depth,
 
     key = ("track", bkey, tspec, rspec, mspec, camera, id(gen),
            _map_key(params, grids, bound))
-    for _ in range(tspec.iters):
-        graphs.step(key, step, (gen,))
+    with span("track.iters", graphs=graphs):
+        for _ in range(tspec.iters):
+            graphs.step(key, step, (gen,))
     best = b.best_loss.clone()
     res = (b.best_cam.clone(),
            b.losses[0].clone() if tspec.iters else best,
@@ -252,6 +256,40 @@ def const_speed_init(pre_c2w, pre_pre_c2w):
     pre (Tracker.py:192-198).  4x4 in and out."""
     delta = pre_c2w @ torch.linalg.inv(pre_pre_c2w)
     return delta @ pre_c2w
+
+
+def _init_select(params, grids, bound, est_c2w, idx, b, bkey,
+                 camera: Camera, tspec: TrackSpec, rspec: RenderSpec,
+                 mspec: ModelSpec, gen, graphs: StepGraphs):
+    """Frame idx's initial pose (idx >= 2): the constant-speed
+    extrapolation, kept with init_select unless it renders
+    catastrophically worse than the previous pose on the same pixels
+    (margin x, the previous pose's median floored at 1 cm)."""
+    pre = est_c2w[idx - 1]
+    init_c2w = const_speed_init(pre, est_c2w[idx - 2])
+    if not tspec.init_select:
+        return init_c2w
+    eval_rspec = dataclasses.replace(rspec, train_decoders=False)
+    with torch.no_grad():
+        b.init_c2w.copy_(init_c2w)
+        b.pre_c2w.copy_(pre)
+
+    def select():
+        pix = _track_pixels(gen, tspec, camera)
+        med_cs = tracking_depth_median(
+            tensor_from_cam(b.init_c2w), params, grids, bound,
+            b.depth, camera, tspec, eval_rspec, mspec, pix=pix)
+        med_pre = tracking_depth_median(
+            tensor_from_cam(b.pre_c2w), params, grids, bound,
+            b.depth, camera, tspec, eval_rspec, mspec, pix=pix)
+        keep = med_cs <= tspec.init_select_margin * torch.clamp(
+            med_pre, min=0.01)
+        b.init_c2w.copy_(torch.where(keep, b.init_c2w, b.pre_c2w))
+
+    graphs.step(("init_select", bkey, tspec, eval_rspec, mspec,
+                 camera, id(gen), _map_key(params, grids, bound)),
+                select, (gen,))
+    return b.init_c2w
 
 
 def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
@@ -275,32 +313,10 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
     pre = est_c2w[idx - 1]
     init_c2w = pre
     if tspec.const_speed and idx >= 2:
-        init_c2w = const_speed_init(pre, est_c2w[idx - 2])
-        if tspec.init_select:
-            # keep the extrapolation unless it renders catastrophically
-            # worse than the previous pose on the same pixels (margin x,
-            # the previous pose's median floored at 1 cm)
-            eval_rspec = dataclasses.replace(rspec, train_decoders=False)
-            with torch.no_grad():
-                b.init_c2w.copy_(init_c2w)
-                b.pre_c2w.copy_(pre)
-
-            def select():
-                pix = _track_pixels(gen, tspec, camera)
-                med_cs = tracking_depth_median(
-                    tensor_from_cam(b.init_c2w), params, grids, bound,
-                    b.depth, camera, tspec, eval_rspec, mspec, pix=pix)
-                med_pre = tracking_depth_median(
-                    tensor_from_cam(b.pre_c2w), params, grids, bound,
-                    b.depth, camera, tspec, eval_rspec, mspec, pix=pix)
-                keep = med_cs <= tspec.init_select_margin * torch.clamp(
-                    med_pre, min=0.01)
-                b.init_c2w.copy_(torch.where(keep, b.init_c2w, b.pre_c2w))
-
-            graphs.step(("init_select", bkey, tspec, eval_rspec, mspec,
-                         camera, id(gen), _map_key(params, grids, bound)),
-                        select, (gen,))
-            init_c2w = b.init_c2w
+        with span("track.init_select", graphs=graphs):
+            init_c2w = _init_select(params, grids, bound, est_c2w, idx, b,
+                                    bkey, camera, tspec, rspec, mspec, gen,
+                                    graphs)
     with torch.no_grad():
         b.cam0.copy_(tensor_from_cam(init_c2w))
     best_cam, first, last, best, *pre_cams = track_frame(
@@ -310,11 +326,12 @@ def track_step(params, grids, bound, est_c2w: torch.Tensor, idx: int,
         # the polish of nice_slam_tpu/tracking.py:333-346: a one-frame
         # window over the whole image, the map frozen
         window = {"depths": b.depth[None], "valid": b.gn_valid}
-        best_cam = schur_ba.schur_pose_refine(
-            params, grids, bound, window, best_cam[None], b.gn_mask, camera,
-            dataclasses.replace(rspec, train_decoders=False), mspec,
-            tspec.gn_iters, tspec.gn_pixels, tspec.gn_damping, gen=gen,
-            graphs=graphs)[0]
+        with span("track.gn", graphs=graphs):
+            best_cam = schur_ba.schur_pose_refine(
+                params, grids, bound, window, best_cam[None], b.gn_mask,
+                camera, dataclasses.replace(rspec, train_decoders=False),
+                mspec, tspec.gn_iters, tspec.gn_pixels, tspec.gn_damping,
+                gen=gen, graphs=graphs)[0]
     est_c2w[idx] = to_homogeneous(cam_from_tensor(best_cam))
     losses = torch.stack([first, last, best])
     return (losses, pre_cams[0]) if return_cams else losses

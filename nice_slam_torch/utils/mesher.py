@@ -23,7 +23,6 @@
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from dataclasses import replace as dc_replace
 from typing import Optional
@@ -41,6 +40,7 @@ from nice_slam_torch.models.decoders import ModelSpec
 from nice_slam_torch.native import marching_tetrahedra
 from nice_slam_torch.render import RenderSpec, eval_points, render_rays
 from nice_slam_torch.utils.plyio import write_ply
+from nice_slam_torch.utils.profiling import StageTimer
 
 
 @dataclass
@@ -199,135 +199,139 @@ def compose_forecast_occupancy(occ_fine: np.ndarray, occ_coarse: np.ndarray,
     return np.where(seen | forecast, occ, 100.0), forecast
 
 
-def _add_time(timings: Optional[dict], key: str, t0: float) -> float:
-    t1 = time.perf_counter()
-    if timings is not None:
-        timings[key] = timings.get(key, 0.0) + (t1 - t0)
-    return t1
-
-
 def extract_mesh(params, mspec: ModelSpec, grids, bound, mc_bound,
                  camera: Camera, spec: MeshSpec,
                  kf_c2w=None, kf_depth=None, n_keyframes: int = 0,
                  out_path: Optional[str] = None,
-                 timings: Optional[dict] = None):
+                 timer: Optional[StageTimer] = None):
     """Extract (and optionally save) the scene mesh of the map on bound's
     device.  kf_c2w (K, 4, 4) and kf_depth (K, H, W) are tensors or arrays
-    whose first n_keyframes entries are the keyframes.  With `timings`,
-    the host seconds of each part are added to its keys mesh_query,
-    mesh_masks, mesh_march, mesh_clean, mesh_color and mesh_write.
+    whose first n_keyframes entries are the keyframes.  With `timer` (an
+    engine's), each part is a span mesh.query, mesh.masks, mesh.march,
+    mesh.clean, mesh.color and mesh.write, whose host seconds add to the
+    timings keys mesh_query, ..., mesh_write.
 
     Returns (verts (V,3), tris (T,3), colors (V,3) uint8 or None)."""
-    t0 = time.perf_counter()
+    timer = timer or StageTimer()
+
+    def part(name):
+        return timer.span("mesh." + name, key="mesh_" + name)
+
     dev = bound.device
-    mc_bound = np.asarray(mc_bound, np.float64)
-    pad = 0.05
-    res = spec.resolution
-    axes = [np.linspace(mc_bound[a, 0] - pad, mc_bound[a, 1] + pad, res)
-            for a in range(3)]
-    X, Y, Z = np.meshgrid(*axes, indexing="ij")
-    pts = np.stack([X, Y, Z], -1).reshape(-1, 3).astype(np.float32)
-    del X, Y, Z
-    pts_d = torch.from_numpy(pts).to(dev)
+    with part("query"):
+        mc_bound = np.asarray(mc_bound, np.float64)
+        pad = 0.05
+        res = spec.resolution
+        axes = [np.linspace(mc_bound[a, 0] - pad, mc_bound[a, 1] + pad, res)
+                for a in range(3)]
+        X, Y, Z = np.meshgrid(*axes, indexing="ij")
+        pts = np.stack([X, Y, Z], -1).reshape(-1, 3).astype(np.float32)
+        del X, Y, Z
+        pts_d = torch.from_numpy(pts).to(dev)
 
-    stage = "fine" if mspec.nice else "color"
-    occ = _eval_volume_chunked(params, mspec, grids, bound, pts_d, stage,
-                               spec.points_chunk, 3).cpu().numpy()
-    t0 = _add_time(timings, "mesh_query", t0)
+        stage = "fine" if mspec.nice else "color"
+        occ = _eval_volume_chunked(params, mspec, grids, bound, pts_d, stage,
+                                   spec.points_chunk, 3).cpu().numpy()
 
-    n_kf = n_keyframes if kf_c2w is not None else 0
-    if n_kf > 0:
-        kf_c2w_d = torch.as_tensor(kf_c2w[:n_kf], dtype=torch.float32,
-                                   device=dev)
-        kf_depth_d = torch.as_tensor(kf_depth[:n_kf], dtype=torch.float32,
-                                     device=dev)
-        kf_c2w_np = kf_c2w_d.cpu().numpy()
-        kf_depth_np = kf_depth_d.cpu().numpy()
-        seen = _seen_mask_chunked(pts_d, kf_c2w_d, kf_depth_d, camera,
-                                  spec.points_chunk,
-                                  spec.depth_test).cpu().numpy()
-        if spec.forecast and mspec.nice and mspec.coarse:
-            # scene completion: unseen-but-inside-hull points take the
-            # coarse level's occupancy + 0.2 (reference Mesher.py:386-418)
-            hull_pts = _hull_mask(pts, kf_c2w_np, kf_depth_np, camera,
-                                  spec.mesh_bound_scale)
-            if hull_pts is None:
-                hull_pts = np.zeros(len(pts), bool)
-            coarse_occ = _eval_volume_chunked(
-                params, mspec, grids, bound, pts_d, "coarse",
-                spec.points_chunk, 3).cpu().numpy()
-            occ, _ = compose_forecast_occupancy(occ, coarse_occ, seen,
-                                                hull_pts)
-        else:
-            # unseen space is forced solid so no spurious surface appears
-            # there; faces there are culled below (reference occ=-100/100
-            # trick, Mesher.py:404-433, sign flipped for occupancy)
-            occ = np.where(seen, occ, 100.0)
-    del pts_d
-    t0 = _add_time(timings, "mesh_masks", t0)
+    with part("masks"):
+        n_kf = n_keyframes if kf_c2w is not None else 0
+        if n_kf > 0:
+            kf_c2w_d = torch.as_tensor(kf_c2w[:n_kf], dtype=torch.float32,
+                                       device=dev)
+            kf_depth_d = torch.as_tensor(kf_depth[:n_kf],
+                                         dtype=torch.float32, device=dev)
+            kf_c2w_np = kf_c2w_d.cpu().numpy()
+            kf_depth_np = kf_depth_d.cpu().numpy()
+            seen = _seen_mask_chunked(pts_d, kf_c2w_d, kf_depth_d, camera,
+                                      spec.points_chunk,
+                                      spec.depth_test).cpu().numpy()
+            if spec.forecast and mspec.nice and mspec.coarse:
+                # scene completion: unseen-but-inside-hull points take the
+                # coarse level's occupancy + 0.2 (reference
+                # Mesher.py:386-418)
+                hull_pts = _hull_mask(pts, kf_c2w_np, kf_depth_np, camera,
+                                      spec.mesh_bound_scale)
+                if hull_pts is None:
+                    hull_pts = np.zeros(len(pts), bool)
+                coarse_occ = _eval_volume_chunked(
+                    params, mspec, grids, bound, pts_d, "coarse",
+                    spec.points_chunk, 3).cpu().numpy()
+                occ, _ = compose_forecast_occupancy(occ, coarse_occ, seen,
+                                                    hull_pts)
+            else:
+                # unseen space is forced solid so no spurious surface
+                # appears there; faces there are culled below (reference
+                # occ=-100/100 trick, Mesher.py:404-433, sign flipped for
+                # occupancy)
+                occ = np.where(seen, occ, 100.0)
+        del pts_d
 
-    vol = occ.reshape(res, res, res)
-    origin = np.array([axes[0][0], axes[1][0], axes[2][0]])
-    spacing = np.array([axes[0][1] - axes[0][0], axes[1][1] - axes[1][0],
-                        axes[2][1] - axes[2][0]])
-    # occupancy: inside = occ > level; marching_tetrahedra uses > iso
-    verts, tris = marching_tetrahedra(vol, spec.level_set, origin, spacing)
-    t0 = _add_time(timings, "mesh_march", t0)
+    with part("march"):
+        vol = occ.reshape(res, res, res)
+        origin = np.array([axes[0][0], axes[1][0], axes[2][0]])
+        spacing = np.array([axes[0][1] - axes[0][0], axes[1][1] - axes[1][0],
+                            axes[2][1] - axes[2][0]])
+        # occupancy: inside = occ > level; marching_tetrahedra uses > iso
+        verts, tris = marching_tetrahedra(vol, spec.level_set, origin,
+                                          spacing)
 
-    vseen = None
-    if spec.clean_mesh and len(verts) and n_kf > 0:
-        vseen = _seen_mask_chunked(
-            torch.from_numpy(verts).to(dev), kf_c2w_d, kf_depth_d, camera,
-            spec.points_chunk, spec.depth_test).cpu().numpy()
-        hull = _hull_mask(verts, kf_c2w_np, kf_depth_np, camera,
-                          spec.mesh_bound_scale)
-        if spec.forecast and hull is not None:
-            vkeep = hull  # forecast keeps completed regions inside hull
-        elif hull is not None:
-            vkeep = vseen & hull
-        else:
-            vkeep = vseen
-        fkeep = vkeep[tris].all(axis=1)
-        tris = tris[fkeep]
-        tris = _component_filter(verts, tris, spec.get_largest_components,
-                                 spec.remove_small_geometry_threshold)
-        used = np.zeros(len(verts), bool)
-        used[tris.reshape(-1)] = True
-        remap = np.cumsum(used) - 1
-        verts = verts[used]
-        vseen = vseen[used]  # keep aligned for the forecast cyan paint
-        tris = remap[tris]
-    t0 = _add_time(timings, "mesh_clean", t0)
+    with part("clean"):
+        vseen = None
+        if spec.clean_mesh and len(verts) and n_kf > 0:
+            vseen = _seen_mask_chunked(
+                torch.from_numpy(verts).to(dev), kf_c2w_d, kf_depth_d,
+                camera, spec.points_chunk, spec.depth_test).cpu().numpy()
+            hull = _hull_mask(verts, kf_c2w_np, kf_depth_np, camera,
+                              spec.mesh_bound_scale)
+            if spec.forecast and hull is not None:
+                vkeep = hull  # forecast keeps completed regions inside hull
+            elif hull is not None:
+                vkeep = vseen & hull
+            else:
+                vkeep = vseen
+            fkeep = vkeep[tris].all(axis=1)
+            tris = tris[fkeep]
+            tris = _component_filter(verts, tris,
+                                     spec.get_largest_components,
+                                     spec.remove_small_geometry_threshold)
+            used = np.zeros(len(verts), bool)
+            used[tris.reshape(-1)] = True
+            remap = np.cumsum(used) - 1
+            verts = verts[used]
+            vseen = vseen[used]  # keep aligned for the forecast cyan paint
+            tris = remap[tris]
 
-    colors = None
-    if spec.color and mspec.nice and len(verts):
-        raw_c = _eval_volume_chunked(params, mspec, grids, bound,
-                                     torch.from_numpy(verts).to(dev),
-                                     "color", spec.points_chunk,
-                                     slice(0, 3)).cpu().numpy()
-        colors = (np.clip(raw_c, 0, 1) * 255 + 0.5).astype(np.uint8)
-        if spec.forecast and vseen is not None:
-            # forecast vertices painted cyan (reference Mesher.py:559-565)
-            colors[~vseen] = np.array([0, 255, 255], np.uint8)
-    elif spec.color and not mspec.nice and len(verts):
-        # iMAP*: no colour grid; render a short ray along each vertex
-        # normal through the density field (reference Mesher.py:526-553)
-        colors = _imap_normal_colors(params, mspec, grids, bound, verts,
-                                     tris, spec.points_chunk)
-    t0 = _add_time(timings, "mesh_color", t0)
+    with part("color"):
+        colors = None
+        if spec.color and mspec.nice and len(verts):
+            raw_c = _eval_volume_chunked(params, mspec, grids, bound,
+                                         torch.from_numpy(verts).to(dev),
+                                         "color", spec.points_chunk,
+                                         slice(0, 3)).cpu().numpy()
+            colors = (np.clip(raw_c, 0, 1) * 255 + 0.5).astype(np.uint8)
+            if spec.forecast and vseen is not None:
+                # forecast vertices painted cyan (reference
+                # Mesher.py:559-565)
+                colors[~vseen] = np.array([0, 255, 255], np.uint8)
+        elif spec.color and not mspec.nice and len(verts):
+            # iMAP*: no colour grid; render a short ray along each vertex
+            # normal through the density field (reference
+            # Mesher.py:526-553)
+            colors = _imap_normal_colors(params, mspec, grids, bound, verts,
+                                         tris, spec.points_chunk)
 
-    if out_path is not None and len(verts):
-        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-        write_ply(out_path, verts, tris, colors)
-    _add_time(timings, "mesh_write", t0)
+    with part("write"):
+        if out_path is not None and len(verts):
+            os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+            write_ply(out_path, verts, tris, colors)
     return verts, tris, colors
 
 
 def engine_mesher_hook(engine, idx: int, final: bool):
     """Engine hook: extract and save a mesh as the reference mapper does
     (Mapper.py:636-654): <output>/mesh/{idx:05d}_mesh.ply, or
-    final_mesh.ply at the last frame.  The host seconds of each part are
-    added to engine.timings."""
+    final_mesh.ply at the last frame.  Each part is a span of the engine's
+    timer, its host seconds added to engine.timings."""
     m = engine.cfg["meshing"]
     spec = MeshSpec(
         resolution=m["resolution"],
@@ -348,7 +352,7 @@ def engine_mesher_hook(engine, idx: int, final: bool):
         kf_c2w=engine.store.est_c2w, kf_depth=engine.store.depths,
         n_keyframes=int(engine.store.count),
         out_path=os.path.join(engine.output, "mesh", name),
-        timings=engine.timings)
+        timer=engine.timer)
     if final and m.get("eval_rec"):
         # evaluation mesh: visibility from ALL tracked frames (reference
         # Mapper.py:649-653, get_mask_use_all_frames=True).  Only keyframes
@@ -363,4 +367,4 @@ def engine_mesher_hook(engine, idx: int, final: bool):
             kf_depth=np.zeros((n, 1, 1), np.float32), n_keyframes=n,
             out_path=os.path.join(engine.output, "mesh",
                                   "final_mesh_eval_rec.ply"),
-            timings=engine.timings)
+            timer=engine.timer)

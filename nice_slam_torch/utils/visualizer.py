@@ -156,9 +156,9 @@ class Visualizer:
         """Render frame idx at camera-to-world c2w (4, 4) from (params,
         grids, bound), by default the engine's map, and write the panel
         on the primary rank; every rank renders (a grid-sharded
-        `decode_fn` is collective).  The render counts under the engine's
-        'vis' stage.  Returns the panel's path stem on the primary rank,
-        else None."""
+        `decode_fn` is collective).  The render is the engine's span
+        'vis', its host seconds under the stage 'vis'.  Returns the panel's
+        path stem on the primary rank, else None."""
         import torch
 
         from nice_slam_torch.render import render_image
@@ -170,7 +170,7 @@ class Visualizer:
         bound = engine.bound if bound is None else bound
         rspec = dataclasses.replace(s.render, perturb=0.0,
                                     train_decoders=False)
-        with engine.timer.time("vis"):
+        with engine.timer.span("vis", id=idx, key="vis"):
             c2w = torch.as_tensor(c2w, dtype=torch.float32,
                                   device=bound.device)
             depth, _, color = render_image(

@@ -31,7 +31,7 @@ config's Gauss-Newton pose refinement (tracking / mapping.pose_GN_iters),
 occupancy-guided sampling (rendering.occupancy_guided) and the
 reference's .pt decoders (pretrained_decoders.coarse / middle_fine, read
 when the repository's npz is absent) run too.  --profile writes a
-torch.profiler Chrome trace of the run.
+torch.profiler Chrome trace of the run, with the engine's spans.
 
 Parallel modes: with tpu.data_parallel, tpu.mesh_shape [n] (n > 1) and
 no multi-process config, the script starts n local ranks
@@ -251,7 +251,7 @@ def main(argv=None):
             eng.resume(ckpt)
             print(f"resumed from {ckpt} at frame {eng.frames_done}")
         t0 = time.perf_counter()
-        with torch_trace(args.profile):
+        with torch_trace(args.profile, eng.timer):
             eng.run(n_frames=args.frames, progress=True)
         return eng, time.perf_counter() - t0
 
