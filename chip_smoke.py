@@ -107,11 +107,15 @@
    the four grids, the decoders, the keyframe stores and the tracking
    losses must be bit-equal (the grid backward sums in a fixed order; a
    replay draws what the eager call drew), and the launches equal the
-   schedule in each.  Prints the three walls and ATEs, and the grid
-   backward's scatter
-   (ops/grid.scatter_rows: sort, segment sum) timed against the
-   index_add_ it replaced, at the mapping shape (48,000 points x 8
-   corners into the middle and fine grids).
+   schedule in each; the grid scatter kernel launches once for every
+   grid gradient, the same count graphed (credited per replay) and
+   eager, and the plain route never runs on the card.  Prints the three
+   walls and ATEs, and the grid backward's scatter (ops/grid.grid_grad,
+   csrc/grid_scatter.cu) timed beside its byte bound, the plain route
+   and index_add_, and equal to the plain route, at every grid shape the
+   mapping steps differentiate at its own points: 32,000 points x 8
+   corners into the coarse grid (its few rows hold runs that span many
+   chunks) and 48,000 into the middle and fine grids.
 12. Gauss-Newton with local BA: strict, 13 frames, mapping.every_frame
    and keyframe_every 2, tracking.pose_GN_iters 2 (1,000 rays) and
    mapping.pose_GN_iters 2 (200 rays per window frame).  Local BA runs
@@ -230,8 +234,11 @@
    the ATE beside phase 3's, the collectives' bytes per
    iteration by kind (features, points, halo, reassembly, data) and
    stage, their seconds and share of map time, the peak MiB a rank and
-   the wall.  The kernels' per-device shared-memory attribute and device
-   guard (a launch on a second card) are not exercised: one card.
+   the wall.  Before the run, one slab_trilinear grid gradient (half the
+   fine grid along x, 48,000 points, the unowned ones into the sink row)
+   must equal plain_grid_grad of the same inputs bit for bit.  The
+   kernels' per-device shared-memory attribute and device guard (a launch
+   on a second card) are not exercised: one card.
 20. Visualiser and replay: the main path's run (phase 3's config and
    seed, 11 frames) with enable_visualizer() at tracking and mapping
    vis_freq 5, vis_inside_freq 25: frames 5 and 10 draw tracking
@@ -308,7 +315,7 @@ device memory and launch counts.
 
 The smoke's whole wall (the kernels' build included) comes before the
 card's name and power limit.  The last two lines are a JSON object of
-the kernels and the contract line
+the kernels (K1, K2 and the grid scatter) and the contract line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
 """
 
@@ -636,6 +643,7 @@ def expected_launches(cfg, n_img: int, events=None, tracked=None):
 def run_main_path(torch, fd, log):
     from nice_slam_torch.config import load_config
     from nice_slam_torch.engine import SlamEngine
+    from nice_slam_torch.ops import grid
 
     n_frames = 11
     cfg = load_config(SYN_CFG, overrides={
@@ -648,12 +656,13 @@ def run_main_path(torch, fd, log):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fd.reset_launch_counts()
+    grid.reset_launch_counts()
     with RunCounters(torch) as rc:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    counts = fd.launch_counts()
+    counts = {**fd.launch_counts(), **grid.launch_counts()}
     fwd_kinds = fd.fwd_launch_kinds()
     kinds = fd.bwd_launch_kinds()
     peak = torch.cuda.max_memory_allocated()
@@ -667,9 +676,14 @@ def run_main_path(torch, fd, log):
         f"{peak / 2**20:.1f} MiB); by side {eng.graph_stats()}")
     log(f"main path launches: K1 {counts['fused_decode_fwd']} (schedule "
         f"{exp_f}), K2 {counts['fused_decode_bwd']} (schedule {exp_b}); K1 "
-        f"by kind {fwd_kinds} (schedule {exp_fk}); K2 by kind {kinds}")
-    fail_if(counts["fused_decode_fwd"] == 0 or counts["fused_decode_bwd"] == 0,
+        f"by kind {fwd_kinds} (schedule {exp_fk}); K2 by kind {kinds}; "
+        f"grid scatter {counts['grid_scatter']}, plain route on the card "
+        f"{counts['grid_scatter_plain_cuda']}")
+    fail_if(counts["fused_decode_fwd"] == 0 or counts["fused_decode_bwd"] == 0
+            or counts["grid_scatter"] == 0,
             "a kernel of the main path was never launched")
+    fail_if(counts["grid_scatter_plain_cuda"] != 0,
+            "the grid gradient took the plain route on the card")
     fail_if(counts["fused_decode_fwd"] != exp_f
             or counts["fused_decode_bwd"] != exp_b or fwd_kinds != exp_fk,
             "launch counts differ from the schedule")
@@ -887,10 +901,13 @@ class RunCounters:
 
 
 def _drive(torch, fd, eng, log, name, n_frames, first_frame=0):
-    """Run `eng` to n_frames with the launch counts set to 0 just before
-    and read just after; record, at each mapping event, the last frame
-    this run has tracked (frame 0 counts as tracked when the run starts
-    there).  Returns the path's result dict."""
+    """Run `eng` to n_frames with the launch counts (the fused decode's
+    and the grid scatter's) set to 0 just before and read just after;
+    record, at each mapping event, the last frame this run has tracked
+    (frame 0 counts as tracked when the run starts there).  Returns the
+    path's result dict."""
+    from nice_slam_torch.ops import grid
+
     events = []
     tracked = [0 if first_frame == 0 else None]
     orig_map, orig_track = eng.mapping_event, eng.track
@@ -912,6 +929,7 @@ def _drive(torch, fd, eng, log, name, n_frames, first_frame=0):
     # what earlier phases hold): part of the peak, not of the run
     held = torch.cuda.memory_allocated() / 2**20
     fd.reset_launch_counts()
+    grid.reset_launch_counts()
     t0 = time.perf_counter()
     eng.run(n_frames)
     torch.cuda.synchronize()
@@ -925,7 +943,7 @@ def _drive(torch, fd, eng, log, name, n_frames, first_frame=0):
            "held_mib": held,
            "k1": counts["fused_decode_fwd"], "k2": counts["fused_decode_bwd"],
            "events": events, "timings": dict(eng.timings),
-           "graphs": graph_info(eng)}
+           "graphs": graph_info(eng), "grid": grid.launch_counts()}
     log(f"{name}: " + ", ".join(f"{k} {v}" for k, v in res.items()))
     return res
 
@@ -1119,34 +1137,61 @@ def run_mesh(torch, fd, eng, log):
     return res
 
 
-def time_scatter(torch, log, grid_shape, n):
-    """The grid backward's scatter of 8 n corner rows into a grid of
-    grid_shape (C = 32 channels), at uniform random points: the fixed-order
-    scatter_rows against torch.zeros + index_add_ (atomics), which it
-    replaced; both allocate their output."""
-    from nice_slam_torch.ops.grid import _cell, _corner_rows, scatter_rows
+def scatter_bytes(n: int, C: int, n_rows: int) -> int:
+    """The least bytes the grid scatter kernel moves for n points, C
+    channels and n_rows grid rows: the cotangent, f, the sorted int32 keys
+    and the int64 permutation read once, the gradient written once."""
+    return 4 * n * C + 12 * n + 8 * n * (4 + 8) + 4 * n_rows * C
 
+
+def time_scatter(torch, log, grid_shape, n):
+    """The grid backward's fixed-order scatter of 8 n corner rows into a
+    grid of grid_shape (HID channels), at uniform random points, each route
+    allocating its output, 10 calls back to back (the cotangent stays in
+    L2 between calls, as between a graph's stages): the kernel's route
+    (ops/grid.grid_grad: the int32 keys' stable sort, the memset and the
+    two passes of csrc/grid_scatter.cu), its C entry alone (the memset
+    and the two passes), its byte bound (scatter_bytes at 3.35 TB/s),
+    the plain route (plain_grid_grad: the weighted rows and
+    scatter_rows) and, as the library's yardstick only (the port never
+    calls it), torch.zeros + index_add_ (atomics) of the weighted rows.
+    Fails unless the kernel is within 1e-4 of index_add_ and equal to the
+    plain route."""
+    from nice_slam_torch.ops import grid
+
+    C = HID
     dev = torch.device("cuda", 0)
     g = torch.Generator(device="cpu").manual_seed(5)
     p_nor = (torch.rand(n, 3, generator=g) * 2 - 1).to(dev)
-    shape = tuple(grid_shape) + (HID,)
-    i0, i1, _, _ = _cell(shape, p_nor)
-    rows = _corner_rows(shape, i0, i1).reshape(-1)
-    vals = torch.randn(8 * n, HID, generator=g).to(dev)
+    shape = tuple(grid_shape) + (C,)
+    i0, i1, f, _ = grid._cell(shape, p_nor)
+    rows = grid._corner_rows(shape, i0, i1)
+    cot = torch.randn(n, C, generator=g).to(dev)
     n_rows = shape[0] * shape[1] * shape[2]
+    vals = grid.corner_values(f, cot).reshape(-1, C)
+    flat = rows.reshape(-1)
     with torch.no_grad():
-        a = scatter_rows(rows, vals, n_rows)
-        b = torch.zeros(n_rows, HID, device=dev).index_add_(0, rows, vals)
+        a = grid.grid_grad(rows, f, cot, n_rows)
+        b = torch.zeros(n_rows, C, device=dev).index_add_(0, flat, vals)
         err = float((a - b).abs().max())
+        same = bool(torch.equal(a, grid.plain_grid_grad(rows, f, cot,
+                                                         n_rows)))
+        launch, _ = grid.prepare_scatter(rows, f, cot, n_rows)
         res = {"grid": list(grid_shape), "points": n,
-               "scatter_rows_ms": cuda_time_ms(
-                   torch, lambda: scatter_rows(rows, vals, n_rows)),
+               "ms": cuda_time_ms(
+                   torch, lambda: grid.grid_grad(rows, f, cot, n_rows)),
+               "kernel_ms": cuda_time_ms(torch, launch),
+               "bound_ms": scatter_bytes(n, C, n_rows) / PEAK_BYTES * 1e3,
+               "plain_ms": cuda_time_ms(
+                   torch, lambda: grid.plain_grid_grad(rows, f, cot,
+                                                       n_rows)),
                "index_add_ms": cuda_time_ms(
-                   torch, lambda: torch.zeros(n_rows, HID, device=dev)
-                   .index_add_(0, rows, vals)),
-               "max_abs_diff": err}
+                   torch, lambda: torch.zeros(n_rows, C, device=dev)
+                   .index_add_(0, flat, vals)),
+               "max_abs_diff_index_add": err, "equal_to_plain": same}
     log("scatter: " + ", ".join(f"{k} {v}" for k, v in res.items()))
     fail_if(not err <= 1e-4, f"scatter: differs from index_add_ by {err}")
+    fail_if(not same, "scatter: the kernel differs from the plain route")
     return res
 
 
@@ -1192,8 +1237,23 @@ def run_repeat(torch, fd, log, n_frames=6):
     fail_if(len(shapes) != 4, f"repeat: {len(shapes)} grids, want 4")
     fail_if(not all(same), "repeat: the graphed and eager runs differ in "
             "trajectory, decoders, grids, keyframes or tracking losses")
-    scatter = [time_scatter(torch, log, shapes[name], 48000)
-               for name in ("middle", "fine")]
+    scatters = [r["grid"] for r, _ in runs]
+    log(f"repeat: grid scatter launches {scatters} (graphed, eager, "
+        "graphed)")
+    fail_if(scatters[0]["grid_scatter"] == 0
+            or any(c != scatters[0] for c in scatters)
+            or any(c["grid_scatter_plain_cuda"] for c in scatters),
+            "repeat: the grid scatter kernel did not launch once for every "
+            "grid gradient in each run, or the plain route ran on the card")
+    # every grid shape the mapping steps differentiate, at its own points
+    # (the colour grid is the fine grid's shape): the coarse mapper samples
+    # no surface points, and its few rows hold runs of thousands of entries
+    pix, rd = cfg["mapping"]["pixels"], cfg["rendering"]
+    points = {"coarse": pix * rd["N_samples"],
+              "middle": pix * (rd["N_samples"] + rd["N_surface"]),
+              "fine": pix * (rd["N_samples"] + rd["N_surface"])}
+    scatter = [{"name": name, **time_scatter(torch, log, shapes[name], n)}
+               for name, n in points.items()]
     r0 = runs[0][0]
     return {"path": "repeat", "ate_rmse_m": [r["ate_rmse_m"] for r, _ in runs],
             "wall_s": walls, "graphed": [True, False, True],
@@ -1313,32 +1373,29 @@ def check_gn_system(torch, fd, args, log):
     ReLU that flips between the two summation orders (fault 5).  The
     check's own launches are taken out of the counts."""
     from nice_slam_torch.models import decoders
+    from nice_slam_torch.ops.launches import uncounted
     from nice_slam_torch.parallel import schur_ba
 
     (params, grids, bound, window, cams, _lr, camera, rspec, mspec, pix_n,
      _damping) = args[:11]
-    saved = (fd.FusedNiceDecode.fwd_launches, fd.FusedNiceDecode.bwd_launches,
-             dict(fd.FusedNiceDecode.fwd_kinds),
-             dict(fd.FusedNiceDecode.bwd_kinds))
     gen = torch.Generator(device=cams.device).manual_seed(12)
     pix = schur_ba.window_pixels(gen, cams.shape[0], pix_n, camera,
                                  cams.device)
     jac = {}
-    for route in ("kernel", "plain"):
-        orig = decoders.fused_nice_decode
-        if route == "plain":
-            decoders.fused_nice_decode = (
-                lambda wc, _tw, p, cm, cf, cc, *ws:
-                fd.reference_nice_decode(wc, p, cm, cf, cc, *ws))
-        try:
-            jac[route] = schur_ba.pose_jacobian(params, grids, bound, window,
-                                                cams, camera, rspec, mspec,
-                                                pix)
-        finally:
-            decoders.fused_nice_decode = orig
-    torch.cuda.synchronize()
-    (fd.FusedNiceDecode.fwd_launches, fd.FusedNiceDecode.bwd_launches,
-     fd.FusedNiceDecode.fwd_kinds, fd.FusedNiceDecode.bwd_kinds) = saved
+    with uncounted():
+        for route in ("kernel", "plain"):
+            orig = decoders.fused_nice_decode
+            if route == "plain":
+                decoders.fused_nice_decode = (
+                    lambda wc, _tw, p, cm, cf, cc, *ws:
+                    fd.reference_nice_decode(wc, p, cm, cf, cc, *ws))
+            try:
+                jac[route] = schur_ba.pose_jacobian(
+                    params, grids, bound, window, cams, camera, rspec,
+                    mspec, pix)
+            finally:
+                decoders.fused_nice_decode = orig
+        torch.cuda.synchronize()
     (Jk, rk), (Jp, rp) = jac["kernel"], jac["plain"]
     scale = float(Jp.abs().max())
     agree = torch.isclose(Jk, Jp, rtol=1e-3, atol=1e-4 * scale).all(-1) \
@@ -2433,10 +2490,55 @@ def check_gs_union(torch, log, device="cuda"):
     return res
 
 
+def check_slab_scatter(torch, log, grid_shape, n):
+    """The grid-sharded form of the grid backward on the card: the
+    slab_trilinear gradient of a slab of half the grid along x, at n
+    uniform random points, those that the slab does not own going to the
+    sink row, through the kernel, against plain_grid_grad of the same
+    corner rows (the sink's included), offsets and cotangent: equal bit
+    for bit.  The check's own launches are taken out of the counts."""
+    from nice_slam_torch.ops import grid
+    from nice_slam_torch.ops.launches import uncounted
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    shape = tuple(grid_shape) + (HID,)
+    x0, w = shape[0] // 4, shape[0] // 2
+    p_nor = (torch.rand(n, 3, generator=g) * 2 - 1).to(dev)
+    slab = torch.randn(w, *shape[1:], generator=g).to(dev).requires_grad_()
+    cot = torch.randn(n, HID, generator=g).to(dev)
+    i0, i1, f, _ = grid._cell(shape, p_nor)
+    own = (i0[:, 0] >= x0) & (i1[:, 0] < x0 + w)
+    shift = torch.tensor([x0, 0, 0], device=dev)
+    n_rows = w * shape[1] * shape[2]
+    sink = torch.where(own, grid._corner_rows(slab.shape, i0 - shift,
+                                              i1 - shift), n_rows)
+    with uncounted():
+        grid.slab_trilinear(slab, p_nor, grid_shape, x0, own).backward(cot)
+        plain = grid.plain_grid_grad(sink, f, cot, n_rows)
+    same = bool(torch.equal(slab.grad.reshape(n_rows, HID), plain))
+    res = {"grid": list(grid_shape), "slab": [x0, x0 + w], "points": n,
+           "owned": int(own.sum()), "equal_to_plain": same}
+    log("gs slab scatter: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    fail_if(not same, "gs: the slab's grid gradient (sink rows) differs "
+            "from the plain route")
+    return res
+
+
 def run_gs(torch, fd, log, strict_ate, n_frames=6, device="cuda",
            overrides=None):
     """Phase 19: run_torch.py with tpu.grid_sharded [1, 2] (two ranks on
-    the card over gloo), strict, full width."""
+    the card over gloo), strict, full width; before it, the slab form of
+    the grid backward at the fine grid's shape (check_slab_scatter)."""
+    from nice_slam_torch.config import load_config
+    from nice_slam_torch.ops.grid import grid_shape_for_bound
+    from nice_slam_torch.state import pad_bound
+
+    syn = load_config(SYN_CFG)
+    slab = check_slab_scatter(torch, log, grid_shape_for_bound(
+        pad_bound(syn["mapping"]["bound"],
+                  syn["grid_len"]["bound_divisible"]),
+        syn["grid_len"]["fine"]), 48000)
     ranks, res, _ = _launch_ranks(
         torch, log, "gs", {"grid_sharded": [1, 2]}, 2, n_frames, device,
         overrides)
@@ -2448,7 +2550,8 @@ def run_gs(torch, fd, log, strict_ate, n_frames=6, device="cuda",
         "collective_iters": st[0]["iters"],
         "collective_s_by_kind": [x["seconds"] for x in st],
         "collective_share_of_map": [c / s["timings_s"]["map"]
-                                    for c, s in zip(secs, ranks)]})
+                                    for c, s in zip(secs, ranks)],
+        "slab_scatter": slab})
     log("gs: " + ", ".join(f"{k} {v}" for k, v in res.items()))
     log(f"gs by rank: wall {res['wall_s']} s, map "
         f"{[s['timings_s']['map'] for s in ranks]} s, collectives "
@@ -2834,30 +2937,27 @@ def check_panel(torch, fd, eng, cap, npz, log, name):
     import numpy as np
 
     from nice_slam_torch.models import decoders
+    from nice_slam_torch.ops.launches import uncounted
     from nice_slam_torch.render import render_image
 
     params, grids, bound, c2w, gt_depth = cap
     s = eng.specs
     rspec = dataclasses.replace(s.render, perturb=0.0, train_decoders=False)
-    saved = (fd.FusedNiceDecode.fwd_launches, fd.FusedNiceDecode.bwd_launches,
-             dict(fd.FusedNiceDecode.fwd_kinds),
-             dict(fd.FusedNiceDecode.bwd_kinds))
     out = {}
-    for route in ("kernel", "plain"):
-        orig = decoders.fused_nice_decode
-        if route == "plain":
-            decoders.fused_nice_decode = (
-                lambda wc, _tw, p, cm, cf, cc, *ws:
-                fd.reference_nice_decode(wc, p, cm, cf, cc, *ws))
-        try:
-            d, _, c = render_image(params, s.model, grids, bound, c2w,
-                                   s.camera, rspec, "color", gt_depth)
-        finally:
-            decoders.fused_nice_decode = orig
-        out[route] = (d, c)
-    torch.cuda.synchronize()
-    (fd.FusedNiceDecode.fwd_launches, fd.FusedNiceDecode.bwd_launches,
-     fd.FusedNiceDecode.fwd_kinds, fd.FusedNiceDecode.bwd_kinds) = saved
+    with uncounted():
+        for route in ("kernel", "plain"):
+            orig = decoders.fused_nice_decode
+            if route == "plain":
+                decoders.fused_nice_decode = (
+                    lambda wc, _tw, p, cm, cf, cc, *ws:
+                    fd.reference_nice_decode(wc, p, cm, cf, cc, *ws))
+            try:
+                d, _, c = render_image(params, s.model, grids, bound, c2w,
+                                       s.camera, rspec, "color", gt_depth)
+            finally:
+                decoders.fused_nice_decode = orig
+            out[route] = (d, c)
+        torch.cuda.synchronize()
     fail_if(not np.array_equal(out["kernel"][0].cpu().numpy(), npz["depth"]),
             f"vis: {name}: the re-render differs from the panel's npz")
     n_pix = gt_depth.numel()
@@ -3525,6 +3625,7 @@ def main() -> int:
                 **{p: r["k1" if key == "fused_decode_fwd" else "k2"]
                    for p, r in by_path.items()}}
 
+    fine_scatter = next(r for r in repeat["scatter"] if r["name"] == "fine")
     kernels = [
         {"name": "fused_decode_fwd", "route": "cuda",
          "source": "nice_slam_torch/csrc/fused_decode.cu",
@@ -3545,12 +3646,29 @@ def main() -> int:
          "library_ms": None, "design_bound_ms": k2["design_bound_ms"],
          "launches_by_kind": kinds,
          "launches_by_path": paths("fused_decode_bwd"), "shapes": shapes},
+        # at the fine grid's shape (fine and colour: most of an event's
+        # grid gradients); every shape of phase 11 under "shapes"
+        {"name": "grid_scatter", "route": "cuda",
+         "source": "nice_slam_torch/csrc/grid_scatter.cu",
+         "replaces": None,
+         "launches": counts["grid_scatter"],
+         "max_abs_err": max(r["max_abs_diff_index_add"]
+                            for r in repeat["scatter"]),
+         "ms": fine_scatter["ms"], "kernel_ms": fine_scatter["kernel_ms"],
+         "plain_ms": fine_scatter["plain_ms"],
+         "bound_ms": fine_scatter["bound_ms"], "bound_by": "bytes",
+         "library_ms": fine_scatter["index_add_ms"],
+         "design_bound_ms": None, "launches_by_kind": None,
+         "launches_by_path": {
+             "strict": counts["grid_scatter"],
+             **{p: r["grid"]["grid_scatter"] for p, r in by_path.items()
+                if "grid" in r}},
+         "shapes": repeat["scatter"]},
     ]
     log(f"busy share of one frame + event (phase 4): {busy}; phase 3 "
         f"wall {wall:.3f} s, phase 11 walls {repeat['wall_s']} (graphed, "
         f"eager, graphed), phase 16 threads / inline "
         f"{pipe['wall_s'] / pipe['inline']['wall_s']:.4f}")
-    log(f"grid scatter: {json.dumps(repeat['scatter'])}")
     log(f"recon: {json.dumps(recon)}")
     log(f"smoke wall: {time.perf_counter() - t_start:.1f} s (the kernels' "
         "build included)")

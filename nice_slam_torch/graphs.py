@@ -45,11 +45,11 @@ other thread allocates while this one captures.  The step's generators
 are registered with each graph, so every replay advances their Philox
 offsets as the eager calls would.
 
-A capture executes nothing: the fused-decode launch counters record what
-a capture launches (`fused_decode.count_captured`) and each replay credits
-it.  On a CPU device (and for `capture=False`) every iteration runs the
-step eagerly, so the CPU tests run the same step code that the card
-captures.  A failed capture raises; nothing falls back to eager.
+A capture executes nothing: the kernels' launch counts record what a
+capture launches (ops/launches.py `count_captured`) and each replay
+credits it.  On a CPU device (and for `capture=False`) every iteration
+runs the step eagerly, so the CPU tests run the same step code that the
+card captures.  A failed capture raises; nothing falls back to eager.
 
 Each warm-up and capture is a span "graphs.capture" of the engine's
 tracer (utils/profiling.span), whose id is the signature's first key
@@ -65,7 +65,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence
 
 import torch
 
-from nice_slam_torch.ops import fused_decode
+from nice_slam_torch.ops.launches import count_captured, credit
 from nice_slam_torch.utils.profiling import span
 
 
@@ -254,7 +254,7 @@ class StepGraphs:
 
     def _replay(self, g: _Graph) -> None:
         g.graph.replay()
-        fused_decode.credit_launches(g.launches)
+        credit(g.launches)
         self.replays += 1
 
     def _host(self, fn: Callable) -> None:
@@ -313,14 +313,14 @@ class StepGraphs:
 
     def _record(self, graph, fn: Callable, key) -> dict:
         """Capture fn() into `graph` on the side stream; returns the
-        fused-decode launches it recorded."""
+        kernel launches it recorded."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         cur = torch.cuda.current_stream(self.device)
         side = self._side_stream()
         side.wait_stream(cur)
         with torch.cuda.device(self.device), torch.cuda.stream(side), \
-                fused_decode.count_captured(side) as launches:
+                count_captured(side) as launches:
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, List[str]] = {
     "fused_decode": ["fused_decode.cu"],
     "fused_decode_bwd": ["fused_decode_bwd.cu"],
+    "grid_scatter": ["grid_scatter.cu"],
 }
 
 _lock = threading.Lock()

@@ -16,8 +16,8 @@ the same `pack_nice_weights` order) is the kernels' oracle: the CPU path
 runs it, and chip_smoke.py holds the kernels against it on the card.
 
 `fused_nice_decode` on CUDA tensors launches the kernels or raises; on CPU
-tensors it runs the plain version.  The launch counters on
-`FusedNiceDecode` count kernel launches only, in all and by kind.
+tensors it runs the plain version.  The launch counts (`launch_counts`,
+ops/launches.py) count kernel launches only, in all and by kind.
 
 Semantics (as in the JAX package):
 - the fine decoder sees [c_fine, stop_grad(c_mid)]: its c_mid cotangent
@@ -32,13 +32,13 @@ Semantics (as in the JAX package):
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from nice_slam_torch.ops import launches
 
 HID = 32
 EMB = 93
@@ -560,46 +560,19 @@ def _live_mask(ctx) -> int:
 class FusedNiceDecode(torch.autograd.Function):
     """raw (N, 4) = [rgb, occ_mid + occ_fine] with the hand VJP.
 
-    `fwd_launches` / `bwd_launches` count launches of the forward and
-    backward kernels (the forward's occupancy sum and the backward's
-    weight-gradient reduction belong to their launch); `fwd_kinds` splits
-    the forward's by stage and points, `bwd_kinds` the backward's by stage,
-    weight gradients and points.  They change under a lock: the pipelined
-    engine launches from its tracker's and its mapper's threads, and the
-    backward runs on the autograd engine's device thread.  A launch made
-    while a CUDA graph is captured on a stream that `count_captured`
-    watches goes into that capture's record instead: the capture runs
-    nothing, and each replay of the graph credits the record
-    (`credit_launches`)."""
-
-    fwd_launches = 0
-    bwd_launches = 0
-    fwd_kinds: dict = {}
-    bwd_kinds: dict = {}
-    count_lock = threading.Lock()
+    Each launch of the forward and backward kernels is counted
+    (ops/launches.py: the forward's occupancy sum and the backward's
+    weight-gradient reduction belong to their launch), by direction and,
+    apart, by kind: the forward's by stage and points, the backward's by
+    stage, weight gradients and points (`launch_counts`,
+    `fwd_launch_kinds`, `bwd_launch_kinds`)."""
 
     @staticmethod
     def _count(direction: str, kind: str, device) -> None:
         """One more launch of K1 ('fwd') or K2 ('bwd') of `kind` on
-        `device`'s current stream: into the record of the capture on that
-        stream, if one is watched, else into the counts.  A launch into an
-        unwatched capture raises: no replay would count it."""
-        cls = FusedNiceDecode
-        stream, capturing = _stream_state(device)
-        with cls.count_lock:
-            rec = _captures.get(stream)
-            if rec is None and capturing:
-                raise RuntimeError(
-                    "a fused-decode launch is being captured on a stream "
-                    "that no count_captured watches")
-            if rec is None:
-                setattr(cls, f"{direction}_launches",
-                        getattr(cls, f"{direction}_launches") + 1)
-                kinds = getattr(cls, f"{direction}_kinds")
-            else:
-                rec[direction] += 1
-                kinds = rec[f"{direction}_kinds"]
-            kinds[kind] = kinds.get(kind, 0) + 1
+        `device`'s current stream."""
+        name = f"fused_decode_{direction}"
+        launches.count(device, name, f"{name}/{kind}")
 
     @staticmethod
     def forward(ctx, with_color: bool, train_weights: bool, p, c_mid, c_fine,
@@ -671,68 +644,25 @@ def fused_nice_decode(with_color: bool, train_weights: bool, p, c_mid,
                                  c_color, *weights)
 
 
-# stream handle -> launches recorded while a graph is captured there
-_captures: dict = {}
-
-
-def _stream_state(device):
-    """(handle of `device`'s current stream, whether it is capturing)."""
-    with torch.cuda.device(device):
-        return (torch.cuda.current_stream().cuda_stream,
-                torch.cuda.is_current_stream_capturing())
-
-
-@contextlib.contextmanager
-def count_captured(stream):
-    """Record the launches captured on `stream` in this block (the
-    backward's too: the autograd engine runs a node on its forward's
-    stream) instead of counting them; yields the record for
-    `credit_launches`."""
-    rec = {"fwd": 0, "bwd": 0, "fwd_kinds": {}, "bwd_kinds": {}}
-    with FusedNiceDecode.count_lock:
-        _captures[stream.cuda_stream] = rec
-    try:
-        yield rec
-    finally:
-        with FusedNiceDecode.count_lock:
-            del _captures[stream.cuda_stream]
-
-
-def credit_launches(rec: dict) -> None:
-    """Count the launches of one replay of a captured graph."""
-    if not (rec["fwd"] or rec["bwd"]):
-        return
-    cls = FusedNiceDecode
-    with cls.count_lock:
-        cls.fwd_launches += rec["fwd"]
-        cls.bwd_launches += rec["bwd"]
-        for direction in ("fwd", "bwd"):
-            kinds = getattr(cls, f"{direction}_kinds")
-            for kind, n in rec[f"{direction}_kinds"].items():
-                kinds[kind] = kinds.get(kind, 0) + n
-
-
 def reset_launch_counts() -> None:
-    with FusedNiceDecode.count_lock:
-        FusedNiceDecode.fwd_launches = 0
-        FusedNiceDecode.bwd_launches = 0
-        FusedNiceDecode.fwd_kinds = {}
-        FusedNiceDecode.bwd_kinds = {}
+    launches.reset("fused_decode_")
 
 
 def launch_counts() -> dict:
-    with FusedNiceDecode.count_lock:
-        return {"fused_decode_fwd": FusedNiceDecode.fwd_launches,
-                "fused_decode_bwd": FusedNiceDecode.bwd_launches}
+    c = launches.counts("fused_decode_")
+    return {k: c.get(k, 0) for k in ("fused_decode_fwd", "fused_decode_bwd")}
+
+
+def _kinds(direction: str) -> dict:
+    pre = f"fused_decode_{direction}/"
+    return {k[len(pre):]: n for k, n in launches.counts(pre).items()}
 
 
 def fwd_launch_kinds() -> dict:
     """Forward launches by 'stage n=points'."""
-    with FusedNiceDecode.count_lock:
-        return dict(FusedNiceDecode.fwd_kinds)
+    return _kinds("fwd")
 
 
 def bwd_launch_kinds() -> dict:
     """Backward launches by 'stage wgrad|no-wgrad n=points'."""
-    with FusedNiceDecode.count_lock:
-        return dict(FusedNiceDecode.bwd_kinds)
+    return _kinds("bwd")

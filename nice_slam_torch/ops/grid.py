@@ -7,17 +7,30 @@ align_corners=True)` (reference src/common.py:269-284,
 src/conv_onet/models/decoder.py:168-175).
 
 `trilinear_interp` is a `torch.autograd.Function`: the forward gathers the
-8 corner rows, the backward scatters the 8 weighted cotangent rows into
-the grid (`scatter_rows`) and takes the gradient with respect to the
-points from the fp32 corners.  On the H100 both run as PyTorch's own
-gather/sort/segment sum; the JAX package also leaves them to XLA (no
+8 corner rows, the backward sums the 8 weighted cotangent rows into the
+grid (`grid_grad`) and takes the gradient with respect to the points from
+the fp32 corners.  The grid gradient is summed in a fixed order, so runs
+repeat bit for bit: on a CUDA tensor by the hand-written kernel
+csrc/grid_scatter.cu (a stable sort of the corner rows, then one warp per
+64 sorted entries, no atomics), on a CPU tensor by its plain version
+(`plain_grid_grad`: the weighted rows, then `scatter_rows`), which sums the
+same pieces in the same order.  The gather and the rest of the backward
+are PyTorch's own ops; the JAX package leaves all of it to XLA (no
 Pallas).
+
+`launch_counts()` counts the grid gradients summed by the kernel and those
+summed by the plain version on a CUDA tensor (none on the main path),
+apart from the fused decode's counts (ops/launches.py: a launch captured
+into a CUDA graph is credited at each replay).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from nice_slam_torch.ops import launches
 from nice_slam_torch.ops.consts import const
 
 
@@ -97,6 +110,143 @@ def scatter_rows(rows: torch.Tensor, vals: torch.Tensor, n_rows: int,
                                 offsets=torch.cat([first, n_pieces]), axis=0)
 
 
+def corner_values(f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The 8 weighted cotangent rows (8, N, C), in `_corner_rows`' order:
+    g * (wx * wy) * wz, wx = 1 - fx or fx (y, z alike)."""
+    fx, fy, fz = f[:, 0:1], f[:, 1:2], f[:, 2:3]
+    wx = (1 - fx, fx)
+    wy = (1 - fy, fy)
+    wz = (1 - fz, fz)
+    return torch.stack([g * (wx[a] * wy[b] * wz[cc])
+                        for a in (0, 1) for b in (0, 1) for cc in (0, 1)])
+
+
+def plain_grid_grad(rows: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
+                    n_rows: int) -> torch.Tensor:
+    """The plain version of `grid_grad`: the 8 weighted cotangent rows,
+    then `scatter_rows` (pieces of 64)."""
+    if g.is_cuda:
+        launches.count(g.device, "grid_scatter_plain_cuda")
+    # rows == n_rows (the sink) sort last, so the grid's rows are summed
+    # in the same pieces as without them
+    return scatter_rows(rows.reshape(-1),
+                        corner_values(f, g).reshape(-1, g.shape[-1]),
+                        n_rows + 1)[:n_rows]
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel (csrc/grid_scatter.cu)
+
+CHUNK = 64   # sorted entries a warp sums: scatter_rows' block
+_libs = {}
+
+
+def _scatter_lib():
+    """The built scatter library with its C signatures declared."""
+    if "scatter" not in _libs:
+        from nice_slam_torch.ops.cuda_build import load
+
+        lib = load("grid_scatter")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.grid_scatter_chunk.restype = ci
+        lib.grid_scatter_chunk.argtypes = []
+        lib.grid_scatter_error_string.restype = ctypes.c_char_p
+        lib.grid_scatter_error_string.argtypes = [ci]
+        lib.grid_scatter.restype = ci
+        lib.grid_scatter.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+        if lib.grid_scatter_chunk() != CHUNK:
+            raise RuntimeError("csrc/grid_scatter.cu sums chunks of "
+                               f"{lib.grid_scatter_chunk()} entries, "
+                               f"ops/grid.py expects {CHUNK}")
+        _libs["scatter"] = lib
+    return _libs["scatter"]
+
+
+def _check_scatter_inputs(rows, f, g, n_rows):
+    n = g.shape[0]
+    for name, t, shape, dtype in (("rows", rows, (8, n), torch.int64),
+                                  ("f", f, (n, 3), torch.float32),
+                                  ("g", g, (n, g.shape[-1]), torch.float32)):
+        if t.device != g.device:
+            raise ValueError(f"grid_grad: {name} is on {t.device}, g on "
+                             f"{g.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"grid_grad: {name} must be {dtype}, got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"grid_grad: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    if 8 * n >= 2**31 or n_rows >= 2**31 - 1:
+        raise ValueError(f"grid_grad: {n} points into {n_rows} rows pass "
+                         "the kernel's int32 indices")
+
+
+def _scatter_buffers(rows, f, g, n_rows):
+    """The kernel's operands on the current device, in its C entry's
+    order: the stably sorted int32 keys, their permutation, f, g, the
+    partials' scratch (2 a chunk) and the output."""
+    n, C = g.shape
+    keys, perm = torch.sort(rows.reshape(-1).to(torch.int32), stable=True)
+    part = torch.empty(2 * (-(-8 * n // CHUNK)), C, dtype=torch.float32,
+                       device=g.device)
+    out = torch.empty(n_rows, C, dtype=torch.float32, device=g.device)
+    return keys, perm, f.contiguous(), g.contiguous(), part, out
+
+
+def prepare_scatter(rows, f, g, n_rows):
+    """The kernel's launch on g's device with its inputs sorted and its
+    output allocated: (launch, out).  launch() runs the C entry (the memset
+    and the two passes) on these buffers and raises on a launch error; a
+    timing loop may call it again to time the kernel without the sort."""
+    _check_scatter_inputs(rows, f, g, n_rows)
+    lib = _scatter_lib()
+    n, C = g.shape
+    dev = g.device
+    with torch.cuda.device(dev):
+        bufs = _scatter_buffers(rows, f, g, n_rows)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        # the C entry launches on the current device and stream
+        with torch.cuda.device(dev):
+            err = lib.grid_scatter(*[t.data_ptr() for t in bufs], n, n_rows,
+                                   C, stream)
+        if err != 0:
+            msg = lib.grid_scatter_error_string(err).decode()
+            raise RuntimeError(f"grid scatter kernel failed: CUDA error "
+                               f"{err} ({msg})")
+
+    return launch, bufs[-1]
+
+
+def grid_grad(rows: torch.Tensor, f: torch.Tensor, g: torch.Tensor,
+              n_rows: int) -> torch.Tensor:
+    """The grid gradient (n_rows, C) of the interpolation's cotangent g
+    (N, C): the 8 corner rows (8, N) each take g * (wx * wy) * wz from the
+    points' fractional offsets f (N, 3), summed in a fixed order; rows
+    equal to n_rows (a sink past the grid) are dropped.  A CUDA tensor
+    runs the kernel (csrc/grid_scatter.cu), a CPU tensor its plain
+    version; both sum the same pieces in the same order."""
+    if not g.is_cuda:
+        return plain_grid_grad(rows, f, g, n_rows)
+    launch, out = prepare_scatter(rows, f, g, n_rows)
+    launch()
+    launches.count(g.device, "grid_scatter")
+    return out
+
+
+def reset_launch_counts() -> None:
+    launches.reset("grid_scatter")
+
+
+def launch_counts() -> dict:
+    """{"grid_scatter": kernel launches, "grid_scatter_plain_cuda": plain
+    versions run on a CUDA tensor}."""
+    c = launches.counts("grid_scatter")
+    return {k: c.get(k, 0)
+            for k in ("grid_scatter", "grid_scatter_plain_cuda")}
+
+
 class _TrilinearInterp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, grid: torch.Tensor, p_nor: torch.Tensor, shape,
@@ -135,22 +285,9 @@ class _TrilinearInterp(torch.autograd.Function):
         fx, fy, fz = f[:, 0:1], f[:, 1:2], f[:, 2:3]
         d_grid = d_p = None
         if ctx.needs_input_grad[0]:
-            wx = (1 - fx, fx)
-            wy = (1 - fy, fy)
-            wz = (1 - fz, fz)
-            vals = torch.stack([g * (wx[a] * wy[b] * wz[cc])
-                                for a in (0, 1) for b in (0, 1)
-                                for cc in (0, 1)])
-            n = nx * ny * nz
-            if extra:
-                # the sink row sorts last, so the grid's rows are summed
-                # in the same pieces as without the left-out points
-                d_grid = scatter_rows(extra[0].reshape(-1),
-                                      vals.reshape(-1, C), n + 1)[:n]
-            else:
-                d_grid = scatter_rows(rows.reshape(-1), vals.reshape(-1, C),
-                                      n)
-            d_grid = d_grid.reshape(nx, ny, nz, C)
+            # the left-out points' rows are the sink row past the grid
+            d_grid = grid_grad(extra[0] if extra else rows, f, g,
+                               nx * ny * nz).reshape(nx, ny, nz, C)
         if ctx.needs_input_grad[1]:
             flat = grid.reshape(nx * ny * nz, C)
             c = flat[rows.reshape(-1)].reshape(8, -1, C)

@@ -5,19 +5,19 @@
 Runs the strict path of configs/Synthetic/synthetic.yaml at full width on
 one GPU for two frames (the first mapping event cut to 60 iterations:
 middle, fine and colour stages) and records the first `--calls` inputs of
-every grid's backward scatter (ops/grid.scatter_rows: the corner rows and
-the weighted cotangent rows).  On each recorded input it times, with CUDA
-events, every route that sums the rows into the grid:
+every grid's backward scatter made outside a CUDA graph's capture
+(ops/grid.grid_grad: the corner rows, the fractional offsets and the
+cotangent).  On each recorded input it times, with CUDA events, every
+route that sums the weighted corner rows into the grid:
 
-  index_add     torch.zeros + index_add_ (atomics: the order changes from
-                run to run)
-  sorted        stable sort, then one sequential segment sum over each
-                row's whole run (the first fixed-order route)
-  index_put     torch.zeros + index_put_(accumulate=True), PyTorch's
-                sort-based route
-  blocked{K}    scatter_rows with pieces of at most K entries (stable
-                sort, each row's run summed in pieces of K, then the
-                pieces in order); K = 64 is the default
+  kernel        ops/grid.grid_grad, the main path's route: the stable sort
+                of the int32 keys, then csrc/grid_scatter.cu (the weights
+                computed in the kernel, chunks of 64 sorted entries)
+  plain         ops/grid.plain_grid_grad: the weighted rows built, then
+                scatter_rows (the kernel's plain version, same order)
+  index_add     torch.zeros + index_add_ of the weighted rows built
+                beforehand (atomics: the order changes from run to run;
+                the library's yardstick, which the port never calls)
 
 and runs each route 20 times to see whether it repeats bit for bit.
 Prints the card (nvidia-smi name and power limit), the inputs' run
@@ -42,30 +42,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def sorted_sum(rows, vals, n_rows: int):
-    """The first fixed-order route: a stable sort, then one sequential
-    segment sum over each row's whole run."""
-    sorted_rows, perm = torch.sort(rows, stable=True)
-    offsets = torch.searchsorted(
-        sorted_rows, torch.arange(n_rows + 1, device=rows.device))
-    return torch.segment_reduce(vals[perm], "sum", offsets=offsets, axis=0)
-
-
-def routes():
-    def index_add(r, v, n):
-        return torch.zeros(n, v.shape[1], device=v.device).index_add_(
-            0, r, v)
-
-    def index_put(r, v, n):
-        return torch.zeros(n, v.shape[1], device=v.device).index_put_(
-            (r,), v, accumulate=True)
-
-    out = {"index_add": index_add, "sorted": sorted_sum,
-           "index_put": index_put}
-    for k in (16, 64, 256):
-        out[f"blocked{k}"] = (
-            lambda r, v, n, k=k: grid.scatter_rows(r, v, n, block=k))
-    return out
+ROUTES = {
+    "kernel": lambda rows, f, g, n, flat, v: grid.grid_grad(rows, f, g, n),
+    "plain": lambda rows, f, g, n, flat, v: grid.plain_grid_grad(rows, f, g,
+                                                                 n),
+    "index_add": lambda rows, f, g, n, flat, v: torch.zeros(
+        n, v.shape[1], device=v.device).index_add_(0, flat, v),
+}
 
 
 def record(n_calls: int):
@@ -73,12 +56,14 @@ def record(n_calls: int):
     from nice_slam_torch.engine import SlamEngine
 
     calls = []
-    orig = grid.scatter_rows
+    orig = grid.grid_grad
 
-    def rec(rows, vals, n_rows):
-        if len(calls) < n_calls:
-            calls.append((rows.clone(), vals.clone(), n_rows))
-        return orig(rows, vals, n_rows)
+    def rec(rows, f, g, n_rows):
+        # a capture runs nothing: its inputs hold no values yet
+        if (len(calls) < n_calls
+                and not torch.cuda.is_current_stream_capturing()):
+            calls.append((rows.clone(), f.clone(), g.clone(), n_rows))
+        return orig(rows, f, g, n_rows)
 
     cfg = load_config(
         os.path.join(REPO, "configs", "Synthetic", "synthetic.yaml"),
@@ -86,11 +71,11 @@ def record(n_calls: int):
                    "mapping": {"iters_first": 60},
                    "data": {"output": os.path.join(REPO, "output",
                                                    "scatter_bench")}})
-    grid.scatter_rows = rec
+    grid.grid_grad = rec
     try:
         SlamEngine(cfg, device="cuda").run()
     finally:
-        grid.scatter_rows = orig
+        grid.grid_grad = orig
     return calls
 
 
@@ -123,26 +108,29 @@ def main():
         check=True).stdout.strip().splitlines()[0], flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     calls = record(args.calls)
-    lengths = [torch.bincount(r, minlength=n).float() for r, _, n in calls]
+    lengths = [torch.bincount(r.reshape(-1), minlength=n).float()
+               for r, _, _, n in calls]
     print(json.dumps({
         "calls": len(calls),
-        "points_x8": sorted({int(r.shape[0]) for r, _, _ in calls}),
-        "grid_rows": sorted({n for _, _, n in calls}),
+        "points_x8": sorted({int(r.numel()) for r, _, _, _ in calls}),
+        "grid_rows": sorted({n for _, _, _, n in calls}),
         "max_run": max(float(x.max()) for x in lengths),
         "mean_nonempty_run": statistics.mean(
             float(x[x > 0].mean()) for x in lengths)}), flush=True)
-    refs = [torch.zeros(n, v.shape[1], dtype=torch.float64,
-                        device=v.device).index_add_(0, r, v.double())
-            for r, v, n in calls]
-    for name, fn in routes().items():
-        ms = [time_ms(lambda r=r, v=v, n=n: fn(r, v, n))
-              for r, v, n in calls]
-        repeats, err = True, 0.0
-        for (r, v, n), ref in zip(calls, refs):
-            first = fn(r, v, n)
+    inputs = []
+    for rows, f, g, n in calls:
+        flat = rows.reshape(-1)
+        v = grid.corner_values(f, g).reshape(-1, g.shape[1])
+        ref = torch.zeros(n, g.shape[1], dtype=torch.float64,
+                          device=g.device).index_add_(0, flat, v.double())
+        inputs.append(((rows, f, g, n, flat, v), ref))
+    for name, fn in ROUTES.items():
+        ms, repeats, err = [], True, 0.0
+        for a, ref in inputs:
+            ms.append(time_ms(lambda a=a: fn(*a)))
+            first = fn(*a)
             err = max(err, float((first.double() - ref).abs().max()))
-            repeats &= all(torch.equal(fn(r, v, n), first)
-                           for _ in range(19))
+            repeats &= all(torch.equal(fn(*a), first) for _ in range(19))
         print(json.dumps({"route": name, "median_ms": statistics.median(ms),
                           "sum_ms": sum(ms), "max_abs_err_vs_f64": err,
                           "repeats_20x": repeats}), flush=True)

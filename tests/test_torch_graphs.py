@@ -240,8 +240,8 @@ class FakeGraph:
         self.fn()
 
 
-RECORD = {"fwd": 1, "bwd": 2, "fwd_kinds": {"color n=1": 1},
-          "bwd_kinds": {"color no-wgrad n=1": 2}}
+RECORD = {"fused_decode_fwd": 1, "fused_decode_fwd/color n=1": 1,
+          "fused_decode_bwd": 2, "fused_decode_bwd/color no-wgrad n=1": 2}
 
 
 class DoubleGraphs(StepGraphs):
@@ -720,24 +720,27 @@ def test_bias_tables_and_adam_step_equal_adam_update():
 
 def test_capture_records_launches_and_replays_credit_them(monkeypatch):
     """A launch counted while a watched stream captures goes into the
-    capture's record, not the counts; credit_launches adds the record
+    capture's record, not the counts; launches.credit adds the record
     once a replay; a launch into an unwatched capture raises."""
     from types import SimpleNamespace
 
+    from nice_slam_torch.ops import launches
+
     stream = SimpleNamespace(cuda_stream=4242)
     state = {"capturing": True}
-    monkeypatch.setattr(fd, "_stream_state",
+    monkeypatch.setattr(launches, "_stream_state",
                         lambda device: (4242, state["capturing"]))
     fd.reset_launch_counts()
-    with fd.count_captured(stream) as rec:
+    with launches.count_captured(stream) as rec:
         fd.FusedNiceDecode._count("fwd", "color n=9", None)
         fd.FusedNiceDecode._count("bwd", "color no-wgrad n=9", None)
-    assert rec == {"fwd": 1, "bwd": 1, "fwd_kinds": {"color n=9": 1},
-                   "bwd_kinds": {"color no-wgrad n=9": 1}}
+    assert rec == {"fused_decode_fwd": 1, "fused_decode_fwd/color n=9": 1,
+                   "fused_decode_bwd": 1,
+                   "fused_decode_bwd/color no-wgrad n=9": 1}
     assert fd.launch_counts() == {"fused_decode_fwd": 0,
                                   "fused_decode_bwd": 0}
     for _ in range(3):
-        fd.credit_launches(rec)
+        launches.credit(rec)
     assert fd.launch_counts() == {"fused_decode_fwd": 3,
                                   "fused_decode_bwd": 3}
     assert fd.bwd_launch_kinds() == {"color no-wgrad n=9": 3}

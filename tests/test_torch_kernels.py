@@ -10,6 +10,7 @@ against the plain version, and the engine's main path on a tiny config.
 Tolerance: atol 1e-4, rtol 1e-4 unless stated."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -703,3 +704,327 @@ def test_bias_reciprocal_matches_cuda_division(cuda_device):
         for step in range(1, 501):
             assert torch.equal(m * tab[r, step], m / (1.0 - b ** step)), (
                 b, step)
+
+
+# ---------------------------------------------------------------------------
+# The grid backward's fixed-order scatter (ops/grid.grid_grad,
+# csrc/grid_scatter.cu)
+
+def _corner_inputs(shape, n, C, seed, sink=False, dyadic=False,
+                   device="cpu"):
+    """(rows (8, n), f (n, 3), g (n, C), grid rows) of n points at
+    uniform random positions in [-1.1, 1.1]^3 of a grid of `shape`; with
+    `sink`, about 40% of the points left out to the sink row; `dyadic`
+    puts every f on a multiple of 1/4 and every g on a multiple of 1/8
+    in [-2, 2), so every product is a multiple of 2^-9 under 2 and every
+    partial sum of fewer than 2^14 of them is exact in fp32: any
+    summation order gives the same bits."""
+    from nice_slam_torch.ops.grid import _cell, _corner_rows
+
+    rng = np.random.RandomState(seed)
+    p = rng.uniform(-1.1, 1.1, (n, 3)).astype(np.float32)
+    full = tuple(shape) + (C,)
+    i0, i1, f, _ = _cell(full, torch.from_numpy(p))
+    rows = _corner_rows(full, i0, i1)
+    n_rows = shape[0] * shape[1] * shape[2]
+    if sink:
+        own = torch.from_numpy(rng.rand(n) < 0.6)
+        rows = torch.where(own, rows, n_rows)
+    if dyadic:
+        f = torch.from_numpy(rng.randint(0, 5, (n, 3)).astype(np.float32)
+                             / 4)
+        g = torch.from_numpy(rng.randint(-16, 16, (n, C)).astype(np.float32)
+                             / 8)
+    else:
+        g = torch.from_numpy(rng.randn(n, C).astype(np.float32))
+    return rows.to(device), f.to(device), g.to(device), n_rows
+
+
+def _weighted_rows(rows, f, g, dtype):
+    """(8 n,) rows and (8 n, C) products g * (wx * wy) * wz in `dtype`."""
+    f, g = f.to(dtype), g.to(dtype)
+    w = [(1 - f[:, k:k + 1], f[:, k:k + 1]) for k in range(3)]
+    vals = torch.stack([g * (w[0][a] * w[1][b] * w[2][c])
+                        for a in (0, 1) for b in (0, 1) for c in (0, 1)])
+    return rows.reshape(-1), vals.reshape(-1, g.shape[1])
+
+
+@pytest.mark.parametrize("sink", [False, True], ids=["dense", "sink"])
+def test_grid_grad_cpu_takes_the_plain_route(sink):
+    """On CPU tensors grid_grad is the plain route, bit-equal to the
+    weighted rows summed by scatter_rows (the sink row n sorts last and
+    is dropped), and launches no kernel."""
+    from nice_slam_torch.ops import grid
+
+    rows, f, g, n_rows = _corner_inputs((2, 3, 2), 700, 16, 4, sink=sink)
+    grid.reset_launch_counts()
+    got = grid.grid_grad(rows, f, g, n_rows)
+    r, vals = _weighted_rows(rows, f, g, torch.float32)
+    want = (grid.scatter_rows(r, vals, n_rows + 1)[:n_rows] if sink
+            else grid.scatter_rows(r, vals, n_rows))
+    assert torch.equal(got, want)
+    assert grid.launch_counts() == {"grid_scatter": 0,
+                                    "grid_scatter_plain_cuda": 0}
+
+
+def test_grid_grad_cuda_tensor_reaches_the_library(monkeypatch):
+    """A CUDA tensor goes to the C entry of the scatter library (a mocked
+    library records the call and the device guard open at it) with its
+    operands in order, returns the output buffer, counts one kernel
+    launch, and a CUDA error from the entry raises."""
+    from types import SimpleNamespace
+
+    from nice_slam_torch.ops import grid, launches
+
+    open_guards, seen = [], []
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            open_guards.append(self.dev)
+
+        def __exit__(self, *exc):
+            open_guards.pop()
+
+    class Lib:
+        err = 0
+
+        def grid_scatter(self, *args):
+            seen.append((args, list(open_guards)))
+            return self.err
+
+        def grid_scatter_error_string(self, err):
+            return b"an error"
+
+    lib = Lib()
+    dev = torch.device("cuda", 1)
+
+    def fake(shape, dtype):
+        return SimpleNamespace(device=dev, dtype=dtype, shape=shape,
+                               is_cuda=True)
+
+    n = 5
+    rows, f = fake((8, n), torch.int64), fake((n, 3), torch.float32)
+    g = fake((n, 32), torch.float32)
+    bufs = [SimpleNamespace(data_ptr=lambda i=i: 100 + i) for i in range(6)]
+    monkeypatch.setattr(grid.torch.cuda, "device", Guard)
+    monkeypatch.setattr(grid.torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(grid, "_scatter_lib", lambda: lib)
+    monkeypatch.setattr(grid, "_scatter_buffers", lambda *a: bufs)
+    monkeypatch.setattr(launches, "_stream_state",
+                        lambda device: (4242, False))
+    grid.reset_launch_counts()
+    assert grid.grid_grad(rows, f, g, 12) is bufs[-1]
+    assert seen == [((100, 101, 102, 103, 104, 105, n, 12, 32, 77), [dev])]
+    assert open_guards == []
+    assert grid.launch_counts() == {"grid_scatter": 1,
+                                    "grid_scatter_plain_cuda": 0}
+    lib.err = 700
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        grid.grid_grad(rows, f, g, 12)
+    with pytest.raises(TypeError, match="f must be torch.float32"):
+        grid.grid_grad(rows, fake((n, 3), torch.float64), g, 12)
+    grid.reset_launch_counts()
+
+
+def test_grid_scatter_launches_credited_per_replay(monkeypatch):
+    """A kernel launch made while a watched stream captures goes into the
+    capture's record, not the counts, and each StepGraphs replay of the
+    graph credits it, apart from the fused decode's counts; a launch into
+    an unwatched capture raises."""
+    from types import SimpleNamespace
+
+    from nice_slam_torch.graphs import StepGraphs, _Graph
+    from nice_slam_torch.ops import grid, launches
+
+    stream = SimpleNamespace(cuda_stream=4242)
+    state = {"capturing": True}
+    monkeypatch.setattr(launches, "_stream_state",
+                        lambda device: (4242, state["capturing"]))
+    grid.reset_launch_counts()
+    fd.reset_launch_counts()
+    with launches.count_captured(stream) as rec:
+        launches.count(None, "grid_scatter")
+        launches.count(None, "grid_scatter")
+    assert rec == {"grid_scatter": 2}
+    assert grid.launch_counts()["grid_scatter"] == 0
+    runner = StepGraphs("cpu", capture=False)
+    graph = _Graph(SimpleNamespace(replay=lambda: None), rec, ())
+    for _ in range(3):
+        runner._replay(graph)
+    assert grid.launch_counts() == {"grid_scatter": 6,
+                                    "grid_scatter_plain_cuda": 0}
+    assert fd.launch_counts() == {"fused_decode_fwd": 0,
+                                  "fused_decode_bwd": 0}
+    with pytest.raises(RuntimeError, match="no count_captured"):
+        launches.count(None, "grid_scatter")
+    state["capturing"] = False
+    grid.plain_grid_grad(*_corner_inputs((2, 3, 2), 7, 16, 4)[:3], 12)
+    assert grid.launch_counts()["grid_scatter_plain_cuda"] == 0
+    launches.count(None, "grid_scatter_plain_cuda")
+    assert grid.launch_counts()["grid_scatter_plain_cuda"] == 1
+    grid.reset_launch_counts()
+
+
+def test_grid_scatter_source_note_and_launch_checks():
+    """csrc/grid_scatter.cu says which TPU kernel it replaces (none), why it
+    was added, its byte bound and how it fixes the order; it sums with no
+    atomics and rounded fp32 operations, and its C entry returns the
+    error of the memset and of each launch."""
+    src = open(os.path.join(CSRC, "grid_scatter.cu")).read()
+    note = src[:src.index("#include")]
+    for words in ("Replaces no TPU kernel", ".at[].add",
+                  "segment_reduce alone took 0.624 s", "What bounds it",
+                  "~35 MB", "no atomics", "fixed summation order"):
+        assert words in note, words
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "atomic" not in code
+    assert "__fmul_rn(__fmul_rn(wx, wy), wz)" in code
+    assert "__fadd_rn(acc, __fmul_rn(v[t], wt))" in code
+    body = _body(src, "int grid_scatter(const int* keys")
+    assert body.count("<<<") == 2
+    assert body.count("cudaGetLastError()") == 2
+    assert "err = (int)cudaMemsetAsync(" in body
+    for launch in re.findall(r"<<<[^;]*;\n\s*[^\n]*", body):
+        assert "cudaGetLastError()" in launch
+
+
+def test_slab_grid_gradient_equals_the_dense_rows():
+    """The slab form's grid gradient (points left out by `own` go to the
+    sink row) equals, bit for bit, the dense grid's gradient from the
+    owned points alone, over the slab's rows; the dense rows outside the
+    slab are zero (every owned point's cell lies in the slab)."""
+    from nice_slam_torch.ops.grid import (_cell, slab_trilinear,
+                                          trilinear_interp)
+
+    rng = np.random.RandomState(6)
+    shape, C, x0, sx = (6, 3, 4), 8, 2, 3
+    p = torch.from_numpy(rng.uniform(-1.1, 1.1, (900, 3)).astype(np.float32))
+    i0, _, _, _ = _cell(shape + (C,), p)
+    own = (i0[:, 0] >= x0) & (i0[:, 0] + 1 < x0 + sx)
+    grid_ = torch.from_numpy(rng.randn(*shape, C).astype(np.float32))
+    cot = torch.from_numpy(rng.randn(900, C).astype(np.float32))
+    slab = grid_[x0:x0 + sx].clone().requires_grad_(True)
+    out = slab_trilinear(slab, p, shape, x0, own)
+    (d_slab,) = torch.autograd.grad((out * cot).sum(), slab)
+    dense = grid_.clone().requires_grad_(True)
+    out_d = trilinear_interp(dense, p[own])
+    (d_dense,) = torch.autograd.grad((out_d * cot[own]).sum(), dense)
+    assert int(own.sum()) > 100
+    assert torch.equal(d_slab, d_dense[x0:x0 + sx])
+    assert not d_dense[:x0].any() and not d_dense[x0 + sx:].any()
+
+
+SCATTER_SHAPES = {"room0_fine": ((74, 56, 44), 48000),
+                  "tiny": ((2, 3, 2), 2000)}
+
+
+def _f64_bound(rows, f, g, n_rows):
+    """Per-row bound of an fp32 fixed-order sum against the float64 sum:
+    three roundings in each product and one in each add of a sum that is
+    at most min(L, 64) deep inside a piece and ceil(L / 64) deep over the
+    pieces (L: the row's entries), each at most 2^-24 of the sum of the
+    terms' magnitudes."""
+    r, vals = _weighted_rows(rows, f, g, torch.float64)
+    keep = r < n_rows
+    r, vals = r[keep], vals[keep]
+    ref = torch.zeros(n_rows, g.shape[1], dtype=torch.float64,
+                      device=g.device).index_add_(0, r, vals)
+    mag = torch.zeros_like(ref).index_add_(0, r, vals.abs())
+    length = torch.bincount(r, minlength=n_rows).double()
+    depth = torch.clamp(length, max=64) + torch.ceil(length / 64) + 3
+    return ref, 1.01 * depth[:, None] * 2.0**-24 * mag, length
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SCATTER_SHAPES))
+@pytest.mark.parametrize("C", [32, 16, 48])
+def test_grid_scatter_kernel_on_cuda(cuda_device, shape, C):
+    """The kernel against the float64 sum within the fp32 bound of its
+    summation order (_f64_bound), bit-equal over 20 calls, bit-equal to
+    the plain route on the card (the same pieces in the same order) on
+    random and on dyadic inputs, empty rows exactly zero; one launch
+    counted a call, none of the plain route but where it is called."""
+    from nice_slam_torch.ops import grid
+
+    dims, n = SCATTER_SHAPES[shape]
+    rows, f, g, n_rows = _corner_inputs(dims, n, C, 9, device=cuda_device)
+    grid.reset_launch_counts()
+    got = grid.grid_grad(rows, f, g, n_rows)
+    assert got.shape == (n_rows, C) and got.dtype == torch.float32
+    ref, bound, length = _f64_bound(rows, f, g, n_rows)
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    for _ in range(19):
+        assert torch.equal(grid.grid_grad(rows, f, g, n_rows), got)
+    assert grid.launch_counts() == {"grid_scatter": 20,
+                                    "grid_scatter_plain_cuda": 0}
+    assert torch.equal(got, grid.plain_grid_grad(rows, f, g, n_rows))
+    assert grid.launch_counts()["grid_scatter_plain_cuda"] == 1
+    empty = length == 0
+    assert bool((got[empty] == 0).all())
+    assert not bool(torch.signbit(got[empty]).any())
+    if shape == "room0_fine":
+        assert int(empty.sum()) > 0
+    else:
+        assert int(length.min()) >= 100
+    rows, f, g, n_rows = _corner_inputs(dims, n, C, 10, dyadic=True,
+                                        device=cuda_device)
+    got = grid.grid_grad(rows, f, g, n_rows)
+    r, vals = _weighted_rows(rows, f, g, torch.float32)
+    assert torch.equal(got, grid.plain_grid_grad(rows, f, g, n_rows))
+    assert torch.equal(got, torch.zeros_like(got).index_add_(0, r, vals))
+    grid.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SCATTER_SHAPES))
+@pytest.mark.parametrize("C", [32, 16, 48])
+def test_grid_scatter_sink_rows_on_cuda(cuda_device, shape, C):
+    """The slab form on the card: the sink row's entries are dropped, and
+    the grid's rows equal the dense call on the owned points alone bit
+    for bit (their sorted positions and so their pieces are the same)."""
+    from nice_slam_torch.ops import grid
+
+    dims, n = SCATTER_SHAPES[shape]
+    rows, f, g, n_rows = _corner_inputs(dims, n, C, 11, sink=True,
+                                        device=cuda_device)
+    got = grid.grid_grad(rows, f, g, n_rows)
+    own = rows[0] < n_rows
+    dense = grid.grid_grad(rows[:, own], f[own], g[own], n_rows)
+    assert int(own.sum()) < n
+    assert torch.equal(got, dense)
+    assert torch.equal(got, grid.plain_grid_grad(rows, f, g, n_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(SCATTER_SHAPES))
+@pytest.mark.parametrize("C", [32, 16, 48])
+def test_grid_scatter_graph_replay_on_cuda(cuda_device, shape, C):
+    """A call captured into a CUDA graph and replayed on new inputs (copied
+    into the captured buffers) equals the eager call on them bit for bit;
+    the capture's record holds one launch."""
+    from nice_slam_torch.ops import grid, launches
+
+    dims, n = SCATTER_SHAPES[shape]
+    bufs = _corner_inputs(dims, n, C, 12, device=cuda_device)
+    rows, f, g, n_rows = bufs
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        grid.grid_grad(rows, f, g, n_rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with launches.count_captured(side) as rec:
+        with torch.cuda.graph(graph, stream=side):
+            out = grid.grid_grad(rows, f, g, n_rows)
+    assert rec == {"grid_scatter": 1}
+    for seed in (13, 14):
+        new = _corner_inputs(dims, n, C, seed, device=cuda_device)
+        for buf, x in zip(bufs[:3], new[:3]):
+            buf.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, grid.grid_grad(*new))
