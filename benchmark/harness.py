@@ -206,6 +206,17 @@ class Driver:
         h.copy_(t.detach(), non_blocking=True)
         return h
 
+    def _track_buffers(self, color, depth):
+        """The tracking loop's static buffers of the frame just tracked:
+        every iteration's pre-step camera (`cams`) and loss (`losses`),
+        and the camera after the last step (`cam`)."""
+        from nice_slam_torch import tracking
+
+        dev = self.eng.est_c2w_dev.device
+        return tracking._track_buffers(
+            self.eng._track_graphs, self.eng.specs.track, color.to(dev),
+            depth.to(dev))[1]
+
     # -- the engine's entry points, wrapped on the instance ----------------
 
     def install(self):
@@ -232,9 +243,14 @@ class Driver:
                 out = orig_track(idx, color, depth, gt_pose)
             self.track_spans.stop(ev)
             if cap is not None:
+                b = self._track_buffers(color, depth)
+                n = eng.specs.track.iters
                 cap.out = {"losses": self._host(
                     eng.tracking_stats[-1]["losses"]),
-                    "pose": self._host(eng.est_c2w_dev[idx])}
+                    "pose": self._host(eng.est_c2w_dev[idx]),
+                    "cams": self._host(b.cams[:n]),
+                    "iter_losses": self._host(b.losses[:n]),
+                    "last": self._host(b.cam)}
             return out
 
         def mapping_event(idx, color, depth, gt_pose, first=False):

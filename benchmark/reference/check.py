@@ -14,6 +14,21 @@ what the program produced and what the reference computes.
   kept [R | t] (metres for t).
 - `track_near`: the same against the nearest of the reference's
   post-step poses (the kept step's choice left out).
+- `track_init`: the widest entry gap of [R | t] between the program's
+  first pre-step camera and the reference's start pose (the
+  constant-speed extrapolation and init_select's choice).
+- `track_iter_loss`: over the sampled frames' iterations, the widest
+  relative gap of the loss at the program's pre-step camera, the
+  reference's computed there with the program's draws.
+- `track_step`: over the same iterations, the largest share of a step's
+  first-moment mass (the reference's |m|, built from its own gradients
+  at the program's cameras) on camera entries whose step departs from
+  the reference's by more than half a nominal step.
+- `track_flip`: the same as a share of the entries that move.
+- `track_kept`: the widest entry gap of the kept [R | t] from the
+  nearest of the program's own post-step cameras (its pre-step cameras
+  from the second on, and its camera after the last step): the keep
+  choice and the write-back, free of rounding's drift.
 - `map_loss`: the widest relative gap of the event's loss at each
   followed iteration, the reference's computed at the program's state
   there.
@@ -31,6 +46,8 @@ the others are printed as readings.
 from __future__ import annotations
 
 import contextlib
+import functools
+import math
 
 import torch
 
@@ -63,6 +80,15 @@ def _rel(a, b) -> float:
     return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
 
 
+def _worse(a: float, b: float) -> float:
+    """The larger of two gaps, a NaN read as infinite."""
+    return max(math.inf if x != x else x for x in (a, b))
+
+
+def _widest(gaps) -> float:
+    return functools.reduce(_worse, gaps, 0.0)
+
+
 def _gen(state, device):
     g = torch.Generator(device=device)
     g.set_state(state)
@@ -79,11 +105,8 @@ def start_gap(program_params: dict, npz_path: str) -> float:
                for k in ref)
 
 
-def follow_all(cfg, captures, stream, device, tf32: bool = False,
-               dtype=torch.float32) -> dict:
-    """The reference's outputs for every capture, in float32 (TF32 with
-    `tf32`; float64 with that `dtype`, for the look at a number's
-    conditioning)."""
+def _frames(stream, device, dtype):
+    """Frame i's (colour, depth) on the device, each made once."""
     cache = {}
 
     def frame(i):
@@ -92,6 +115,16 @@ def follow_all(cfg, captures, stream, device, tf32: bool = False,
             cache[i] = (torch.as_tensor(c, device=device, dtype=dtype),
                         torch.as_tensor(d, device=device, dtype=dtype))
         return cache[i]
+    return frame
+
+
+def follow_all(cfg, captures, stream, device, tf32: bool = False,
+               dtype=torch.float32, **fault) -> dict:
+    """The reference's outputs for every capture, in float32 (TF32 with
+    `tf32`; float64 with that `dtype`, for the look at a number's
+    conditioning; a tracking fault planted with `fault`, see
+    follow.follow_tracking)."""
+    frame = _frames(stream, device, dtype)
 
     def dev(t):
         return t.to(device=device, dtype=dtype)
@@ -107,7 +140,7 @@ def follow_all(cfg, captures, stream, device, tf32: bool = False,
                     cfg, _dev_tree(cap.params, device, dtype),
                     _dev_tree(cap.grids, device, dtype), bound, idx,
                     dev(cap.extra["pre"]), dev(cap.extra["pre_pre"]),
-                    color, depth, gen)
+                    color, depth, gen, **fault)
                 continue
             states = cap.extra["states"]
             if any(it not in states
@@ -122,6 +155,25 @@ def follow_all(cfg, captures, stream, device, tf32: bool = False,
                 [int(f) for f in cap.extra["kf_frames"].tolist()],
                 cap.extra["count"], cap.extra["capacity"], frame, gen,
                 states)
+    return out
+
+
+def follow_steps(cfg, captures, stream, device) -> dict:
+    """The float32 reference step by step from the cameras each tracked
+    capture holds (the program's, or those of a side put in its place):
+    {key: follow.follow_tracking_steps(...)}."""
+    frame = _frames(stream, device, torch.float32)
+    out = {}
+    with precision(False):
+        for (kind, idx), cap in sorted(captures.items()):
+            if kind != "track":
+                continue
+            color, depth = frame(idx)
+            out[(kind, idx)] = follow.follow_tracking_steps(
+                cfg, _dev_tree(cap.params, device),
+                _dev_tree(cap.grids, device), cap.bound.to(device), idx,
+                color, depth, _gen(cap.gen_state, device),
+                cap.out["cams"].to(device=device, dtype=torch.float32))
     return out
 
 
@@ -149,7 +201,7 @@ def step_shares(delta, ref_step) -> tuple:
     reference's step by more than half a nominal step."""
     r = ref_step["delta"]
     d = delta.to(device=r.device, dtype=r.dtype)
-    bad = torch.abs(d - r) > ref_step["unit"]
+    bad = ~(torch.abs(d - r) <= ref_step["unit"])
     w = ref_step["weight"]
     total = float(torch.sum(w))
     mass = (float(torch.sum(w * bad)) / total if total > 0
@@ -158,41 +210,74 @@ def step_shares(delta, ref_step) -> tuple:
     return mass, int(torch.sum(bad)) / max(moving, 1)
 
 
-def gaps(captures, ref: dict) -> dict:
-    """Every number, from the captures' outputs (the program's, or the
-    control's put in their place) against the reference's `ref`."""
-    res = {"track_first": 0.0, "track_loss": 0.0, "track_pose": 0.0,
-           "track_near": 0.0, "map_loss": 0.0, "map_step": 0.0,
-           "map_flip": 0.0}
+def _nearest(pose, cams) -> float:
+    """Widest entry gap of [R | t] (3, 4) from the nearest of the cameras'
+    (infinite where none is finite)."""
+    gaps = [float(torch.max(torch.abs(pose - plain.cam_to_c2w(c))))
+            for c in cams]
+    return min((g for g in gaps if g == g), default=math.inf)
+
+
+def track_numbers(cap, r, at) -> dict:
+    """A tracked capture's numbers against the reference's whole loop `r`
+    (follow.follow_tracking) and its steps `at` at the capture's own
+    cameras (follow.follow_tracking_steps)."""
+    losses = [float(x) for x in cap.out["losses"].tolist()]
+    dev, dt = r["pose"].device, r["pose"].dtype
+    pose = cap.out["pose"].to(device=dev, dtype=dt)[:3]
+    cams = cap.out["cams"]
+    ends = torch.cat([cams[1:], cap.out["last"][None]])
+    shares = [step_shares(ends[k] - cams[k], st)
+              for k, st in enumerate(at["steps"])]
+    cams, ends = cams.to(device=dev, dtype=dt), ends.to(device=dev,
+                                                        dtype=dt)
+    return {
+        "track_first": _rel(losses[0], r["losses"][0]),
+        "track_loss": _widest(_rel(a, b) for a, b in zip(losses,
+                                                         r["losses"])),
+        "track_pose": float(torch.max(torch.abs(pose - r["pose"][:3]))),
+        "track_near": _nearest(pose, r["posts"]),
+        "track_init": float(torch.max(torch.abs(
+            plain.cam_to_c2w(cams[0]) - plain.cam_to_c2w(r["cams"][0])))),
+        "track_iter_loss": _widest(
+            _rel(a, b) for a, b in zip(cap.out["iter_losses"].tolist(),
+                                       at["losses"])),
+        "track_step": _widest(m for m, _ in shares),
+        "track_flip": _widest(f for _, f in shares),
+        "track_kept": _nearest(pose, ends)}
+
+
+TRACK_NUMBERS = ("track_first", "track_loss", "track_pose", "track_near",
+                 "track_init", "track_iter_loss", "track_step",
+                 "track_flip", "track_kept")
+
+
+def gaps(captures, ref: dict, steps: dict) -> dict:
+    """Every number, from the captures' outputs (the program's, or a side's
+    put in their place) against the reference's `ref` (follow_all of the
+    program's captures) and its steps at the captures' own cameras
+    (`steps`, follow_steps of the same captures)."""
+    res = dict.fromkeys(TRACK_NUMBERS + ("map_loss", "map_step",
+                                         "map_flip"), 0.0)
     for key, cap in captures.items():
         if key not in ref:
             continue
         r = ref[key]
         if key[0] == "track":
-            losses = [float(x) for x in cap.out["losses"].tolist()]
-            res["track_first"] = max(res["track_first"],
-                                     _rel(losses[0], r["losses"][0]))
-            res["track_loss"] = max(res["track_loss"], max(
-                _rel(a, b) for a, b in zip(losses, r["losses"])))
-            pose = cap.out["pose"].to(device=r["pose"].device,
-                                      dtype=r["pose"].dtype)[:3]
-            res["track_pose"] = max(res["track_pose"], float(
-                torch.max(torch.abs(pose - r["pose"][:3]))))
-            res["track_near"] = max(res["track_near"], min(
-                float(torch.max(torch.abs(pose - plain.cam_to_c2w(c))))
-                for c in r["posts"]))
+            for k, v in track_numbers(cap, r, steps[key]).items():
+                res[k] = _worse(res[k], v)
             continue
         if r is None:
             for k in ("map_loss", "map_step", "map_flip"):
                 res[k] = float("inf")
             continue
         for it, v in r["losses"].items():
-            res["map_loss"] = max(res["map_loss"], _rel(map_loss_at(cap, it),
-                                                        v))
+            res["map_loss"] = _worse(res["map_loss"],
+                                     _rel(map_loss_at(cap, it), v))
         for k, st in r["steps"].items():
             mass, flip = step_shares(map_delta(cap, k), st)
-            res["map_step"] = max(res["map_step"], mass)
-            res["map_flip"] = max(res["map_flip"], flip)
+            res["map_step"] = _worse(res["map_step"], mass)
+            res["map_flip"] = _worse(res["map_flip"], flip)
     return res
 
 
@@ -203,7 +288,10 @@ def as_outputs(ref: dict) -> dict:
     for key, r in ref.items():
         if key[0] == "track":
             out[key] = {"losses": torch.tensor(r["losses"]),
-                        "pose": r["pose"].detach().cpu()}
+                        "pose": r["pose"].detach().cpu(),
+                        "cams": r["cams"].detach().cpu(),
+                        "iter_losses": torch.tensor(r["all_losses"]),
+                        "last": r["last"].detach().cpu()}
         elif r is not None:
             out[key] = {"losses": dict(r["losses"]),
                         "deltas": {k: s["delta"]
@@ -260,4 +348,32 @@ def tracking_detail(captures, refs: dict) -> list:
                 f"{float(torch.max(torch.abs(p - r['pose'][:3])))!r}, "
                 f"nearest step {k} at {near[k]!r}")
         lines.append("; ".join(parts))
+    return lines
+
+
+def steps_detail(sides: dict, ref: dict, steps: dict) -> list:
+    """One line a sampled frame: each side's ({name: captures}) numbers
+    of the step-by-step follow (`steps`: {name: follow_steps of that
+    side}) and its widest step departure, in half nominal steps, with
+    its iteration."""
+    lines = []
+    for key in sorted(k for k in ref if k[0] == "track"):
+        parts = []
+        for name, caps in sides.items():
+            if key not in caps:
+                continue
+            cap, at = caps[key], steps[name][key]
+            v = track_numbers(cap, ref[key], at)
+            cams = cap.out["cams"]
+            ends = torch.cat([cams[1:], cap.out["last"][None]])
+            gone = [float(torch.max(torch.abs(
+                (ends[k] - cams[k]).to(st["delta"]) - st["delta"])
+                / st["unit"])) for k, st in enumerate(at["steps"])]
+            worst = max(range(len(gone)), key=gone.__getitem__)
+            parts.append(f"{name} " + repr({k: v[k] for k in (
+                "track_init", "track_iter_loss", "track_step",
+                "track_flip", "track_kept")})
+                + f" widest departure {gone[worst]!r} half-steps at step "
+                f"{worst}")
+        lines.append(f"frame {key[1]} steps: " + "; ".join(parts))
     return lines

@@ -1,7 +1,18 @@
 """The reference following one tracked frame, and the first steps of
 every stage of one mapping event, from the program's own state at their
 start (the map it read, the poses before it and its generator's
-position), with the same draws, in plain PyTorch (reference/plain.py)."""
+position), with the same draws, in plain PyTorch (reference/plain.py).
+
+A tracked frame is followed twice.  `follow_tracking` runs the
+reference's own Adam loop from the start pose to the end: over a long
+loop rounding picks the direction of near-zero-gradient entries' steps,
+and every later step starts from there, so its poses drift from the
+program's by rounding alone (its numbers are readings).
+`follow_tracking_steps` follows the loop step by step from the
+program's own cameras, as `follow_mapping` does an event: at each
+iteration the loss and its gradient at the program's pre-step camera
+with the program's draws, and the Adam step whose moments the
+reference's own gradients at the program's cameras build."""
 
 from __future__ import annotations
 
@@ -24,28 +35,44 @@ def _render_args(cfg) -> dict:
     return {"cam": _cam(cfg), "samples": (r["N_samples"], r["N_surface"])}
 
 
+def _track_draw(cfg, gen):
+    """Frame pixels as the tracker draws them, edges ignored."""
+    t, cam = cfg["tracking"], _cam(cfg)
+    eh, ew = t["ignore_edge_H"], t["ignore_edge_W"]
+    return plain.draw_pixels(gen, t["pixels"], eh, cam["H"] - eh, ew,
+                             cam["W"] - ew)
+
+
+def half_nominal(lr, step, b1=0.9, b2=0.999):
+    """Half the step Adam takes at `step` (from 1) on an entry whose
+    gradient appears there for the first time, from zero moments."""
+    inv1 = 1.0 / (1.0 - b1 ** step)
+    inv2 = 1.0 / (1.0 - b2 ** step)
+    return 0.5 * (lr * (1 - b1) * inv1 / ((1 - b2) * inv2) ** 0.5)
+
+
 def follow_tracking(cfg, params, grids, bound, idx, pre, pre_pre, color,
-                    depth, gen) -> dict:
+                    depth, gen, lr_scale: float = 1.0, frozen_entry=None,
+                    kept_shift: float = 0.0) -> dict:
     """Tracker.py:180-247 for frame idx: the constant-speed start, the
     init_select test against the previous pose, then `iters` Adam steps on
     the 7-vector, keeping the post-step camera of the lowest pre-step
-    loss.  Returns the losses [first, last, best], every iteration's loss
-    and post-step camera, and the kept pose (4, 4)."""
+    loss.  Returns the losses [first, last, best], every iteration's loss,
+    pre-step camera (`cams`, (iters, 7)) and post-step camera (`posts`),
+    the last post-step camera and the kept pose (4, 4).
+
+    `lr_scale`, `frozen_entry` (a camera entry whose gradient is zeroed)
+    and `kept_shift` (metres added to the kept pose's x) plant faults in
+    the reference put in the program's place, for the readings of the
+    faults that the check must catch."""
     t = cfg["tracking"]
     ra = _render_args(cfg)
-    cam = ra["cam"]
-    eh, ew = t["ignore_edge_H"], t["ignore_edge_W"]
-
-    def draw():
-        return plain.draw_pixels(gen, t["pixels"], eh, cam["H"] - eh, ew,
-                                 cam["W"] - ew)
-
     init = pre
     if t["const_speed_assumption"] and idx >= 2:
         init = (pre @ torch.linalg.inv(pre_pre)) @ pre
         if t["init_select"]:
             with torch.no_grad():
-                pix = draw()
+                pix = _track_draw(cfg, gen)
                 med_cs = plain.depth_median(
                     plain.cam_to_c2w(plain.c2w_to_cam(init)), params, grids,
                     bound, depth, pix, ra)
@@ -56,24 +83,64 @@ def follow_tracking(cfg, params, grids, bound, idx, pre, pre_pre, color,
                         * torch.clamp(med_pre, min=0.01)):
                 init = pre
     cam_t = plain.c2w_to_cam(init).detach().clone()
+    lr = t["lr"] * lr_scale
     m, v = torch.zeros_like(cam_t), torch.zeros_like(cam_t)
     best_loss, best = float("inf"), cam_t.clone()
-    losses, posts = [], []
+    losses, cams, posts = [], [], []
     for k in range(1, t["iters"] + 1):
+        cams.append(cam_t.clone())
         c = cam_t.clone().requires_grad_(True)
         loss = plain.tracking_loss(c, params, grids, bound, color, depth,
-                                   draw(), cfg, ra)
+                                   _track_draw(cfg, gen), cfg, ra)
         (g,) = torch.autograd.grad(loss, c)
+        if frozen_entry is not None:
+            g[frozen_entry] = 0.0
         loss = float(loss.detach())
         with torch.no_grad():
-            plain.adam(cam_t, g, m, v, k, t["lr"])
+            plain.adam(cam_t, g, m, v, k, lr)
         losses.append(loss)
         posts.append(cam_t.clone())
         if loss < best_loss:
             best_loss, best = loss, cam_t.clone()
+    pose = plain.homogeneous(plain.cam_to_c2w(best))
+    pose[0, 3] += kept_shift
     return {"losses": [losses[0], losses[-1], best_loss],
-            "all_losses": losses, "posts": posts,
-            "pose": plain.homogeneous(plain.cam_to_c2w(best))}
+            "all_losses": losses, "cams": torch.stack(cams),
+            "posts": posts, "last": posts[-1], "pose": pose}
+
+
+def follow_tracking_steps(cfg, params, grids, bound, idx, color, depth,
+                          gen, cams) -> dict:
+    """Frame idx's tracking loop step by step from the program's own
+    pre-step cameras `cams` (iters, 7), with the program's draws
+    (init_select's pixels drawn first, as the program draws them).  At
+    each iteration k: the loss at cams[k] and its gradient, the
+    reference's Adam moments updated with it, and the step Adam takes
+    from cams[k].
+
+    Returns {"losses": [loss at cams[k]], "steps": [{"delta": the step,
+    "weight": |first moment|, "unit": half the nominal step there}]}."""
+    t = cfg["tracking"]
+    ra = _render_args(cfg)
+    if t["const_speed_assumption"] and idx >= 2 and t["init_select"]:
+        _track_draw(cfg, gen)
+    lr = t["lr"]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    m, v = torch.zeros_like(cams[0]), torch.zeros_like(cams[0])
+    losses, steps = [], []
+    for k in range(1, t["iters"] + 1):
+        c = cams[k - 1].detach().clone().requires_grad_(True)
+        loss = plain.tracking_loss(c, params, grids, bound, color, depth,
+                                   _track_draw(cfg, gen), cfg, ra)
+        (g,) = torch.autograd.grad(loss, c)
+        losses.append(float(loss.detach()))
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        mh, vh = m / (1.0 - b1 ** k), v / (1.0 - b2 ** k)
+        steps.append({"delta": (-lr * mh / (torch.sqrt(vh) + eps)).detach(),
+                      "weight": torch.abs(m).detach(),
+                      "unit": half_nominal(lr, k)})
+    return {"losses": losses, "steps": steps}
 
 
 def _project(pts, c2w, cam):
@@ -397,8 +464,7 @@ def follow_mapping(cfg, bound, idx, cur, kf_c2w, kf_frames, count,
             v = b2 * v + (1 - b2) * g * g
             moments[grp] = (m, v)
             delta = -lr * (m * inv1) / (torch.sqrt(v * inv2) + eps)
-            nominal = lr * (1 - b1) * inv1 / ((1 - b2) * inv2) ** 0.5
             steps[(it, grp)] = {"delta": delta.detach(),
                                 "weight": torch.abs(m).detach(),
-                                "unit": 0.5 * nominal}
+                                "unit": half_nominal(lr, step, b1, b2)}
     return {"losses": losses, "steps": steps, "ba": win["ba"]}

@@ -10,9 +10,9 @@ The last line of standard output is one JSON object: `correct`,
 --trace 1 its per-layer ones), `device`, with --trace 1 `breakdown`, and
 last `check`: each number compared with its limit.  --readings 1 also
 computes the precision control (the reference in TF32, put in the
-program's place) and the reference in float64 on the same captures, and
-prints their numbers, and whether they pass the limits, on standard
-error.
+program's place), the reference in float64 and the reference with each
+tracking fault of TRACK_FAULTS on the same captures, and prints their
+numbers, and whether they pass the limits, on standard error.
 """
 
 import time
@@ -299,17 +299,31 @@ def is_correct(numbers: dict) -> bool:
     return all(v["value"] <= v["limit"] for v in numbers.values())
 
 
+# the tracking faults the readings plant in the reference put in the
+# program's place (follow.follow_tracking's arguments)
+TRACK_FAULTS = (
+    ("lr_half", "fault: tracking's learning rate halved",
+     {"lr_scale": 0.5}),
+    ("entry_zero", "fault: the gradient of the camera's x translation "
+     "zeroed", {"frozen_entry": 4}),
+    ("kept_moved", "fault: the kept pose moved 1e-3 along x",
+     {"kept_shift": 1e-3}))
+
+
 def judge(cfg, wl, captures, stream, dev, start_params, readings: bool):
     """The numbers compared, each with its limit (workload 'limits'), and
-    the lines that show them.  With `readings`, the control (the
-    reference in TF32, put in the program's place) and the reference in
-    float64 go through the same comparison, and their lines follow."""
+    the lines that show them.  With
+    `readings`, the control (the reference in TF32, put in the program's
+    place), the reference in float64 and the reference with each of
+    TRACK_FAULTS go through the same comparison, and their lines
+    follow."""
     import torch
 
     from benchmark.reference import check
 
     ref = check.follow_all(cfg, captures, stream, dev)
-    vals = check.gaps(captures, ref)
+    steps = check.follow_steps(cfg, captures, stream, dev)
+    vals = check.gaps(captures, ref, steps)
     vals["start"] = check.start_gap(start_params,
                                     cfg["pretrained_decoders"]["tpu_npz"])
     n_track = sum(1 for k in captures if k[0] == "track")
@@ -324,21 +338,29 @@ def judge(cfg, wl, captures, stream, dev, start_params, readings: bool):
              "readings not compared: " + json.dumps(
                  {k: v for k, v in vals.items() if k not in numbers})]
     if readings:
-        sides, raws = {"program": captures}, {"fp32": ref}
-        for short, name, kw in (
-                ("tf32", "control (the reference in TF32)", {"tf32": True}),
-                ("fp64", "the reference in float64",
-                 {"dtype": torch.float64})):
-            raws[short] = check.follow_all(cfg, captures, stream, dev, **kw)
+        tracked = {k: c for k, c in captures.items() if k[0] == "track"}
+        sides, at = {"program": captures}, {"program": steps}
+        raws = {"fp32": ref}
+        for short, name, caps, kw in (
+                ("tf32", "control (the reference in TF32)", captures,
+                 {"tf32": True}),
+                ("fp64", "the reference in float64", captures,
+                 {"dtype": torch.float64})) + tuple(
+                (short, name, tracked, kw) for short, name, kw
+                in TRACK_FAULTS):
+            raws[short] = check.follow_all(cfg, caps, stream, dev, **kw)
             outs = check.as_outputs(raws[short])
             sides[short] = {k: dataclasses.replace(c, out=outs[k])
-                            for k, c in captures.items() if k in outs}
-            v = dict(check.gaps(sides[short], ref), start=0.0)
+                            for k, c in caps.items() if k in outs}
+            at[short] = check.follow_steps(cfg, sides[short], stream, dev)
+            v = dict(check.gaps(sides[short], ref, at[short]), start=0.0)
             lines.append(f"{name}: correct "
                          f"{is_correct(compared(v, limits))}; "
                          + json.dumps(v))
         lines += check.mapping_detail(sides, ref)
-        lines += check.tracking_detail(captures, raws)
+        lines += check.tracking_detail(captures, {
+            k: raws[k] for k in ("fp32", "tf32", "fp64")})
+        lines += check.steps_detail(sides, ref, at)
     lines += [f"check {k}: {v['value']!r} limit {v['limit']!r}"
               for k, v in numbers.items()]
     return numbers, lines

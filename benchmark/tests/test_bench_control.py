@@ -31,7 +31,8 @@ def test_tf32_reference_is_not_correct():
         caps = {k: dataclasses.replace(c, out=ctrl[k])
                 for k, c in captures.items()}
         seen["control"] = run.compared(
-            dict(check.gaps(caps, ref), start=0.0), w["limits"])
+            dict(check.gaps(caps, ref, check.follow_steps(
+                cfg, caps, stream, dev)), start=0.0), w["limits"])
         return orig(cfg, w, captures, stream, dev, start, readings)
 
     orig = run.judge
@@ -41,5 +42,5 @@ def test_tf32_reference_is_not_correct():
                               time.perf_counter())
     finally:
         run.judge = orig
-    assert res["correct"]
+    assert res["correct"], res["check"]
     assert not run.is_correct(seen["control"]), seen["control"]

@@ -21,12 +21,6 @@ def test_other_cells_are_correct(cell):
     assert res["correct"], lines
 
 
-def _no_adam(module):
-    def hook(eng, mp=None):
-        mp.setattr(module, "adam_step_", lambda *a, **k: None)
-    return hook
-
-
 def _alter_pose(mp):
     import nice_slam_torch.engine as engine
 
@@ -60,6 +54,41 @@ def _half_batch(mp):
 def _tracking_unchanged(mp):
     import nice_slam_torch.tracking as tracking
     mp.setattr(tracking, "adam_step_", lambda *a, **k: None)
+
+
+def _tracking_step(change):
+    """Tracking's Adam step with `change(args) -> args` applied to its
+    (camera, gradient, m, v, step, tables, lr) first."""
+    def plant(mp):
+        import nice_slam_torch.tracking as tracking
+
+        orig = tracking.adam_step_
+        mp.setattr(tracking, "adam_step_",
+                   lambda *a, **k: orig(*change(list(a)), **k))
+    return plant
+
+
+def _lr_half(a):
+    a[6] = a[6] * 0.5
+    return a
+
+
+def _entry_zero(a):
+    """The gradient of the camera's x translation zeroed."""
+    a[1] = a[1].clone()
+    a[1][4] = 0.0
+    return a
+
+
+def _adam_off(mp):
+    """Tracking steps by plain gradient descent at its learning rate."""
+    import nice_slam_torch.tracking as tracking
+
+    def sgd(cam, g, m, v, step, tables, lr, *a, **k):
+        step.add_(1)
+        cam.sub_(lr * g)
+
+    mp.setattr(tracking, "adam_step_", sgd)
 
 
 def _mapping_unchanged(mp):
@@ -116,6 +145,7 @@ def _colour_half_batch(mp):
 FAULTS = {"tracking step returns its state unchanged": _tracking_unchanged,
           "mapping step returns its state unchanged": _mapping_unchanged,
           "pose altered where it is produced": _alter_pose,
+          "tracking steps without Adam": _adam_off,
           "half of the mapping batch left out": _half_batch,
           "colour stage returns its state unchanged": _stage_lr_zero(
               "color", ("params", "grids", "cams")),
@@ -140,3 +170,59 @@ def test_bundle_adjustment_fault_is_not_correct(monkeypatch):
         engine_hook=lambda eng: _stage_lr_zero("color", ("cams",))(
             monkeypatch), seed=43, early=False)
     assert not res["correct"], lines
+
+
+# each fault in the ScanNet cell, and the numbers that must catch it
+# there (any one of them over its limit)
+SCANNET_FAULTS = {
+    "tracking step returns its state unchanged": (
+        _tracking_unchanged, ("track_step",)),
+    "pose altered where it is produced": (_alter_pose, ("track_kept",)),
+    "tracking steps without Adam": (_adam_off, ("track_step",)),
+    "tracking's learning rate halved": (
+        _tracking_step(_lr_half), ("track_step",)),
+    "one camera entry's gradient zeroed": (
+        _tracking_step(_entry_zero), ("track_step",)),
+    "mapping step returns its state unchanged": (
+        _mapping_unchanged, ("map_step",)),
+    "half of the mapping batch left out": (_half_batch, ("map_loss",)),
+    "colour stage returns its state unchanged": (
+        _stage_lr_zero("color", ("params", "grids", "cams")),
+        ("map_step",))}
+
+
+@pytest.mark.parametrize("fault", sorted(SCANNET_FAULTS))
+def test_fault_is_caught_in_scannet(fault, monkeypatch):
+    """scene0000.strict's 1000 px x 50-iteration tracking loop is judged
+    step by step: each fault fails a number that rounding's drift cannot
+    reach."""
+    plant, numbers = SCANNET_FAULTS[fault]
+    res, lines = small_run("scene0000.strict",
+                           engine_hook=lambda eng: plant(monkeypatch),
+                           seed=47)
+    assert not res["correct"], lines
+    check = res["check"]
+    assert any(check[n]["value"] > check[n]["limit"] for n in numbers), \
+        lines
+
+
+def test_a_flip_counts_by_its_first_moment():
+    """A step flipped on an entry whose reference first moment is near
+    zero stays under scene0000.strict's track_step limit; the same flip
+    on an entry with a large moment goes over it."""
+    from benchmark import registry
+    from benchmark.reference import check, follow
+
+    limit = registry.workload("scene0000.strict")["limits"]["track_step"]
+    unit = follow.half_nominal(5e-4, 20)
+    ref = torch.tensor([4e-4, -3e-4, 2e-4, 4e-4, -4e-4, 3e-4, 1e-6])
+    weight = torch.tensor([2.0, 1.5, 1.0, 2.0, 2.0, 1.5, 1e-6])
+    step = {"delta": ref, "weight": weight, "unit": unit}
+    small, big = ref.clone(), ref.clone()
+    small[6] = -4e-4
+    big[0] = -ref[0]
+    assert check.step_shares(ref, step) == (0.0, 0.0)
+    mass, flip = check.step_shares(small, step)
+    assert mass < limit and flip == 1 / 7
+    mass, flip = check.step_shares(big, step)
+    assert mass > limit and flip == 1 / 7
