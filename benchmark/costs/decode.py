@@ -153,3 +153,33 @@ def step_ops_ms(tc_flops: float, simt_flops: float) -> float:
     """Least time in ms of that work from operations alone, 3xTF32."""
     return (tc_flops / (PEAK_TF32_FLOPS / 3)
             + simt_flops / PEAK_FP32_FLOPS) * 1e3
+
+
+def schedule_least_ms(cfg: dict, n_frames: int, n_events: int) -> float:
+    """NICE's least time: the decoder work of n_frames tracked frames
+    (from the third on, with init_select's two renders) and n_events
+    steady mapping events without bundle adjustment."""
+    t, m, r = cfg["tracking"], cfg["mapping"], cfg["rendering"]
+    per_ray = r["N_samples"] + r["N_surface"]
+    n_t = t["pixels"] * per_ray
+    frame = t["iters"] * (
+        step_ops_ms(*step_flops("color", n_t, "fwd"))
+        + step_ops_ms(*step_flops("color", n_t, "bwd", need_dp=True)))
+    if t["const_speed_assumption"] and t["init_select"]:
+        frame += 2 * step_ops_ms(*step_flops("color", n_t, "fwd"))
+    wn = m["mapping_window_size"]
+    rays = m["pixels"] // wn * wn
+    n_m, n_c = rays * per_ray, rays * r["N_samples"]
+    n = m["iters"]
+    n_mid = min(int(n * m["middle_iter_ratio"]) + 1, n)
+    n_fine = max(min(int(n * m["fine_iter_ratio"]) + 1, n) - n_mid, 0)
+    n_col = n - n_mid - n_fine
+    ev = 0.0
+    for stage, iters, live in (("middle", n_mid, ()), ("fine", n_fine, ()),
+                               ("color", n_col, ("color",))):
+        ev += iters * (step_ops_ms(*step_flops(stage, n_m, "fwd"))
+                       + step_ops_ms(*step_flops(stage, n_m, "bwd", live)))
+    if cfg.get("coarse"):
+        ev += n * (step_ops_ms(*step_flops("coarse", n_c, "fwd"))
+                   + step_ops_ms(*step_flops("coarse", n_c, "bwd")))
+    return n_frames * frame + n_events * ev

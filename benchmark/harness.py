@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from benchmark.reference.follow import snapshot_iterations
+from benchmark import registry
 
 
 # the host annotations the harness puts around the engine's calls, which
@@ -160,8 +160,10 @@ class Driver:
         self._bufs = [self._make_bufs()
                       for _ in range(len(self.track_sample))]
         # the sampled event's states before the iterations the check
-        # follows from
-        self.map_its = snapshot_iterations(eng.cfg)
+        # follows from, with the grids its steps read (the mode's)
+        mode = registry.mode(registry.mode_of(eng.cfg))
+        self.map_its = mode.snapshot_iterations(eng.cfg)
+        self.state_grids = mode.STATE_GRIDS
         self._state_bufs = [self._make_state_bufs() for _ in self.map_its
                             for _ in self.map_samples]
         self._in_sampled_event = None
@@ -178,7 +180,7 @@ class Driver:
         wn = int(self.eng.cfg["mapping"]["mapping_window_size"])
         return {"params": _tree_map(_host_like, st.params),
                 "grids": {n: _host_like(g) for n, g in st.grids.items()
-                          if n in ("middle", "fine", "color")},
+                          if n in self.state_grids},
                 "cams": _host_like(torch.empty(wn, 7, device=self.dev))}
 
     def _state(self, tree) -> dict:
@@ -269,7 +271,8 @@ class Driver:
                              "kf_frames": self._host(store.frame_idx),
                              "count": int(store.count),
                              "capacity": int(store.capacity),
-                             "states": {}}
+                             "states": {}, "pass_gens": [],
+                             "pass_losses": []}
                 self.captures[("map", idx)] = cap
                 self._in_sampled_event = cap
             try:
@@ -277,6 +280,11 @@ class Driver:
                     return orig_event(idx, color, depth, gt_pose,
                                       first=first)
             finally:
+                cap = self._in_sampled_event
+                if cap is not None and len(cap.extra["pass_losses"]) > 1:
+                    # every mapper call's losses, numbered as its states
+                    self._wait()
+                    cap.out["losses"] = torch.cat(cap.extra["pass_losses"])
                 self._in_sampled_event = None
                 if ev is not None:
                     (self.first_event if first and idx == 0
@@ -284,22 +292,29 @@ class Driver:
 
         def _map(*a, **k):
             cap = self._in_sampled_event
-            if cap is None or "losses" in cap.out:
+            parts = cap.extra["pass_losses"] if cap is not None else None
+            base = sum(int(p.shape[0]) for p in parts or ())
+            if cap is None or (parts and not any(i >= base
+                                                 for i in self.map_its)):
                 return orig_map(*a, **k)
-            # the event's mapper (not its coarse mapper) shows its state
-            # before each iteration to on_iter
+            # the event's mapper calls (NICE's one; iMAP*'s three passes;
+            # not the coarse mapper) show their state before each
+            # iteration to on_iter, numbered on from the calls before
             prior = k.get("on_iter")
             states = cap.extra["states"]
+            cap.extra["pass_gens"].append(eng.gen.get_state().clone())
 
             def on_iter(it, tree, *rest, **kw):
-                if it in self.map_its and it not in states:
-                    states[it] = self._state(tree)
+                if base + it in self.map_its and base + it not in states:
+                    states[base + it] = self._state(tree)
                 if prior is not None:
                     prior(it, tree, *rest, **kw)
 
             k["on_iter"] = on_iter
             losses = orig_map(*a, **k)
-            cap.out["losses"] = self._host(losses)
+            parts.append(self._host(losses))
+            if len(parts) == 1:
+                cap.out["losses"] = parts[0]
             return losses
 
         eng.track, eng.mapping_event, eng._map = track, mapping_event, _map

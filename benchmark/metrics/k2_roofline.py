@@ -8,6 +8,8 @@ SOURCE = "device_trace"
 LAYER = "decode kernels"
 MOVES = "frames_per_s"
 CELLS = None
+# K1 and K2 decode NICE's grids: cells of other modes launch neither
+MODES = ("nice",)
 KERNELS = ("nice_bwd_kernel", "nice_wgrad_reduce_kernel")
 
 

@@ -1,9 +1,10 @@
 """The whole step's share of the card's peak: the least time, from
 operations alone at the 3xTF32 rate, of all the decoder work the
 window's schedule does (every tracking and init_select render, every
-mapping stage and the coarse mapper, forward and backward, counted from
-the configuration's shapes whatever implements them;
-costs/decode.step_flops) over the window's seconds."""
+mapping iteration, forward and backward, counted from the
+configuration's shapes whatever implements them: the cell's mode's
+schedule_least_ms, costs/decode.py for NICE, costs/imap.py for iMAP*)
+over the window's seconds."""
 NAME = "step_mfu"
 UNIT = "%"
 BETTER = "higher"

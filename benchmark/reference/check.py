@@ -1,12 +1,13 @@
 """The comparison that decides `correct`: the reference follows the
 captured tracked frames, and the first two steps of every stage of the
-captured mapping event, from the program's own state
-(reference/follow.py); each number compared is the widest gap between
-what the program produced and what the reference computes.
+captured mapping event (NICE, reference/follow.py; iMAP*'s first pass,
+reference/follow_imap.py), from the program's own state; each number
+compared is the widest gap between what the program produced and what
+the reference computes.
 
 - `start`: the widest absolute gap between the decoders the program
-  built at construction and the reference's own load of the same npz
-  (exact).
+  built at construction and the reference's own (the mode's: NICE's
+  load of the same npz, iMAP*'s draw from the seed; exact).
 - `track_first`: the widest relative gap of a sampled frame's first
   tracking loss (at the pose init_select kept, before any step).
 - `track_loss`: the same over its first, last and best tracking loss.
@@ -34,7 +35,8 @@ what the program produced and what the reference computes.
   there.
 - `map_step`: over the followed steps and the leaf groups whose Adam
   moments start in that stage (the middle grid; the fine grid; the
-  colour grid, the colour decoder and, under BA, the window cameras),
+  colour grid, the colour decoder and, under BA, the window cameras;
+  iMAP*: B, the hidden layers, the head and, under BA, the cameras),
   the largest share of the step's first-moment mass on entries whose
   step departs from the reference's by more than half a nominal step.
 - `map_flip`: the same as a share of the entries that move.
@@ -46,8 +48,10 @@ the others are printed as readings.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -119,11 +123,13 @@ def _frames(stream, device, dtype):
 
 
 def follow_all(cfg, captures, stream, device, tf32: bool = False,
-               dtype=torch.float32, **fault) -> dict:
+               dtype=torch.float32, follower=follow, **fault) -> dict:
     """The reference's outputs for every capture, in float32 (TF32 with
     `tf32`; float64 with that `dtype`, for the look at a number's
     conditioning; a tracking fault planted with `fault`, see
-    follow.follow_tracking)."""
+    follow.follow_tracking).  `follower` is the mode's module of
+    followers: reference/follow.py (NICE) or reference/follow_imap.py
+    (iMAP*)."""
     frame = _frames(stream, device, dtype)
 
     def dev(t):
@@ -136,7 +142,7 @@ def follow_all(cfg, captures, stream, device, tf32: bool = False,
             gen = _gen(cap.gen_state, device)
             if kind == "track":
                 color, depth = frame(idx)
-                out[(kind, idx)] = follow.follow_tracking(
+                out[(kind, idx)] = follower.follow_tracking(
                     cfg, _dev_tree(cap.params, device, dtype),
                     _dev_tree(cap.grids, device, dtype), bound, idx,
                     dev(cap.extra["pre"]), dev(cap.extra["pre_pre"]),
@@ -144,24 +150,25 @@ def follow_all(cfg, captures, stream, device, tf32: bool = False,
                 continue
             states = cap.extra["states"]
             if any(it not in states
-                   for it in follow.snapshot_iterations(cfg)):
+                   for it in follower.snapshot_iterations(cfg)):
                 out[(kind, idx)] = None
                 continue
             states = {it: {"tree": _dev_tree(st["tree"], device, dtype),
                            "gen": st["gen"]} for it, st in states.items()}
-            out[(kind, idx)] = follow.follow_mapping(
+            out[(kind, idx)] = follower.follow_mapping(
                 cfg, bound, idx, dev(cap.extra["cur"]),
                 dev(cap.extra["kf_c2w"]),
                 [int(f) for f in cap.extra["kf_frames"].tolist()],
                 cap.extra["count"], cap.extra["capacity"], frame, gen,
-                states)
+                states, pass_gens=[_gen(g, device) for g in
+                                   cap.extra.get("pass_gens", ())])
     return out
 
 
-def follow_steps(cfg, captures, stream, device) -> dict:
+def follow_steps(cfg, captures, stream, device, follower=follow) -> dict:
     """The float32 reference step by step from the cameras each tracked
     capture holds (the program's, or those of a side put in its place):
-    {key: follow.follow_tracking_steps(...)}."""
+    {key: follower.follow_tracking_steps(...)}."""
     frame = _frames(stream, device, torch.float32)
     out = {}
     with precision(False):
@@ -169,7 +176,7 @@ def follow_steps(cfg, captures, stream, device) -> dict:
             if kind != "track":
                 continue
             color, depth = frame(idx)
-            out[(kind, idx)] = follow.follow_tracking_steps(
+            out[(kind, idx)] = follower.follow_tracking_steps(
                 cfg, _dev_tree(cap.params, device),
                 _dev_tree(cap.grids, device), cap.bound.to(device), idx,
                 color, depth, _gen(cap.gen_state, device),
@@ -377,3 +384,64 @@ def steps_detail(sides: dict, ref: dict, steps: dict) -> list:
                 f"{worst}")
         lines.append(f"frame {key[1]} steps: " + "; ".join(parts))
     return lines
+
+
+# the tracking faults the readings plant in the reference put in the
+# program's place (follow.follow_tracking's arguments)
+TRACK_FAULTS = (
+    ("lr_half", "fault: tracking's learning rate halved",
+     {"lr_scale": 0.5}),
+    ("entry_zero", "fault: the gradient of the camera's x translation "
+     "zeroed", {"frozen_entry": 4}),
+    ("kept_moved", "fault: the kept pose moved 1e-3 along x",
+     {"kept_shift": 1e-3}))
+
+
+def judge(cfg, captures, stream, dev, start: float, readings: bool,
+          follower=follow) -> SimpleNamespace:
+    """Every number of the program's captures against the reference that
+    `follower` runs, with `start` (the mode's start gap) and `sampled`
+    (infinite where the window reached no sampled frame or no sampled
+    event): `vals`; the line naming the samples: `head`.  With
+    `readings`, the control (the reference in TF32, put in the program's
+    place), the reference in float64 and the reference with each of
+    TRACK_FAULTS go through the same comparison: `sides`, [(name, their
+    numbers)]; and the lines that set each side's steps and losses beside
+    the program's: `detail`.  The cell's limits are the caller's."""
+    ref = follow_all(cfg, captures, stream, dev, follower=follower)
+    steps = follow_steps(cfg, captures, stream, dev, follower=follower)
+    vals = gaps(captures, ref, steps)
+    vals["start"] = start
+    n_track = sum(1 for k in captures if k[0] == "track")
+    n_map = sum(1 for k in captures if k[0] == "map")
+    if n_track == 0 or n_map == 0:
+        vals["sampled"] = math.inf
+    head = [f"check: tracked frames "
+            f"{sorted(k[1] for k in captures if k[0] == 'track')}, "
+            f"mapping event {[k[1] for k in captures if k[0] == 'map']}"]
+    sides, detail = [], []
+    if readings:
+        tracked = {k: c for k, c in captures.items() if k[0] == "track"}
+        by_side, at = {"program": captures}, {"program": steps}
+        raws = {"fp32": ref}
+        for short, name, caps, kw in (
+                ("tf32", "control (the reference in TF32)", captures,
+                 {"tf32": True}),
+                ("fp64", "the reference in float64", captures,
+                 {"dtype": torch.float64})) + tuple(
+                (short, name, tracked, kw) for short, name, kw
+                in TRACK_FAULTS):
+            raws[short] = follow_all(cfg, caps, stream, dev,
+                                     follower=follower, **kw)
+            outs = as_outputs(raws[short])
+            by_side[short] = {k: dataclasses.replace(c, out=outs[k])
+                              for k, c in caps.items() if k in outs}
+            at[short] = follow_steps(cfg, by_side[short], stream, dev,
+                                     follower=follower)
+            sides.append((name, dict(gaps(by_side[short], ref, at[short]),
+                                     start=0.0)))
+        detail += mapping_detail(by_side, ref)
+        detail += tracking_detail(captures, {
+            k: raws[k] for k in ("fp32", "tf32", "fp64")})
+        detail += steps_detail(by_side, ref, at)
+    return SimpleNamespace(vals=vals, head=head, sides=sides, detail=detail)

@@ -32,7 +32,8 @@ def _cam(cfg) -> dict:
 
 def _render_args(cfg) -> dict:
     r = cfg["rendering"]
-    return {"cam": _cam(cfg), "samples": (r["N_samples"], r["N_surface"])}
+    return {"cam": _cam(cfg), "samples": (r["N_samples"], r["N_surface"]),
+            "importance": r["N_importance"]}
 
 
 def _track_draw(cfg, gen):
@@ -53,7 +54,7 @@ def half_nominal(lr, step, b1=0.9, b2=0.999):
 
 def follow_tracking(cfg, params, grids, bound, idx, pre, pre_pre, color,
                     depth, gen, lr_scale: float = 1.0, frozen_entry=None,
-                    kept_shift: float = 0.0) -> dict:
+                    kept_shift: float = 0.0, ref=plain) -> dict:
     """Tracker.py:180-247 for frame idx: the constant-speed start, the
     init_select test against the previous pose, then `iters` Adam steps on
     the 7-vector, keeping the post-step camera of the lowest pre-step
@@ -64,7 +65,9 @@ def follow_tracking(cfg, params, grids, bound, idx, pre, pre_pre, color,
     `lr_scale`, `frozen_entry` (a camera entry whose gradient is zeroed)
     and `kept_shift` (metres added to the kept pose's x) plant faults in
     the reference put in the program's place, for the readings of the
-    faults that the check must catch."""
+    faults that the check must catch.  `ref` is the plain model whose
+    `tracking_loss` and `depth_median` the loop renders with:
+    reference/plain.py (NICE) or reference/plain_imap.py (iMAP*)."""
     t = cfg["tracking"]
     ra = _render_args(cfg)
     init = pre
@@ -73,10 +76,10 @@ def follow_tracking(cfg, params, grids, bound, idx, pre, pre_pre, color,
         if t["init_select"]:
             with torch.no_grad():
                 pix = _track_draw(cfg, gen)
-                med_cs = plain.depth_median(
+                med_cs = ref.depth_median(
                     plain.cam_to_c2w(plain.c2w_to_cam(init)), params, grids,
                     bound, depth, pix, ra)
-                med_pre = plain.depth_median(
+                med_pre = ref.depth_median(
                     plain.cam_to_c2w(plain.c2w_to_cam(pre)), params, grids,
                     bound, depth, pix, ra)
             if not bool(med_cs <= t["init_select_margin"]
@@ -90,8 +93,8 @@ def follow_tracking(cfg, params, grids, bound, idx, pre, pre_pre, color,
     for k in range(1, t["iters"] + 1):
         cams.append(cam_t.clone())
         c = cam_t.clone().requires_grad_(True)
-        loss = plain.tracking_loss(c, params, grids, bound, color, depth,
-                                   _track_draw(cfg, gen), cfg, ra)
+        loss = ref.tracking_loss(c, params, grids, bound, color, depth,
+                                 _track_draw(cfg, gen), cfg, ra)
         (g,) = torch.autograd.grad(loss, c)
         if frozen_entry is not None:
             g[frozen_entry] = 0.0
@@ -110,7 +113,7 @@ def follow_tracking(cfg, params, grids, bound, idx, pre, pre_pre, color,
 
 
 def follow_tracking_steps(cfg, params, grids, bound, idx, color, depth,
-                          gen, cams) -> dict:
+                          gen, cams, ref=plain) -> dict:
     """Frame idx's tracking loop step by step from the program's own
     pre-step cameras `cams` (iters, 7), with the program's draws
     (init_select's pixels drawn first, as the program draws them).  At
@@ -119,7 +122,8 @@ def follow_tracking_steps(cfg, params, grids, bound, idx, color, depth,
     from cams[k].
 
     Returns {"losses": [loss at cams[k]], "steps": [{"delta": the step,
-    "weight": |first moment|, "unit": half the nominal step there}]}."""
+    "weight": |first moment|, "unit": half the nominal step there}]}.
+    `ref`: as in `follow_tracking`."""
     t = cfg["tracking"]
     ra = _render_args(cfg)
     if t["const_speed_assumption"] and idx >= 2 and t["init_select"]:
@@ -130,8 +134,8 @@ def follow_tracking_steps(cfg, params, grids, bound, idx, color, depth,
     losses, steps = [], []
     for k in range(1, t["iters"] + 1):
         c = cams[k - 1].detach().clone().requires_grad_(True)
-        loss = plain.tracking_loss(c, params, grids, bound, color, depth,
-                                   _track_draw(cfg, gen), cfg, ra)
+        loss = ref.tracking_loss(c, params, grids, bound, color, depth,
+                                 _track_draw(cfg, gen), cfg, ra)
         (g,) = torch.autograd.grad(loss, c)
         losses.append(float(loss.detach()))
         m = b1 * m + (1 - b1) * g
@@ -171,7 +175,22 @@ def _select_overlap(gen, cam, depth, cur, kf_c2w, count, capacity, k):
     ids = torch.arange(capacity, device=dd.device)
     qualify = (ids < count - 1) & (share > 0.0)
     u_s = torch.rand(capacity, generator=gen, device=gen.device)
-    scores = torch.where(qualify, u_s, torch.full_like(u_s, -1.0))
+    return _top_slots(torch.where(qualify, u_s, torch.full_like(u_s, -1.0)),
+                      k, capacity)
+
+
+def _select_global(gen, count, capacity, k):
+    """Mapper.py:259-265 'global': a random top-k of the stored keyframes,
+    the newest excluded."""
+    u_s = torch.rand(capacity, generator=gen, device=gen.device)
+    ids = torch.arange(capacity, device=gen.device)
+    return _top_slots(torch.where(ids < max(count - 1, 0), u_s,
+                                  torch.full_like(u_s, -1.0)), k, capacity)
+
+
+def _top_slots(scores, k, capacity):
+    """The k best-scored slots and whether each scored above 0; k above
+    the capacity padded with invalid slots."""
     kk = min(k, capacity)
     _, slots = torch.topk(scores, kk)
     valid = scores[slots] > 0.0
@@ -280,31 +299,43 @@ def fresh_groups(cfg, ba: bool) -> dict:
     return out
 
 
+def group_leaves(tree, group: str) -> list:
+    """The tensors of a leaf group of a {"params", "grids", "cams"} tree:
+    'cams', 'grid/<name>', or 'decoder/<path>', the decoder subtree at
+    that path ('decoder/color', 'decoder/imap/embed')."""
+    if group == "cams":
+        return [tree["cams"]]
+    kind, path = group.split("/", 1)
+    if kind == "grid":
+        return [tree["grids"][path]]
+    node = tree["params"]
+    for part in path.split("/"):
+        node = node[part]
+    return list(plain.flatten(node).values())
+
+
 def group_tensor(tree, group: str):
     """A leaf group of a {"params", "grids", "cams"} tree as one flat
     tensor."""
-    if group == "cams":
-        return tree["cams"].reshape(-1)
-    kind, name = group.split("/")
-    if kind == "grid":
-        return tree["grids"][name].reshape(-1)
-    return torch.cat([x.reshape(-1) for x in
-                      plain.flatten(tree["params"][name]).values()])
+    return torch.cat([x.reshape(-1) for x in group_leaves(tree, group)])
 
 
 def mapping_window(cfg, bound, idx, cur, kf_c2w, kf_frames, count,
                    capacity, frames, gen) -> dict:
     """Frame idx's mapping window (Mapper.py:166-363): keyframe
-    selection, the window (selected keyframes, the newest keyframe, the
-    current frame) with its cameras, the frustum masks of the middle,
-    fine and colour grids, BA's learning-rate mask (the oldest valid
+    selection (keyframe_selection_method 'overlap', or 'global'), the
+    window (selected keyframes, the newest keyframe, the current frame)
+    with its colours and depths, BA's learning-rate mask (the oldest valid
     keyframe and empty slots frozen) and whether BA is on."""
     mp = cfg["mapping"]
     cam = _cam(cfg)
     color, depth = frames(idx)
     k = mp["mapping_window_size"] - 2
-    slots, valid = _select_overlap(gen, cam, depth, cur, kf_c2w, count,
-                                   capacity, k)
+    if mp["keyframe_selection_method"] == "global":
+        slots, valid = _select_global(gen, count, capacity, k)
+    else:
+        slots, valid = _select_overlap(gen, cam, depth, cur, kf_c2w, count,
+                                       capacity, k)
     slots_full = torch.cat([slots, torch.tensor([max(count - 1, 0)],
                                                 device=slots.device)])
     valid_full = torch.cat([valid, torch.tensor([count > 0, True],
@@ -380,12 +411,13 @@ def mapping_loss(cfg, tree, bound, win, stage, gen):
 
 
 def follow_mapping(cfg, bound, idx, cur, kf_c2w, kf_frames, count,
-                   capacity, frames, gen, states) -> dict:
+                   capacity, frames, gen, states, pass_gens=()) -> dict:
     """The first steps of every stage of frame idx's mapping event
     (Mapper.py:289-501), each from the program's own state before it:
     `states[it]` = {"tree": {"params", "grids", "cams"}, "gen": the
     generator's state} before iteration it (the `snapshot_iterations`).
-    The window comes from the event's start (`gen` there).  At each
+    The window comes from the event's start (`gen` there; the event is
+    one mapper call, and `pass_gens`, its start again, goes unread).  At each
     followed iteration: the loss at the program's state with the
     program's draws, and the Adam step of every group whose moments
     start in this stage (`fresh_groups`), the moments of a stage's

@@ -11,7 +11,12 @@ the name that BENCHMARK.json and the workload files give:
   `set` of dotted `cfg` keys it changes (`{"tpu.pipelined": true}`);
 - benchmark/traffic/<traffic>.json: the parameters of the generator;
 - benchmark/metrics/<metric>.py: one reader a per-layer metric, with its
-  unit, layer, source, the end-to-end metric it moves and its cells.
+  unit, layer, source, the end-to-end metric it moves, its cells and,
+  where it reads only some modes' work, its MODES;
+- benchmark/modes/<mode>.py: how a configuration of one mode (`mode_of`:
+  NICE or iMAP*) is checked and costed: the iterations of a mapping event
+  whose state the check reads, the start gap, the judge and the least
+  time of the window's schedule.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Dict, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KEYS = ("NAME", "UNIT", "BETTER", "SOURCE", "LAYER", "MOVES", "CELLS")
+MODE_KEYS = ("STATE_GRIDS", "snapshot_iterations", "start_gap", "judge",
+             "schedule_least_ms")
 
 
 def _json(kind: str, name: str, root: str = HERE) -> dict:
@@ -61,43 +68,89 @@ def traffic(name: str, root: str = HERE) -> dict:
 
 
 def names(kind: str, root: str = HERE) -> list:
-    """Every name of a kind ('workloads', 'configs', 'traffic' or
-    'metrics') that has a file."""
-    ext = ".py" if kind == "metrics" else ".json"
+    """Every name of a kind ('workloads', 'configs', 'traffic', 'metrics'
+    or 'modes') that has a file."""
+    ext = ".py" if kind in ("metrics", "modes") else ".json"
     d = os.path.join(root, kind)
     return sorted(f[:-len(ext)] for f in os.listdir(d)
                   if f.endswith(ext) and not f.startswith("_"))
 
 
-def metric(name: str, root: str = HERE) -> ModuleType:
-    path = os.path.join(root, "metrics", f"{name}.py")
+def _load(kind: str, name: str, keys, root: str = HERE) -> ModuleType:
+    """The module benchmark/<kind>/<name>.py, which must define `keys`."""
+    path = os.path.join(root, kind, f"{name}.py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no {kind[:-1]} named {name!r}: {path} is missing")
     spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{name}", path)
+        f"benchmark_{kind[:-1]}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    missing = [k for k in KEYS if not hasattr(mod, k)]
-    if missing or mod.NAME != name or not callable(getattr(mod, "read",
-                                                            None)):
-        raise ValueError(f"metric file {path}: missing {missing or 'read'}")
+    missing = [k for k in keys if not hasattr(mod, k)]
+    if missing:
+        raise ValueError(f"{kind[:-1]} file {path}: missing {missing}")
     return mod
 
 
-def metrics_for(cell: str, root: str = HERE) -> Dict[str, ModuleType]:
-    """The per-layer metrics whose CELLS hold `cell` (None: every cell)."""
+def metric(name: str, root: str = HERE) -> ModuleType:
+    mod = _load("metrics", name, KEYS + ("read",), root)
+    if mod.NAME != name:
+        raise ValueError(f"metric file of {name!r} names {mod.NAME!r}")
+    return mod
+
+
+def mode_of(cfg: dict) -> str:
+    """A frozen `cfg`'s mode: 'nice' (the hierarchical grids and their
+    decoders) or 'imap' (iMAP*'s one MLP, `nice: false`)."""
+    return "nice" if cfg["nice"] else "imap"
+
+
+def mode(name: str, root: str = HERE) -> ModuleType:
+    """The module of a mode, benchmark/modes/<name>.py."""
+    return _load("modes", name, MODE_KEYS, root)
+
+
+def cell_mode(cell: str, root: str = HERE) -> str:
+    """The mode of a cell's configuration, from their files."""
+    return mode_of(config(workload(cell, root)["config"], root)["cfg"])
+
+
+def modes_of(m: ModuleType) -> Optional[tuple]:
+    """The modes whose cells a metric reads (None: every mode)."""
+    return getattr(m, "MODES", None)
+
+
+def metrics_for(cell: str, root: str = HERE,
+                mode: Optional[str] = None) -> Dict[str, ModuleType]:
+    """The per-layer metrics whose CELLS hold `cell` (None: every cell)
+    and whose MODES, where a metric gives them, hold the cell's mode
+    (`mode`, or that of the cell's configuration file)."""
     out = {}
     for n in names("metrics", root):
         m = metric(n, root)
-        if m.CELLS is None or cell in m.CELLS:
-            out[n] = m
+        if m.CELLS is not None and cell not in m.CELLS:
+            continue
+        if modes_of(m) is not None:
+            if (mode or cell_mode(cell, root)) not in modes_of(m):
+                continue
+        out[n] = m
     return out
 
 
-def per_layer_entry(m: ModuleType) -> dict:
-    """The metric's BENCHMARK.json entry."""
+def per_layer_entry(m: ModuleType, root_repo: Optional[str] = None) -> dict:
+    """The metric's BENCHMARK.json entry: its `workloads` are its CELLS,
+    or, for a metric of some MODES, the BENCHMARK.json cells of those
+    modes."""
     e = {"name": m.NAME, "unit": m.UNIT, "better": m.BETTER,
          "source": m.SOURCE, "layer": m.LAYER, "moves": m.MOVES}
-    if m.CELLS is not None:
-        e["workloads"] = list(m.CELLS)
+    cells = m.CELLS
+    if modes_of(m) is not None:
+        root = os.path.join(root_repo, "benchmark") if root_repo else HERE
+        cells = [w["name"] for w in benchmark_json(root_repo)["workloads"]
+                 if (m.CELLS is None or w["name"] in m.CELLS)
+                 and cell_mode(w["name"], root) in modes_of(m)]
+    if cells is not None:
+        e["workloads"] = list(cells)
     return e
 
 

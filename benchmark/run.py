@@ -11,8 +11,10 @@ The last line of standard output is one JSON object: `correct`,
 last `check`: each number compared with its limit.  --readings 1 also
 computes the precision control (the reference in TF32, put in the
 program's place), the reference in float64 and the reference with each
-tracking fault of TRACK_FAULTS on the same captures, and prints their
-numbers, and whether they pass the limits, on standard error.
+tracking fault of reference/check.TRACK_FAULTS on the same captures, and
+prints their numbers, and whether they pass the limits, on standard
+error.  What is followed and costed is the configuration's mode's
+(benchmark/modes/<mode>.py, registry.mode_of).
 """
 
 import time
@@ -21,7 +23,6 @@ T_PROCESS = time.perf_counter()
 
 import argparse  # noqa: E402
 import copy  # noqa: E402
-import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -84,42 +85,9 @@ def frame_cam(cfg: dict) -> dict:
             "png_depth_scale": c["png_depth_scale"]}
 
 
-def schedule_least_ms(cfg: dict, n_frames: int, n_events: int) -> float:
-    """Least time of the decoder work of n_frames tracked frames (from the
-    third on, with init_select's two renders) and n_events steady mapping
-    events without bundle adjustment."""
-    from benchmark.costs import decode as cd
-
-    t, m, r = cfg["tracking"], cfg["mapping"], cfg["rendering"]
-    per_ray = r["N_samples"] + r["N_surface"]
-    n_t = t["pixels"] * per_ray
-    frame = t["iters"] * (
-        cd.step_ops_ms(*cd.step_flops("color", n_t, "fwd"))
-        + cd.step_ops_ms(*cd.step_flops("color", n_t, "bwd",
-                                        need_dp=True)))
-    if t["const_speed_assumption"] and t["init_select"]:
-        frame += 2 * cd.step_ops_ms(*cd.step_flops("color", n_t, "fwd"))
-    wn = m["mapping_window_size"]
-    rays = m["pixels"] // wn * wn
-    n_m, n_c = rays * per_ray, rays * r["N_samples"]
-    n = m["iters"]
-    n_mid = min(int(n * m["middle_iter_ratio"]) + 1, n)
-    n_fine = max(min(int(n * m["fine_iter_ratio"]) + 1, n) - n_mid, 0)
-    n_col = n - n_mid - n_fine
-    ev = 0.0
-    for stage, iters, live in (("middle", n_mid, ()), ("fine", n_fine, ()),
-                               ("color", n_col, ("color",))):
-        ev += iters * (cd.step_ops_ms(*cd.step_flops(stage, n_m, "fwd"))
-                       + cd.step_ops_ms(*cd.step_flops(stage, n_m, "bwd",
-                                                       live)))
-    if cfg.get("coarse"):
-        ev += n * (cd.step_ops_ms(*cd.step_flops("coarse", n_c, "fwd"))
-                   + cd.step_ops_ms(*cd.step_flops("coarse", n_c, "bwd")))
-    return n_frames * frame + n_events * ev
-
-
 def make_context(d, cfg, tr, window_s):
     """What the per-layer readers read."""
+    from benchmark import registry
     from benchmark.costs import decode as cd
 
     spans = {"track": d.track_spans.ms(d.win_ev[0] if d.cuda else d.t_ws),
@@ -144,8 +112,9 @@ def make_context(d, cfg, tr, window_s):
     return SimpleNamespace(
         spans=spans, counters=d.counters, trace=tr, cfg=cfg,
         window_s=window_s, window_ms=window_ms, roofline=roofline,
-        schedule_least_ms=lambda: schedule_least_ms(
-            cfg, len(spans["track"]), len(spans["map"])))
+        schedule_least_ms=lambda: registry.mode(
+            registry.mode_of(cfg)).schedule_least_ms(
+                cfg, len(spans["track"]), len(spans["map"])))
 
 
 def main(argv=None) -> int:
@@ -251,7 +220,8 @@ def run_cell(args, wl, dev, t_process, engine_hook=None, conf=None):
            "setup_s": (setup_s, "s")}
     metrics = {}
     if args.trace:
-        for name, mod in registry.metrics_for(args.workload).items():
+        for name, mod in registry.metrics_for(
+                args.workload, mode=registry.mode_of(cfg)).items():
             v = mod.read(ctx)
             if v is not None and math.isfinite(v):
                 metrics[name] = {"value": v, "unit": mod.UNIT}
@@ -299,68 +269,23 @@ def is_correct(numbers: dict) -> bool:
     return all(v["value"] <= v["limit"] for v in numbers.values())
 
 
-# the tracking faults the readings plant in the reference put in the
-# program's place (follow.follow_tracking's arguments)
-TRACK_FAULTS = (
-    ("lr_half", "fault: tracking's learning rate halved",
-     {"lr_scale": 0.5}),
-    ("entry_zero", "fault: the gradient of the camera's x translation "
-     "zeroed", {"frozen_entry": 4}),
-    ("kept_moved", "fault: the kept pose moved 1e-3 along x",
-     {"kept_shift": 1e-3}))
-
-
 def judge(cfg, wl, captures, stream, dev, start_params, readings: bool):
     """The numbers compared, each with its limit (workload 'limits'), and
-    the lines that show them.  With
-    `readings`, the control (the reference in TF32, put in the program's
-    place), the reference in float64 and the reference with each of
-    TRACK_FAULTS go through the same comparison, and their lines
-    follow."""
-    import torch
+    the lines that show them: the cell's mode (registry.mode_of) follows
+    the captures (its `judge`, reference/check.judge), and with
+    `readings` the control, the reference in float64 and the tracking
+    faults, put in the program's place, go through the same limits."""
+    from benchmark import registry
 
-    from benchmark.reference import check
-
-    ref = check.follow_all(cfg, captures, stream, dev)
-    steps = check.follow_steps(cfg, captures, stream, dev)
-    vals = check.gaps(captures, ref, steps)
-    vals["start"] = check.start_gap(start_params,
-                                    cfg["pretrained_decoders"]["tpu_npz"])
-    n_track = sum(1 for k in captures if k[0] == "track")
-    n_map = sum(1 for k in captures if k[0] == "map")
-    if n_track == 0 or n_map == 0:
-        vals["sampled"] = math.inf
+    got = registry.mode(registry.mode_of(cfg)).judge(
+        cfg, captures, stream, dev, start_params, readings)
     limits = wl["limits"]
-    numbers = compared(vals, limits)
-    lines = [f"check: tracked frames "
-             f"{sorted(k[1] for k in captures if k[0] == 'track')}, "
-             f"mapping event {[k[1] for k in captures if k[0] == 'map']}",
-             "readings not compared: " + json.dumps(
-                 {k: v for k, v in vals.items() if k not in numbers})]
-    if readings:
-        tracked = {k: c for k, c in captures.items() if k[0] == "track"}
-        sides, at = {"program": captures}, {"program": steps}
-        raws = {"fp32": ref}
-        for short, name, caps, kw in (
-                ("tf32", "control (the reference in TF32)", captures,
-                 {"tf32": True}),
-                ("fp64", "the reference in float64", captures,
-                 {"dtype": torch.float64})) + tuple(
-                (short, name, tracked, kw) for short, name, kw
-                in TRACK_FAULTS):
-            raws[short] = check.follow_all(cfg, caps, stream, dev, **kw)
-            outs = check.as_outputs(raws[short])
-            sides[short] = {k: dataclasses.replace(c, out=outs[k])
-                            for k, c in caps.items() if k in outs}
-            at[short] = check.follow_steps(cfg, sides[short], stream, dev)
-            v = dict(check.gaps(sides[short], ref, at[short]), start=0.0)
-            lines.append(f"{name}: correct "
-                         f"{is_correct(compared(v, limits))}; "
-                         + json.dumps(v))
-        lines += check.mapping_detail(sides, ref)
-        lines += check.tracking_detail(captures, {
-            k: raws[k] for k in ("fp32", "tf32", "fp64")})
-        lines += check.steps_detail(sides, ref, at)
+    numbers = compared(got.vals, limits)
+    lines = got.head + ["readings not compared: " + json.dumps(
+        {k: v for k, v in got.vals.items() if k not in numbers})]
+    lines += [f"{name}: correct {is_correct(compared(v, limits))}; "
+              + json.dumps(v) for name, v in got.sides]
+    lines += got.detail
     lines += [f"check {k}: {v['value']!r} limit {v['limit']!r}"
               for k, v in numbers.items()]
     return numbers, lines
